@@ -1,0 +1,59 @@
+"""tensorframes_tpu_torch: the PyTorch / CUDA port of tensorframes_tpu.
+
+A second package beside the JAX one, for one NVIDIA H100. It keeps the JAX
+package's module names and its user surface: a graph (builder DSL,
+GraphDef bytes, or a plain function) is matched to the columns of a
+block-partitioned `TensorFrame` and run per block by the verbs
+``map_blocks``, ``map_rows`` and ``reduce_blocks``. Every verb and model
+runs on the CUDA card unless the caller passes ``device="cpu"``.
+
+The port imports torch and numpy, never jax nor the JAX package. It keeps
+its own copies of the framework-free modules it needs (schema, proto,
+graph IR and builder).
+
+Float32 matrix products run in full float32: TF32 is turned off here for
+cuBLAS and cuDNN, because the parity bars against the JAX package assume
+it.
+"""
+
+import torch as _torch
+
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from .api import (  # noqa: E402
+    analyze,
+    block,
+    map_blocks,
+    map_rows,
+    print_schema,
+    reduce_blocks,
+    row,
+)
+from .frame import Column, TensorFrame  # noqa: E402
+from .graph import Graph  # noqa: E402
+from .graph import builder as dsl  # noqa: E402
+from .runtime import Executor  # noqa: E402
+from .schema import ColumnInfo, FrameInfo, ScalarType, Shape, Unknown  # noqa: E402
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Column",
+    "ColumnInfo",
+    "Executor",
+    "FrameInfo",
+    "Graph",
+    "ScalarType",
+    "Shape",
+    "TensorFrame",
+    "Unknown",
+    "analyze",
+    "block",
+    "dsl",
+    "map_blocks",
+    "map_rows",
+    "print_schema",
+    "reduce_blocks",
+    "row",
+]
