@@ -13,12 +13,28 @@ main path through the entry points a user calls:
    LM's shape, with times;
 3. the graph verbs at `bench.py`'s data size: `map_blocks` of x+3 and
    `reduce_blocks` sum / min over 200,000,000 float32 rows in 8 blocks;
-4. `map_rows` of the 512-512-512-10 MLP scoring graph over 1,000,000 rows;
-5. `TransformerLM` scoring through `map_blocks` with a plain function, and
+   then `reduce_rows` over the same column through its monoid plan (sum,
+   min), and a non-associative fold (0.5 x_1 + x_2, 20,000 rows in 8
+   blocks) through its general plan;
+4. `map_rows` of `models.MLP`'s 512-512-512-10 scoring graph over 1,000,000
+   rows, and the same weights through the function front end (`map_rows`
+   of a plain function with the weights bound);
+5. keyed `aggregate`: BASELINE config 4 (mean and variance of 100,000,000
+   rows x 8 float32 values over 16 int64 keys) through the segment plan,
+   and a Div-rooted graph over 1,000,000 rows and 1,000 keys of uneven
+   size through the exact plan;
+6. `models.kmeans` at the k-means demo's widths (dim 100, k 10, 10
+   iterations) over 10,000,000 float32 rows in 8 blocks, one iteration
+   held against a numpy float64 Lloyd step;
+7. `TransformerLM` scoring through `map_blocks` with a plain function, and
    the attention kernel's share of that call's wall time;
-6. one JSON line listing every kernel with its launches on the main path
-   (phases 3-5), its error and its times;
-7. as the last line, ``{"ok": true, "device": {...}}``.
+8. one JSON line listing every kernel with its launches on the main path
+   (phases 3-7), its error and its times;
+9. as the last line, ``{"ok": true, "device": {...}}``.
+
+Phases 3-6 run no hand-written kernel (their ops are ATen and cuBLAS
+calls), so the script checks that the attention kernel's count is still 0
+after them and counts its launches in phase 7 alone.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once. It imports
@@ -53,6 +69,13 @@ _MLP_RTOL, _MLP_ATOL = 1e-4, 1e-6
 # logits of the kernel's model against the plain version's model: the
 # attention differences above carried through 4 layers
 _LOGIT_RTOL, _LOGIT_ATOL = 1e-4, 1e-5
+# reduce_rows' general plan folds 0.5 * carry + row in float32: one
+# rounding per step, halved by every later step, so the float32 fold stays
+# within a few ulps of a float64 fold of the same float32 inputs
+_FOLD_RTOL = 1e-6
+# k-means centres (coordinates of order 1-20): float32 sums of ~10^6
+# points per centre against a float64 Lloyd step
+_KMEANS_RTOL, _KMEANS_ATOL = 1e-4, 1e-3
 
 SEED = 0
 
@@ -101,6 +124,15 @@ def _wall(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def _plan_ran(what: str, key: str) -> None:
+    """Raise unless the verb call since the last `reset_stats` took exactly
+    the plan ``key`` (the port's plan counters)."""
+    from tensorframes_tpu_torch.utils.profiling import stats
+
+    if stats() != {key: 1.0}:
+        raise AssertionError(f"{what}: expected plan {key}, counters say {stats()}")
 
 
 def _attention_bound(bh: int, s: int, d: int, causal: bool):
@@ -250,10 +282,78 @@ def phase_graph_verbs(tft) -> None:
         reduce_sum_s=sum_s, reduce_min_s=min_s,
         reduce_sum_rel_err=sum_rel, sum_rtol=_SUM_RTOL,
     )
+    phase_reduce_rows(tft, df, want_sum, want_min)
+
+
+def _pair_graph(tft, combine):
+    """``x = combine(x_1, x_2)`` over float32 scalars: a reduce_rows fold."""
+    f32, scalar = tft.ScalarType.float32, tft.Shape(())
+    x1 = tft.dsl.placeholder(f32, scalar, name="x_1")
+    x2 = tft.dsl.placeholder(f32, scalar, name="x_2")
+    return combine(x1, x2).named("x")
+
+
+def phase_reduce_rows(tft, df, want_sum: float, want_min, fold_rows: int = 20_000,
+                      fold_blocks: int = 8) -> None:
+    """The monoid plan over phase 3's column (sum, min), then the general
+    plan on a non-associative fold against a float64 fold in the same
+    order: rows left to right in each block, then the block partials."""
+    from tensorframes_tpu_torch.utils.profiling import reset_stats
+
+    n = df.nrows
+    out = {}
+    for name, combine in (
+        ("sum", tft.dsl.add),
+        ("min", lambda a, b: tft.dsl._nary("Minimum", [a, b])),
+    ):
+        g = _pair_graph(tft, combine)
+        tft.reduce_rows(g, df)  # lowers once
+        reset_stats()
+        got, secs = _wall(lambda: tft.reduce_rows(g, df))
+        _plan_ran(f"reduce_rows {name}", "reduce_rows.plan.monoid")
+        out[name] = (got, secs)
+    got_min, min_s = out["min"]
+    if got_min.dtype != torch.float32 or got_min.item() != want_min:
+        raise AssertionError(f"reduce_rows min {got_min.item()} != numpy {want_min}")
+    got_sum, sum_s = out["sum"]
+    sum_rel = abs(got_sum.item() - want_sum) / abs(want_sum)
+    if got_sum.dtype != torch.float32 or sum_rel > _SUM_RTOL:
+        raise AssertionError(f"reduce_rows sum rel err {sum_rel:.3e} > {_SUM_RTOL}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    y = torch.rand(fold_rows, device="cuda", generator=gen)
+    fdf = tft.TensorFrame([tft.Column("x", y)]).repartition(fold_blocks)
+    g = _pair_graph(tft, lambda a, b: a * 0.5 + b)
+    tft.reduce_rows(g, fdf)  # lowers once
+    reset_stats()
+    got_fold, fold_s = _wall(lambda: tft.reduce_rows(g, fdf))
+    _plan_ran("reduce_rows 0.5 x_1 + x_2", "reduce_rows.plan.general")
+
+    yh = y.cpu().numpy().astype(np.float64).tolist()
+    partials = []
+    for lo, hi in zip(fdf.offsets, fdf.offsets[1:]):
+        acc = yh[lo]
+        for v in yh[lo + 1:hi]:
+            acc = 0.5 * acc + v
+        partials.append(acc)
+    want_fold = partials[0]
+    for p in partials[1:]:
+        want_fold = 0.5 * want_fold + p
+    fold_rel = abs(got_fold.item() - want_fold) / abs(want_fold)
+    if got_fold.dtype != torch.float32 or fold_rel > _FOLD_RTOL:
+        raise AssertionError(f"reduce_rows fold rel err {fold_rel:.3e} > {_FOLD_RTOL}")
+    _emit(
+        "reduce_rows", rows=n, blocks=df.num_blocks,
+        monoid_sum_s=sum_s, monoid_sum_rows_per_s=n / sum_s, monoid_min_s=min_s,
+        monoid_min_rows_per_s=n / min_s, monoid_sum_rel_err=sum_rel, sum_rtol=_SUM_RTOL,
+        general_rows=fold_rows, general_blocks=fold_blocks, general_s=fold_s,
+        general_rows_per_s=fold_rows / fold_s, general_rel_err=fold_rel,
+        general_rtol=_FOLD_RTOL,
+    )
 
 
 def phase_map_rows_mlp(tft) -> None:
-    from tensorframes_tpu_torch import dsl
+    from tensorframes_tpu_torch.models import MLP
 
     rows, sizes = 1_000_000, [512, 512, 512, 10]
     rng = np.random.default_rng(SEED)
@@ -264,15 +364,8 @@ def phase_map_rows_mlp(tft) -> None:
         )
         for a, b in zip(sizes[:-1], sizes[1:])
     ]
-    # the per-row scoring graph of BASELINE config 3 (models/mlp.py's shape)
-    h = x = dsl.placeholder(tft.ScalarType.float32, tft.Shape((sizes[0],)), name="features")
-    for i, (w, b) in enumerate(params):
-        h = dsl.matmul(dsl.reshape(h, [1, -1]) if i == 0 else h, dsl.constant(w, name=f"w{i}"))
-        h = dsl._nary("BiasAdd", [h, dsl.constant(b, name=f"b{i}")])
-        if i < len(params) - 1:
-            h = dsl.relu(h)
-    probs = dsl.softmax(dsl.reshape(h, [sizes[-1]])).named("probs")
-    del x
+    # the per-row scoring graph of BASELINE config 3
+    probs = MLP.from_jax_params(params).scoring_graph("features", block=False)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     feats = torch.rand(rows, sizes[0], device="cuda", generator=gen)
@@ -283,6 +376,19 @@ def phase_map_rows_mlp(tft) -> None:
     if tuple(got.shape) != (rows, sizes[-1]) or not torch.isfinite(got).all():
         raise AssertionError(f"map_rows MLP: bad output {tuple(got.shape)}")
 
+    # the same weights through the function front end, bound once per call
+    bound = {f"{p}{i}": t for i, wb in enumerate(params) for p, t in zip("wb", wb)}
+
+    def score(features, w0, b0, w1, b1, w2, b2):
+        h = torch.relu(features @ w0 + b0)
+        h = torch.relu(h @ w1 + b1)
+        return {"probs": torch.softmax(h @ w2 + b2, dim=-1)}
+
+    tft.map_rows(score, df, bindings=bound)
+    fn_out, fn_secs = _wall(lambda: tft.map_rows(score, df, bindings=bound))
+    fn_got = fn_out.column("probs").values
+    routes_err = _check_close("map_rows MLP graph vs function", fn_got, got, _MLP_RTOL, _MLP_ATOL)
+
     idx = np.concatenate([np.arange(1000), np.arange(rows - 1000, rows)])
     a = feats[torch.from_numpy(idx).cuda()].cpu().numpy().astype(np.float64)
     for i, (w, b) in enumerate(params):
@@ -291,13 +397,188 @@ def phase_map_rows_mlp(tft) -> None:
             a = np.maximum(a, 0.0)
     a = np.exp(a - a.max(axis=1, keepdims=True))
     want = torch.from_numpy((a / a.sum(axis=1, keepdims=True)).astype(np.float32))
-    err = _check_close(
-        "map_rows MLP", got[torch.from_numpy(idx).cuda()].cpu(), want, _MLP_RTOL, _MLP_ATOL
-    )
+    sel = torch.from_numpy(idx).cuda()
+    err = _check_close("map_rows MLP", got[sel].cpu(), want, _MLP_RTOL, _MLP_ATOL)
+    fn_err = _check_close("map_rows MLP function", fn_got[sel].cpu(), want, _MLP_RTOL, _MLP_ATOL)
     _emit(
         "map_rows_mlp", rows=rows, sizes=sizes, seconds=secs, rows_per_s=rows / secs,
-        checked_rows=len(idx), max_abs_err=err,
+        function_seconds=fn_secs, function_rows_per_s=rows / fn_secs,
+        checked_rows=len(idx), max_abs_err=err, function_max_abs_err=fn_err,
+        graph_vs_function_max_abs_err=routes_err,
         tolerance={"rtol": _MLP_RTOL, "atol": _MLP_ATOL},
+    )
+
+
+def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
+                    exact_rows: int = 1_000_000, exact_keys: int = 1000) -> None:
+    """BASELINE config 4 through the segment plan, then a graph the
+    segment plan refuses (its root is a Div) through the exact plan."""
+    from tensorframes_tpu_torch.utils.profiling import reset_stats
+
+    dsl = tft.dsl
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    v = torch.rand(rows, dim, device="cuda", generator=gen)
+    keys = torch.arange(rows, device="cuda") % nkeys
+    df = tft.TensorFrame([tft.Column("k", keys), tft.Column("v", v)])
+    m = dsl.reduce_mean(dsl.block(df, "v", tf_name="m_input"), axes=[0]).named("m")
+    q = dsl.reduce_mean(dsl.square(dsl.block(df, "v", tf_name="q_input")), axes=[0]).named("q")
+    feed = {"m_input": "v", "q_input": "v"}
+    grouped = tft.group_by(df, "k")
+    first, first_s = _wall(lambda: tft.aggregate([m, q], grouped, feed_dict=feed))
+    del first
+    reset_stats()
+    out, seg_s = _wall(lambda: tft.aggregate([m, q], grouped, feed_dict=feed))
+    _plan_ran("aggregate mean/variance", "aggregate.plan.segment")
+    got_k = out.host_values("k")
+    got_m, got_q = out.host_values("m"), out.host_values("q")
+    if got_m.dtype != np.float32 or got_m.shape != (nkeys, dim):
+        raise AssertionError(f"aggregate mean: {got_m.dtype} {got_m.shape}")
+    if not np.array_equal(got_k, np.arange(nkeys)):
+        raise AssertionError(f"aggregate keys {got_k}")
+    del out
+
+    # the plan's float segment sum alone (chunks, then a tree sum over
+    # them), and one float32 index_add over all rows in its place
+    from tensorframes_tpu_torch.ops.standard import segment_reduce
+
+    vsq = v * v
+    segment_sum_ms = _time_ms(lambda: segment_reduce(vsq, keys, nkeys, "sum"), 5)
+
+    def one_level():
+        return torch.zeros(nkeys, dim, device="cuda").index_add_(0, keys, vsq)
+
+    one_level_ms = _time_ms(one_level, 5)
+    one_level_sq = one_level().cpu().numpy()
+    del vsq
+
+    kh = keys.cpu().numpy()
+    vh = v.cpu().numpy()
+    del df, grouped, v, keys
+    counts = np.bincount(kh, minlength=nkeys).astype(np.float64)
+    want_m = np.empty((nkeys, dim))
+    want_q = np.empty((nkeys, dim))
+    for j in range(dim):
+        col = vh[:, j].astype(np.float64)
+        want_m[:, j] = np.bincount(kh, weights=col, minlength=nkeys) / counts
+        want_q[:, j] = np.bincount(kh, weights=col * col, minlength=nkeys) / counts
+    del kh, vh, col
+    mean_err = _check_close(
+        "aggregate mean", torch.from_numpy(got_m.astype(np.float64)),
+        torch.from_numpy(want_m), _SUM_RTOL, 0.0,
+    )
+    one_level_rel_err = float(np.abs(one_level_sq / (want_q * counts[:, None]) - 1).max())
+    sq_err = _check_close(
+        "aggregate mean of squares", torch.from_numpy(got_q.astype(np.float64)),
+        torch.from_numpy(want_q), _SUM_RTOL, 0.0,
+    )
+    # variance = q - m^2: within rtol of q and m, it is within
+    # rtol * (q + 2 m^2) of the float64 variance
+    got_var = got_q.astype(np.float64) - got_m.astype(np.float64) ** 2
+    var_err = _check_close(
+        "aggregate variance", torch.from_numpy(got_var),
+        torch.from_numpy(want_q - want_m**2), 0.0,
+        torch.from_numpy(_SUM_RTOL * (want_q + 2 * want_m**2)),
+    )
+
+    # exact plan: Sum / Max per key, 1,000 keys of uneven size (key k
+    # drawn with density falling as 1/sqrt(k))
+    u = torch.rand(exact_rows, device="cuda", generator=gen)
+    ek = (u * u * exact_keys).to(torch.int64)
+    ev = torch.rand(exact_rows, device="cuda", generator=gen) + 0.5
+    edf = tft.TensorFrame([tft.Column("k", ek), tft.Column("x", ev)]).repartition(8)
+    xi = dsl.block(edf, "x", tf_name="x_input")
+    ratio = (dsl.reduce_sum(xi, axes=[0]) / dsl.reduce_max(xi, axes=[0])).named("x")
+    egrouped = tft.group_by(edf, "k")
+    tft.aggregate(ratio, egrouped)  # lowers once
+    reset_stats()
+    eout, exact_s = _wall(lambda: tft.aggregate(ratio, egrouped))
+    _plan_ran("aggregate Sum/Max", "aggregate.plan.exact")
+    ekh, exh = ek.cpu().numpy(), ev.cpu().numpy().astype(np.float64)
+    sizes = np.bincount(ekh, minlength=exact_keys)
+    present = np.nonzero(sizes)[0]
+    maxes = np.full(exact_keys, -np.inf)
+    np.maximum.at(maxes, ekh, exh)
+    want_ratio = (np.bincount(ekh, weights=exh, minlength=exact_keys) / maxes)[present]
+    if not np.array_equal(eout.host_values("k"), present):
+        raise AssertionError("aggregate exact plan: keys differ from the distinct keys")
+    exact_err = _check_close(
+        "aggregate Sum/Max", torch.from_numpy(eout.host_values("x").astype(np.float64)),
+        torch.from_numpy(want_ratio), _SUM_RTOL, 0.0,
+    )
+    _emit(
+        "aggregate", rows=rows, dim=dim, keys=nkeys, segment_first_s=first_s,
+        segment_s=seg_s, segment_rows_per_s=rows / seg_s, mean_max_abs_err=mean_err,
+        mean_of_squares_max_abs_err=sq_err, variance_max_abs_err=var_err,
+        mean_rtol=_SUM_RTOL, segment_sum_ms=segment_sum_ms,
+        one_level_index_add_ms=one_level_ms,
+        one_level_sum_of_squares_rel_err=one_level_rel_err,
+        exact_rows=exact_rows, exact_keys=len(present),
+        exact_distinct_sizes=len(np.unique(sizes[present])), exact_s=exact_s,
+        exact_rows_per_s=exact_rows / exact_s, exact_max_abs_err=exact_err,
+        exact_rtol=_SUM_RTOL,
+    )
+
+
+def _lloyd_step_f64(points: torch.Tensor, centers: np.ndarray, chunk: int = 1_000_000):
+    """One float64 Lloyd step on the host: (centres, counts, near_ties),
+    where near_ties counts points whose two nearest squared distances lie
+    within float32 rounding of each other (either assignment is right)."""
+    k, dim = centers.shape
+    c = centers.astype(np.float64)
+    c2 = (c * c).sum(1)
+    sums, counts, ties = np.zeros((k, dim)), np.zeros(k), 0
+    for lo in range(0, len(points), chunk):
+        p = points[lo:lo + chunk].cpu().numpy().astype(np.float64)
+        p2 = (p * p).sum(1, keepdims=True)
+        d = p2 - 2.0 * p @ c.T + c2
+        two = np.partition(d, 1, axis=1)[:, :2]
+        # float32 rounds each of |p|^2, 2 p.c and |c|^2 to ~2^-24 of its size
+        ties += int((two[:, 1] - two[:, 0] <= 1e-5 * (p2[:, 0] + c2.max())).sum())
+        a = d.argmin(1)
+        counts += np.bincount(a, minlength=k)
+        sums += np.eye(k)[a].T @ p
+    new = c.copy()
+    nz = counts > 0
+    new[nz] = sums[nz] / counts[nz, None]
+    return new, counts, ties
+
+
+def phase_kmeans(tft, rows: int = 10_000_000, dim: int = 100, k: int = 10,
+                 iters: int = 10, blocks: int = 8) -> None:
+    from tensorframes_tpu_torch.models import kmeans
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    blobs = torch.randn(k, dim, device="cuda", generator=gen) * 5.0
+    pick = torch.randint(0, k, (rows,), device="cuda", generator=gen)
+    pts = blobs[pick] + torch.randn(rows, dim, device="cuda", generator=gen)
+    del pick
+    df = tft.TensorFrame([tft.Column("features", pts)]).repartition(blocks)
+
+    (one_c, one_n), one_s = _wall(lambda: kmeans(df, "features", k, num_iters=1, seed=SEED))
+    init = pts[torch.from_numpy(
+        np.random.RandomState(SEED).choice(rows, size=k, replace=False)
+    ).cuda()].cpu().numpy()
+    want_c, want_n, ties = _lloyd_step_f64(pts, init)
+    moved = int(np.abs(one_n - want_n).sum())
+    if moved > 2 * ties:
+        raise AssertionError(
+            f"kmeans counts differ by {moved} from the float64 step, more than "
+            f"the {ties} near-tie points can explain"
+        )
+    centre_err = _check_close(
+        "kmeans centres", torch.from_numpy(one_c.astype(np.float64)),
+        torch.from_numpy(want_c), _KMEANS_RTOL, _KMEANS_ATOL,
+    )
+
+    (cs, ns), secs = _wall(lambda: kmeans(df, "features", k, num_iters=iters, seed=SEED))
+    if cs.shape != (k, dim) or not np.isfinite(cs).all() or ns.sum() != rows:
+        raise AssertionError(f"kmeans: bad result {cs.shape}, {ns.sum()} points counted")
+    _emit(
+        "kmeans", rows=rows, dim=dim, k=k, blocks=blocks, iterations=iters,
+        seconds=secs, s_per_iteration=secs / iters, rows_per_s=rows * iters / secs,
+        one_iteration_s=one_s, centre_max_abs_err=centre_err,
+        count_differences=moved, near_tie_points=ties,
+        tolerance={"rtol": _KMEANS_RTOL, "atol": _KMEANS_ATOL},
     )
 
 
@@ -351,6 +632,13 @@ def main() -> int:
     flash_attention.launches = 0
     phase_graph_verbs(tft)
     phase_map_rows_mlp(tft)
+    phase_aggregate(tft)
+    phase_kmeans(tft)
+    if flash_attention.launches:
+        raise AssertionError(
+            f"the verb, aggregate and k-means phases launched flash_attention "
+            f"{flash_attention.launches} times; none of their graphs holds attention"
+        )
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)
     launches = flash_attention.launches
     expected = cfg["n_layers"] * (n_seqs // block_seqs)

@@ -3,9 +3,10 @@
 A second package beside the JAX one, for one NVIDIA H100. It keeps the JAX
 package's module names and its user surface: a graph (builder DSL,
 GraphDef bytes, or a plain function) is matched to the columns of a
-block-partitioned `TensorFrame` and run per block by the verbs
-``map_blocks``, ``map_rows`` and ``reduce_blocks``. Every verb and model
-runs on the CUDA card unless the caller passes ``device="cpu"``.
+block-partitioned `TensorFrame` and run per block by the five verbs
+``map_blocks``, ``map_rows``, ``reduce_blocks``, ``reduce_rows`` and
+``aggregate`` (over ``group_by``). Every verb and model runs on the CUDA
+card unless the caller passes ``device="cpu"``.
 
 The port imports torch and numpy, never jax nor the JAX package. It keeps
 its own copies of the framework-free modules it needs (schema, proto,
@@ -22,12 +23,16 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .api import (  # noqa: E402
+    GroupedFrame,
+    aggregate,
     analyze,
     block,
+    group_by,
     map_blocks,
     map_rows,
     print_schema,
     reduce_blocks,
+    reduce_rows,
     row,
 )
 from .frame import Column, TensorFrame  # noqa: E402
@@ -43,17 +48,21 @@ __all__ = [
     "ColumnInfo",
     "Executor",
     "FrameInfo",
+    "GroupedFrame",
     "Graph",
     "ScalarType",
     "Shape",
     "TensorFrame",
     "Unknown",
+    "aggregate",
     "analyze",
     "block",
     "dsl",
+    "group_by",
     "map_blocks",
     "map_rows",
     "print_schema",
     "reduce_blocks",
+    "reduce_rows",
     "row",
 ]

@@ -1,15 +1,15 @@
-"""The verbs: `map_blocks`, `map_rows`, `reduce_blocks`, plus `block`,
-`row` and `analyze`.
+"""The five verbs: `map_blocks`, `map_rows`, `reduce_blocks`, `reduce_rows`
+and `aggregate` (with `group_by`), plus `block`, `row` and `analyze`.
 
-The PyTorch counterpart of `tensorframes_tpu/api.py`, for this slice of the
-port. A graph (DSL tensor, `Graph`, GraphDef bytes or file path) is
-analyzed, its placeholders are matched to columns, and a lowered callable
+The PyTorch counterpart of `tensorframes_tpu/api.py`. A graph (DSL tensor,
+`Graph`, GraphDef bytes or file path) is analyzed, its placeholders are
+matched to columns (or to per-call ``bindings``), and a lowered callable
 runs once per block on ``device`` (default: the CUDA card). Outputs stay on
 that device as tensors; `Column.host_values` is the one way back to numpy.
 
-Not in this slice: the mesh/scheduler/lazy/global routes, bindings, string
+Not in the port yet: the mesh/scheduler/lazy/global routes, string
 pass-through, shape bucketing (eager PyTorch has no per-shape compile to
-bound), `reduce_rows` and `aggregate`.
+bound) and the chunked aggregate plan.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .aggregate import _aggregate_exact, _aggregate_segment, _chunk_combiners
 from .device import DeviceLike, resolve_device
 from .frame import Column, TensorFrame, as_tensor
 from .graph import builder as dsl
@@ -26,12 +27,17 @@ from .graph.analysis import GraphSummary, analyze_graph
 from .graph.ir import Graph, base_name
 from .ops.lowering import build_callable
 from .runtime.executor import Executor, default_executor
-from .schema import Shape
+from .schema import ScalarType, Shape
+from .utils.profiling import count as _count
 
 __all__ = [
     "map_blocks",
     "map_rows",
     "reduce_blocks",
+    "reduce_rows",
+    "aggregate",
+    "group_by",
+    "GroupedFrame",
     "block",
     "row",
     "analyze",
@@ -39,6 +45,7 @@ __all__ = [
 ]
 
 Fetches = Union[dsl.Tensor, Sequence[dsl.Tensor], Graph, bytes, str]
+Bindings = Optional[Dict[str, Union[np.ndarray, torch.Tensor]]]
 
 # ---------------------------------------------------------------------------
 # graph normalization + placeholder <-> column matching
@@ -81,24 +88,68 @@ def _default_column(ph_name: str, frame: TensorFrame) -> str:
     return ph_name
 
 
+def _normalize_bindings(bindings: Bindings) -> Dict[str, Union[np.ndarray, torch.Tensor]]:
+    return {
+        k: v if isinstance(v, torch.Tensor) else np.asarray(v)
+        for k, v in (bindings or {}).items()
+    }
+
+
+def _binding_type(arr) -> ScalarType:
+    if isinstance(arr, torch.Tensor):
+        return ScalarType.from_torch_dtype(arr.dtype)
+    return ScalarType.from_np_dtype(np.dtype(arr.dtype))
+
+
+def _check_bindings(summary: GraphSummary, bindings: Dict) -> None:
+    """Validate per-call bound arrays against their placeholders. A bound
+    array is an argument of the lowered callable, not a baked constant, so
+    one lowering serves every call whatever the bound values."""
+    for name, arr in bindings.items():
+        if name not in summary.inputs:
+            raise ValueError(
+                f"binding {name!r} does not match any placeholder "
+                f"(placeholders: {sorted(summary.inputs)})"
+            )
+        ph = summary.inputs[name]
+        st = _binding_type(arr)
+        if st is not ph.dtype:
+            raise ValueError(
+                f"binding {name!r} has dtype {st.name} but placeholder wants "
+                f"{ph.dtype.name} (TF graphs do not promote dtypes)"
+            )
+        if not Shape(tuple(arr.shape)).check_more_precise_than(ph.shape):
+            raise ValueError(
+                f"binding {name!r} with shape {tuple(arr.shape)} is not "
+                f"compatible with placeholder shape {ph.shape}"
+            )
+
+
 def _ph_overrides(
     graph: Graph,
     frame: TensorFrame,
     feed_dict: Optional[Dict[str, str]],
     block_level: bool,
+    bindings: Dict,
 ) -> Dict[str, Shape]:
-    """Column shapes are usually more precise than placeholder attrs
-    (imported graphs carry [?,?]); inject them for tighter analysis."""
+    """Column (and binding) shapes are usually more precise than
+    placeholder attrs (imported graphs carry [?,?]); inject them for
+    tighter analysis."""
     feed_dict = feed_dict or {}
     overrides: Dict[str, Shape] = {}
     for ph in graph.placeholders():
-        col_name = feed_dict.get(ph.name, _default_column(ph.name, frame))
-        if col_name in frame.info:
+        if ph.name in bindings:
+            shape = Shape(tuple(bindings[ph.name].shape))
+        else:
+            col_name = feed_dict.get(ph.name, _default_column(ph.name, frame))
+            if col_name not in frame.info:
+                continue
             info = frame.info[col_name]
             shape = info.block_shape if block_level else info.cell_shape
-            attr = ph.shape_attr
-            if attr is None or shape.check_more_precise_than(attr):
-                overrides[ph.name] = shape
+        attr = ph.shape_attr
+        # an incompatible shape leaves the attr for the checks to name
+        if attr is None or shape.check_more_precise_than(attr):
+            overrides[ph.name] = shape
     return overrides
 
 
@@ -107,11 +158,15 @@ def _match_columns(
     frame: TensorFrame,
     feed_dict: Optional[Dict[str, str]],
     block_level: bool,
+    bindings: Dict,
 ) -> Dict[str, str]:
-    """Map placeholder name -> column name; validate dtype + shape."""
+    """Map placeholder name -> column name; validate dtype + shape. Bound
+    placeholders are fed their binding instead and are left out."""
     feed_dict = feed_dict or {}
     mapping: Dict[str, str] = {}
     for ph_name, ph in summary.inputs.items():
+        if ph_name in bindings:
+            continue
         col_name = feed_dict.get(ph_name, _default_column(ph_name, frame))
         if col_name not in frame.info:
             raise ValueError(
@@ -136,11 +191,20 @@ def _match_columns(
     return mapping
 
 
-def _prepare(fetches, frame, feed_dict, fetch_names, block_level):
+def _prepare(
+    fetches, frame, feed_dict, fetch_names, block_level, bindings=None, validate=None
+):
+    """Graph, fetches, analysis and placeholder -> column mapping. A
+    verb's naming convention (``validate``) is checked before the columns
+    are matched, so a misnamed placeholder is reported as such."""
+    bindings = bindings if bindings is not None else {}
     graph, fetch_list = _as_graph(fetches, fetch_names)
-    overrides = _ph_overrides(graph, frame, feed_dict, block_level)
+    overrides = _ph_overrides(graph, frame, feed_dict, block_level, bindings)
     summary = analyze_graph(graph, fetch_list, placeholder_shapes=overrides)
-    mapping = _match_columns(summary, frame, feed_dict, block_level)
+    _check_bindings(summary, bindings)
+    if validate is not None:
+        validate(summary, fetch_list)
+    mapping = _match_columns(summary, frame, feed_dict, block_level, bindings)
     return graph, fetch_list, summary, mapping
 
 
@@ -173,11 +237,19 @@ def _output_frame(
     return TensorFrame(cols, offsets if offsets is not None else frame.offsets)
 
 
-def _feeds(frame, mapping, feed_names, lo, hi, device) -> List[torch.Tensor]:
+def _feeds(frame, mapping, feed_names, lo, hi, device, bound=None) -> List[torch.Tensor]:
+    """One block's feeds: its column slices on ``device``, and the bound
+    tensors (already on ``device``) as they are."""
+    bound = bound or {}
     return [
-        as_tensor(frame.column(mapping[n]).values[lo:hi], device)
+        bound[n] if n in bound else as_tensor(frame.column(mapping[n]).values[lo:hi], device)
         for n in feed_names
     ]
+
+
+def _bound_tensors(bindings: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    """Every binding on ``device``, once per call: every block reuses it."""
+    return {k: as_tensor(v, device) for k, v in bindings.items()}
 
 
 def _block_rows(outs: Dict[str, torch.Tensor], rows: int, trim: bool) -> int:
@@ -216,6 +288,7 @@ def map_blocks(
     trim: bool = False,
     fetch_names: Optional[Sequence[str]] = None,
     executor: Optional[Executor] = None,
+    bindings: Bindings = None,
     device: DeviceLike = None,
 ) -> TensorFrame:
     """Apply a graph, or a plain function of columns returning a dict of
@@ -223,19 +296,23 @@ def map_blocks(
 
     Without ``trim`` every output keeps the block's row count and the
     input columns ride along; with ``trim=True`` the row count may change
-    and the input columns are dropped.
+    and the input columns are dropped. ``bindings`` feeds named
+    placeholders (or function parameters) one array for every block; new
+    values on a later call reuse the same lowering.
     """
     dev = resolve_device(device)
+    bindings = _normalize_bindings(bindings)
     if callable(fetches) and not isinstance(fetches, dsl.Tensor):
         from .fn_frontend import _map_blocks_fn
 
-        return _map_blocks_fn(fetches, frame, trim, dev)
+        return _map_blocks_fn(fetches, frame, trim, dev, bindings)
     graph, fetch_list, summary, mapping = _prepare(
-        fetches, frame, feed_dict, fetch_names, block_level=True
+        fetches, frame, feed_dict, fetch_names, True, bindings
     )
     ex = executor or default_executor()
     feed_names = sorted(summary.inputs)
     fn = ex.callable_for(graph, fetch_list, feed_names, dev)
+    bound = _bound_tensors(bindings, dev)
 
     acc: Dict[str, List[torch.Tensor]] = {base_name(f): [] for f in fetch_list}
     out_sizes: List[int] = []
@@ -244,7 +321,7 @@ def map_blocks(
         if lo == hi:
             out_sizes.append(0)
             continue  # an empty block contributes nothing
-        outs = fn(*_feeds(frame, mapping, feed_names, lo, hi, dev))
+        outs = fn(*_feeds(frame, mapping, feed_names, lo, hi, dev, bound))
         named = {base_name(f): o for f, o in zip(fetch_list, outs)}
         out_sizes.append(_block_rows(named, hi - lo, trim))
         for base, o in named.items():
@@ -273,30 +350,46 @@ def map_rows(
     feed_dict: Optional[Dict[str, str]] = None,
     fetch_names: Optional[Sequence[str]] = None,
     executor: Optional[Executor] = None,
+    bindings: Bindings = None,
     device: DeviceLike = None,
 ) -> TensorFrame:
-    """Apply a per-row graph to every row: the lowered callable is
-    vectorized over the block's rows with `torch.func.vmap`, one call per
-    block (the reference ran one session per row)."""
+    """Apply a per-row graph, or a plain function of row cells returning
+    a dict of named outputs, to every row: vectorized over the block's
+    rows with `torch.func.vmap`, one call per block (the reference ran one
+    session per row). Bound placeholders are the same for every row
+    (``in_dims=None``)."""
     dev = resolve_device(device)
+    bindings = _normalize_bindings(bindings)
+    if callable(fetches) and not isinstance(fetches, dsl.Tensor):
+        from .fn_frontend import _map_rows_fn
+
+        return _map_rows_fn(fetches, frame, dev, bindings)
     graph, fetch_list, summary, mapping = _prepare(
-        fetches, frame, feed_dict, fetch_names, block_level=False
+        fetches, frame, feed_dict, fetch_names, False, bindings
     )
-    ex = executor or default_executor()
     feed_names = sorted(summary.inputs)
+    if bindings and not mapping:
+        raise ValueError(
+            "map_rows: every placeholder is bound, so nothing varies per "
+            "row; use map_blocks (or run the graph once and broadcast)"
+        )
+    ex = executor or default_executor()
+    in_dims = tuple(None if n in bindings else 0 for n in feed_names)
     vfn = ex.cached(
-        "vmap-rows", graph, fetch_list, feed_names, dev,
+        f"vmap-rows-[{','.join(sorted(bindings))}]" if bindings else "vmap-rows",
+        graph, fetch_list, feed_names, dev,
         lambda: torch.func.vmap(
-            build_callable(graph, fetch_list, feed_names, dev)
+            build_callable(graph, fetch_list, feed_names, dev), in_dims=in_dims
         ),
     )
+    bound = _bound_tensors(bindings, dev)
     out_names = [base_name(f) for f in fetch_list]
     acc: Dict[str, List[torch.Tensor]] = {n: [] for n in out_names}
     for bi in range(frame.num_blocks):
         lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
         if lo == hi:
             continue
-        outs = vfn(*_feeds(frame, mapping, feed_names, lo, hi, dev))
+        outs = vfn(*_feeds(frame, mapping, feed_names, lo, hi, dev, bound))
         for n, o in zip(out_names, outs):
             acc[n].append(o)
     out_cols = [
@@ -357,6 +450,11 @@ def _combine_partials(fn, feed_src: List[int], partials: List[Tuple]) -> Tuple:
     return fn(*stacked)
 
 
+def _results(bases: List[str], values):
+    """One tensor for one fetch, a dict of tensors for several."""
+    return values[0] if len(bases) == 1 else dict(zip(bases, values))
+
+
 @torch.inference_mode()
 def reduce_blocks(
     fetches,
@@ -371,9 +469,8 @@ def reduce_blocks(
     results stay on ``device``."""
     dev = resolve_device(device)
     graph, fetch_list, summary, mapping = _prepare(
-        fetches, frame, feed_dict, fetch_names, block_level=True
+        fetches, frame, feed_dict, fetch_names, True, validate=_validate_reduce_blocks
     )
-    _validate_reduce_blocks(summary, fetch_list)
     ex = executor or default_executor()
     feed_names = sorted(summary.inputs)
     fn = ex.callable_for(graph, fetch_list, feed_names, dev)
@@ -394,9 +491,196 @@ def reduce_blocks(
         if len(partials) == 1
         else _combine_partials(fn, feed_src, partials)
     )
-    if len(fetch_list) == 1:
-        return final[0]
-    return {base_name(f): v for f, v in zip(fetch_list, final)}
+    return _results([base_name(f) for f in fetch_list], final)
+
+
+# ---------------------------------------------------------------------------
+# reduce_rows
+# ---------------------------------------------------------------------------
+
+
+def _validate_reduce_rows(summary: GraphSummary, fetch_list: List[str]) -> None:
+    """`reduceRowsSchema` (`DebugRowOps.scala:172-262`): output ``x`` <->
+    placeholders ``x_1``/``x_2``, all three the same dtype and cell shape."""
+    allowed = {base_name(f) + s for f in fetch_list for s in ("_1", "_2")}
+    extra = set(summary.inputs) - allowed
+    if extra:
+        raise ValueError(
+            f"reduce_rows: placeholders {sorted(extra)} do not follow the "
+            "x -> x_1/x_2 convention"
+        )
+    for f in fetch_list:
+        base = base_name(f)
+        for suf in ("_1", "_2"):
+            if base + suf not in summary.inputs:
+                raise ValueError(
+                    f"reduce_rows: output {base!r} requires placeholders "
+                    f"{base}_1 and {base}_2 (inputs: {sorted(summary.inputs)})"
+                )
+        p1, p2 = summary.inputs[base + "_1"], summary.inputs[base + "_2"]
+        out = summary.outputs[base]
+        if not (p1.dtype is p2.dtype is out.dtype):
+            raise ValueError(f"reduce_rows: dtype mismatch around {base!r}")
+        if not (
+            out.shape.check_more_precise_than(p1.shape)
+            and out.shape.check_more_precise_than(p2.shape)
+        ):
+            raise ValueError(
+                f"reduce_rows: shapes around {base!r} must all agree "
+                f"(out {out.shape}, {base}_1 {p1.shape}, {base}_2 {p2.shape})"
+            )
+
+
+# A pair graph whose fetch is one of these ops applied to exactly x_1 and
+# x_2 is a monoid fold: one torch reduction over the rows folds a block.
+_MONOID_REDUCTIONS = {
+    "Add": lambda x: torch.sum(x, 0, dtype=x.dtype),
+    "AddV2": lambda x: torch.sum(x, 0, dtype=x.dtype),
+    "Mul": lambda x: torch.prod(x, 0, dtype=x.dtype),
+    "Maximum": lambda x: torch.amax(x, 0),
+    "Minimum": lambda x: torch.amin(x, 0),
+}
+
+
+def _monoid_reductions(graph: Graph, bases: List[str], summary: GraphSummary):
+    """The reduction of each fetch when every fetch is a monoid fold
+    (`_MONOID_REDUCTIONS`) of numbers, else None (the general plan)."""
+    out = []
+    for b in bases:
+        node = graph[b]
+        if node.op not in _MONOID_REDUCTIONS or summary.outputs[b].dtype is ScalarType.bool_:
+            return None
+        if sorted(node.data_inputs()) != [(b + "_1", 0), (b + "_2", 0)]:
+            return None
+        out.append(_MONOID_REDUCTIONS[node.op])
+    return out
+
+
+@torch.inference_mode()
+def reduce_rows(
+    fetches,
+    frame: TensorFrame,
+    feed_dict: Optional[Dict[str, str]] = None,
+    fetch_names: Optional[Sequence[str]] = None,
+    executor: Optional[Executor] = None,
+    device: DeviceLike = None,
+):
+    """Pairwise fold over all rows: ``x = f(x_1, x_2)`` with the carry in
+    ``x_1`` and the next row in ``x_2``.
+
+    Each block folds left in row order, then the block partials fold left
+    in block order, as the reference folds (`DebugRowOps.scala:486-508`),
+    so a non-associative graph gives the reference's result. Two plans:
+
+    - the monoid plan, for a fetch that is Add/AddV2/Mul/Maximum/Minimum
+      of exactly ``x_1`` and ``x_2``: one torch reduction per block (and
+      one over the partials). Integer, min and max results are exact;
+      float sums and products differ by summation order only;
+    - the general plan, for any other pair graph: the lowered pair
+      callable once per row, the carry kept on ``device``.
+    """
+    dev = resolve_device(device)
+    graph, fetch_list, summary, mapping = _prepare(
+        fetches, frame, feed_dict, fetch_names, False, validate=_validate_reduce_rows
+    )
+    bases = [base_name(f) for f in fetch_list]
+    for b in bases:
+        c1, c2 = mapping[b + "_1"], mapping[b + "_2"]
+        if c1 != c2:
+            raise ValueError(
+                f"reduce_rows: {b}_1 reads column {c1!r} but {b}_2 reads "
+                f"{c2!r}; a fold's carry and next-row must come from the "
+                "same column"
+            )
+    monoid = _monoid_reductions(graph, bases, summary)
+    _count("reduce_rows.plan.monoid" if monoid else "reduce_rows.plan.general")
+    if monoid is None:
+        ex = executor or default_executor()
+        pair = ex.callable_for(
+            graph, fetch_list, [b + s for b in bases for s in ("_1", "_2")], dev
+        )
+
+    def fold(rows: List[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        """Left fold of the lead axis of each base's tensor."""
+        if monoid is not None:
+            return tuple(r(x) for r, x in zip(monoid, rows))
+        carry = tuple(x[0] for x in rows)
+        for i in range(1, len(rows[0])):
+            carry = pair(*[v for c, x in zip(carry, rows) for v in (c, x[i])])
+        return carry
+
+    partials: List[Tuple[torch.Tensor, ...]] = []
+    for bi in range(frame.num_blocks):
+        lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
+        if lo == hi:
+            continue
+        rows = [as_tensor(frame.column(mapping[b + "_1"]).values[lo:hi], dev) for b in bases]
+        # a single-row block's partial is its row
+        partials.append(tuple(x[0] for x in rows) if hi - lo == 1 else fold(rows))
+    if not partials:
+        raise ValueError("reduce_rows on an empty frame")
+    if len(partials) == 1:
+        return _results(bases, partials[0])
+    return _results(
+        bases, fold([torch.stack([p[i] for p in partials]) for i in range(len(bases))])
+    )
+
+
+# ---------------------------------------------------------------------------
+# aggregate (keyed)
+# ---------------------------------------------------------------------------
+
+
+class GroupedFrame:
+    """`group_by(frame, *keys)`: the RelationalGroupedDataset analogue."""
+
+    def __init__(self, frame: TensorFrame, keys: Sequence[str]):
+        self.frame = frame
+        self.keys = list(keys)
+        for k in self.keys:
+            if not frame.info[k].cell_shape.is_scalar:
+                raise ValueError(f"group key {k!r} must be a scalar column")
+
+
+def group_by(frame: TensorFrame, *keys: str) -> GroupedFrame:
+    return GroupedFrame(frame, keys)
+
+
+@torch.inference_mode()
+def aggregate(
+    fetches,
+    grouped: GroupedFrame,
+    feed_dict: Optional[Dict[str, str]] = None,
+    fetch_names: Optional[Sequence[str]] = None,
+    executor: Optional[Executor] = None,
+    device: DeviceLike = None,
+) -> TensorFrame:
+    """Keyed aggregation with the `reduce_blocks` naming conventions: the
+    key columns (distinct keys in sorted order), then one row per group of
+    each output, all on ``device``.
+
+    A graph `_chunk_combiners` classifies (a Sum/Min/Max/Prod/float Mean
+    over axis 0 of a row-wise transform of its placeholder) takes the
+    segment plan; any other graph the exact plan, whole groups through the
+    graph (`DebugRowOps.aggregate`, `DebugRowOps.scala:554-599`).
+    """
+    dev = resolve_device(device)
+    frame = grouped.frame
+    graph, fetch_list, summary, mapping = _prepare(
+        fetches, frame, feed_dict, fetch_names, True, validate=_validate_reduce_blocks
+    )
+    ex = executor or default_executor()
+    feed_names = sorted(summary.inputs)
+    classified = _chunk_combiners(graph, fetch_list, summary)
+    if frame.nrows > 0 and classified is not None:
+        _count("aggregate.plan.segment")
+        return _aggregate_segment(
+            ex, graph, fetch_list, classified, feed_names, mapping, grouped, dev
+        )
+    _count("aggregate.plan.exact")
+    return _aggregate_exact(
+        ex, graph, fetch_list, summary, feed_names, mapping, grouped, dev
+    )
 
 
 # ---------------------------------------------------------------------------

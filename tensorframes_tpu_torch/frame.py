@@ -20,7 +20,7 @@ import torch
 from .device import DeviceLike, resolve_device
 from .schema import ColumnInfo, FrameInfo, ScalarType, Shape, UnsupportedTypeError
 
-__all__ = ["TensorFrame", "Column", "as_tensor"]
+__all__ = ["TensorFrame", "Column", "as_tensor", "factorize_keys"]
 
 ArrayLike = Union[np.ndarray, torch.Tensor, Sequence]
 
@@ -214,3 +214,56 @@ class TensorFrame:
             f"TensorFrame[{self.nrows} rows x {len(self._cols)} cols, "
             f"{self.num_blocks} blocks]({', '.join(map(repr, self.info))})"
         )
+
+
+def _factorize_one(keys: torch.Tensor):
+    """(sorted distinct keys, row -> index into them) of one key tensor.
+    NaN is one key, sorted last, as in `np.unique` (`torch.unique` keeps
+    every NaN apart)."""
+    if keys.dtype.is_floating_point:
+        nan = torch.isnan(keys)
+        if bool(nan.any()):
+            uniq, inv = torch.unique(keys[~nan], sorted=True, return_inverse=True)
+            inverse = torch.full(keys.shape, len(uniq), dtype=torch.int64, device=keys.device)
+            inverse[~nan] = inv
+            return torch.cat([uniq, keys[nan][:1]]), inverse
+    return torch.unique(keys, sorted=True, return_inverse=True)
+
+
+def factorize_keys(key_names: Sequence[str], key_arrays: Sequence[ArrayLike]):
+    """Factorize one or more dense scalar key columns into
+    ``(key_out: name -> distinct key values per group, inverse: row -> group
+    id)``, groups in sorted key order as in the reference.
+
+    Keys are factorized where they lie (a device tensor stays on its
+    device; host numpy runs on the CPU). Several keys combine their codes
+    mixed-radix into one int64 per row, with the reference's overflow
+    check."""
+    tensors = []
+    for name, arr in zip(key_names, key_arrays):
+        if not isinstance(arr, torch.Tensor):
+            arr = np.asarray(arr)
+            if arr.dtype == object or arr.dtype.kind in ("U", "S"):
+                raise ValueError(
+                    f"group key {name!r}: string and object keys are not "
+                    "supported by the PyTorch port yet (ROADMAP Queue 1 item 2)"
+                )
+            arr = torch.from_numpy(arr)
+        tensors.append(arr)
+    if len(tensors) == 1:
+        uniq, inverse = _factorize_one(tensors[0])
+        return {key_names[0]: uniq}, inverse
+    combo = torch.zeros(len(tensors[0]), dtype=torch.int64, device=tensors[0].device)
+    for t in tensors:
+        uniq, inv = _factorize_one(t)
+        radix = max(len(uniq), 1)
+        if len(combo) and int(combo.max()) > (2**62) // radix:
+            raise ValueError("aggregate: combined group-key cardinality overflows")
+        combo = combo * radix + inv
+    _, inverse = torch.unique(combo, sorted=True, return_inverse=True)
+    num_groups = int(inverse.max()) + 1 if len(inverse) else 0
+    # each group's first row carries its key values
+    rows = torch.arange(len(inverse), device=inverse.device)
+    first = torch.full((num_groups,), len(inverse), dtype=torch.int64, device=inverse.device)
+    first = first.scatter_reduce(0, inverse, rows, "amin", include_self=True)
+    return {k: t[first] for k, t in zip(key_names, tensors)}, inverse

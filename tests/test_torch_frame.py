@@ -177,10 +177,26 @@ def test_import_guard_no_jax():
         import sys
         import numpy as np
         import tensorframes_tpu_torch as tft
+        import tensorframes_tpu_torch.aggregate
+        import tensorframes_tpu_torch.fn_frontend
         import tensorframes_tpu_torch.models
+        import tensorframes_tpu_torch.models.kmeans
+        import tensorframes_tpu_torch.models.mlp
         import tensorframes_tpu_torch.ops.flash_attention
-        df = tft.TensorFrame.from_dict({"x": np.arange(3.0)})
+        import tensorframes_tpu_torch.ops.standard
+        import tensorframes_tpu_torch.utils.profiling
+        df = tft.TensorFrame.from_dict(
+            {"x": np.arange(6.0), "k": np.array([0, 1, 0, 1, 2, 2])}, num_blocks=2
+        )
         tft.map_blocks((tft.block(df, "x") + 1.0).named("y"), df, device="cpu")
+        s = tft.dsl.reduce_mean(tft.block(df, "x", tf_name="x_input"), axes=[0])
+        tft.aggregate(s.named("x"), tft.group_by(df, "k"), device="cpu")
+        x1 = tft.dsl.placeholder(tft.ScalarType.float64, tft.Shape(()), name="x_1")
+        x2 = tft.dsl.placeholder(tft.ScalarType.float64, tft.Shape(()), name="x_2")
+        tft.reduce_rows((x1 * 0.5 + x2).named("x"), df, device="cpu")
+        tft.map_rows(lambda x, w: {"y": x * w}, df, bindings={"w": 2.0}, device="cpu")
+        pts = tft.TensorFrame.from_dict({"p": np.arange(12.0).reshape(6, 2)})
+        tensorframes_tpu_torch.models.kmeans(pts, "p", 2, 1, device="cpu")
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"

@@ -113,8 +113,8 @@ class TestMapBlocks:
 
     def test_unsupported_op_is_named(self):
         tdf = tft.TensorFrame.from_dict({"x": _data(np.float64)})
-        t = tdsl._nary("Erf", [tft.block(tdf, "x")]).named("e")
-        with pytest.raises(GraphLoweringError, match="'Erf'"):
+        t = tdsl._nary("LRN", [tft.block(tdf, "x")]).named("e")
+        with pytest.raises(GraphLoweringError, match="'LRN'"):
             tft.map_blocks(t, tdf, device=CPU)
 
     def test_executor_builds_once(self):
@@ -337,3 +337,124 @@ class TestFunctionFrontEnd:
             tft.map_blocks(lambda x: x, tdf, device=CPU)
         with pytest.raises(ValueError, match="no matching"):
             tft.map_blocks(lambda nope: {"a": nope}, tdf, device=CPU)
+
+
+class TestBindings:
+    """Bound placeholders and function parameters, held to the JAX
+    package's `bindings=` on the same inputs (elementwise: exact)."""
+
+    def _x_times_w(self, d, f):
+        w = d.placeholder(d.ScalarType.float64, d.Shape(()), name="w")
+        return (d.block(f, "x") * w).named("z")
+
+    def test_graph_binding_matches_reference_and_reuses_the_lowering(self):
+        data = {"x": _data(np.float64)}
+        jdf = tfs.TensorFrame.from_dict(data, num_blocks=3)
+        tdf = tft.TensorFrame.from_dict(data, num_blocks=3)
+        ex = Executor()
+        z = self._x_times_w(tdsl, tdf)
+        for w in (10.0, -1.0, 0.5):
+            ref = tfs.map_blocks(self._x_times_w(jdsl, jdf), jdf, bindings={"w": np.float64(w)})
+            out = tft.map_blocks(z, tdf, bindings={"w": np.float64(w)}, executor=ex, device=CPU)
+            np.testing.assert_array_equal(out.host_values("z"), ref.host_values("z"))
+        # new bound values, one lowering
+        assert ex.compile_count == 1 and ex.cache_hits == 2
+
+    def test_vector_binding_multi_block_and_tensor_binding(self):
+        data = {"v": _data(np.float64, n=9, cols=2)}
+        jdf = tfs.TensorFrame.from_dict(data, num_blocks=2)
+        tdf = tft.TensorFrame.from_dict(data, num_blocks=2)
+
+        def prog(d, f):
+            c = d.placeholder(d.ScalarType.float64, d.Shape((2,)), name="offset")
+            return (d.block(f, "v") + c).named("z")
+
+        off = np.array([10.0, 20.0])
+        ref = tfs.map_blocks(prog(jdsl, jdf), jdf, bindings={"offset": off})
+        for bound in (off, torch.from_numpy(off)):
+            out = tft.map_blocks(prog(tdsl, tdf), tdf, bindings={"offset": bound}, device=CPU)
+            np.testing.assert_array_equal(out.host_values("z"), ref.host_values("z"))
+
+    def test_map_rows_graph_binding(self):
+        data = {"v": _data(np.float64, n=11, cols=3)}
+        jdf = tfs.TensorFrame.from_dict(data, num_blocks=2)
+        tdf = tft.TensorFrame.from_dict(data, num_blocks=2)
+
+        def prog(d, f):
+            w = d.placeholder(d.ScalarType.float64, d.Shape((3,)), name="w")
+            return d.reduce_sum(d.row(f, "v") * w, axes=[0]).named("y")
+
+        w = np.array([1.0, -2.0, 0.5])
+        ref = tfs.map_rows(prog(jdsl, jdf), jdf, bindings={"w": w})
+        out = tft.map_rows(prog(tdsl, tdf), tdf, bindings={"w": w}, device=CPU)
+        _assert_close(out.host_values("y"), ref.host_values("y"), np.float64)
+
+    def test_binding_errors(self):
+        tdf = tft.TensorFrame.from_dict({"x": np.arange(4.0).reshape(2, 2)})
+        x = tft.block(tdf, "x")
+        c = tdsl.placeholder(tft.ScalarType.float64, tft.Shape((2,)), name="c")
+        z = (x + c).named("z")
+        with pytest.raises(ValueError, match="does not match any placeholder"):
+            tft.map_blocks(z, tdf, bindings={"c": np.zeros(2), "nope": np.zeros(2)}, device=CPU)
+        with pytest.raises(ValueError, match="dtype"):
+            tft.map_blocks(z, tdf, bindings={"c": np.zeros(2, np.int32)}, device=CPU)
+        with pytest.raises(ValueError, match="not compatible"):
+            tft.map_blocks(z, tdf, bindings={"c": np.zeros(3)}, device=CPU)
+        w = tdsl.placeholder(tft.ScalarType.float64, tft.Shape(()), name="w")
+        with pytest.raises(ValueError, match="every placeholder is bound"):
+            tft.map_rows((w * 2.0).named("y"), tdf, bindings={"w": np.float64(1.0)}, device=CPU)
+
+
+class TestMapRowsFunction:
+    """`map_rows(fn, ...)`: the function sees one row's cells under vmap."""
+
+    def test_matches_reference(self):
+        data = {"v": _data(np.float32, n=25, cols=4), "s": _data(np.float32, n=25, seed=4)}
+        jdf = tfs.TensorFrame.from_dict(data, num_blocks=3)
+        tdf = tft.TensorFrame.from_dict(data, num_blocks=3)
+
+        def fn(v, s):
+            return {"n": (v * v).sum() + s, "w": v * s}
+
+        ref = tfs.map_rows(fn, jdf)
+        out = tft.map_rows(fn, tdf, device=CPU)
+        assert out.columns == ref.columns
+        for c in ("n", "w"):
+            _assert_close(out.host_values(c), ref.host_values(c), np.float32)
+
+    def test_bound_parameter_stays_whole(self):
+        data = {"features": _data(np.float32, n=30, cols=6)}
+        jdf = tfs.TensorFrame.from_dict(data, num_blocks=2)
+        tdf = tft.TensorFrame.from_dict(data, num_blocks=2)
+        w = _data(np.float32, n=6, cols=3, seed=7)
+
+        def fn(features, w):
+            return {"y": features @ w}
+
+        ref = tfs.map_rows(fn, jdf, bindings={"w": w})
+        out = tft.map_rows(fn, tdf, bindings={"w": w}, device=CPU)
+        assert out.host_values("y").shape == (30, 3)
+        _assert_close(out.host_values("y"), ref.host_values("y"), np.float32)
+
+    def test_map_blocks_fn_binding_matches_reference(self):
+        data = {"x": _data(np.float64, n=10)}
+        jdf = tfs.TensorFrame.from_dict(data, num_blocks=2)
+        tdf = tft.TensorFrame.from_dict(data, num_blocks=2)
+
+        def fn(x, scale):
+            return {"z": x * scale}
+
+        ref = tfs.map_blocks(fn, jdf, bindings={"scale": np.float64(3.0)})
+        out = tft.map_blocks(fn, tdf, bindings={"scale": np.float64(3.0)}, device=CPU)
+        np.testing.assert_array_equal(out.host_values("z"), ref.host_values("z"))
+
+    def test_errors(self):
+        tdf = tft.TensorFrame.from_dict({"x": _data(np.float64)}, num_blocks=2)
+        with pytest.raises(ValueError, match="do not match any function"):
+            tft.map_rows(lambda x: {"z": x}, tdf, bindings={"Scale": 1.0}, device=CPU)
+        with pytest.raises(ValueError, match="do not match any function"):
+            tft.map_blocks(lambda x: {"z": x}, tdf, bindings={"Scale": 1.0}, device=CPU)
+        with pytest.raises(ValueError, match="every parameter is bound"):
+            tft.map_rows(lambda w: {"z": w}, tdf, bindings={"w": 1.0}, device=CPU)
+        with pytest.raises(ValueError, match="dict"):
+            tft.map_rows(lambda x: x, tdf, device=CPU)
