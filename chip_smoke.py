@@ -28,13 +28,26 @@ main path through the entry points a user calls:
    held against a numpy float64 Lloyd step;
 7. `TransformerLM` scoring through `map_blocks` with a plain function, and
    the attention kernel's share of that call's wall time;
-8. one JSON line listing every kernel with its launches on the main path
-   (phases 3-7), its error and its times;
-9. as the last line, ``{"ok": true, "device": {...}}``.
+8. BASELINE config 5: `models.InceptionLite` at Inception-v3's stem widths
+   (299x299, 32/64 channels, 1000 classes) as GraphDef bytes, scoring 2,048
+   random images in 8 blocks through `map_blocks`, the first 16 held
+   against the port's CPU run of the same bytes;
+9. imported TF control flow from the committed fixtures
+   (`tests/fixtures/torch_port/`): the branchy per-row graph as v1 rings and
+   v2 ``If``/``While`` and the cond + product loop through `map_rows`'
+   lifted plan over 10,000,000 rows in 8 blocks, exact against numpy; then
+   a block-level graph with a scalar cond and a scalar loop through
+   `map_blocks`, with the host syncs counted;
+10. variable freezing: a ``VariableV2`` and a ``VarHandleOp`` graph as TF
+    wrote them, through `map_blocks` over phase 3's column, exact;
+11. one JSON line listing every kernel with its launches on the main path
+    (phases 3-10), its error and its times;
+12. as the last line, ``{"ok": true, "device": {...}}``.
 
-Phases 3-6 run no hand-written kernel (their ops are ATen and cuBLAS
-calls), so the script checks that the attention kernel's count is still 0
-after them and counts its launches in phase 7 alone.
+Phases 8-10 run after phase 6 and before phase 7. Phases 3-6 and 8-10 run
+no hand-written kernel (their ops are ATen, cuBLAS and cuDNN calls), so the
+script checks that the attention kernel's count is still 0 after them and
+counts its launches in phase 7 alone.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once. It imports
@@ -45,6 +58,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -76,6 +90,12 @@ _FOLD_RTOL = 1e-6
 # k-means centres (coordinates of order 1-20): float32 sums of ~10^6
 # points per centre against a float64 Lloyd step
 _KMEANS_RTOL, _KMEANS_ATOL = 1e-4, 1e-3
+# Inception probabilities on the card against the port's CPU run of the same
+# bytes: float32 convolutions (TF32 off) summed in another order by cuDNN's
+# and ATen's CPU algorithms, through 18 convolutions and a softmax
+_INCEPTION_RTOL, _INCEPTION_ATOL = 1e-4, 1e-6
+
+_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "torch_port")
 
 SEED = 0
 
@@ -248,7 +268,7 @@ def phase_kernel_vs_plain(lm_shape):
     return result
 
 
-def phase_graph_verbs(tft) -> None:
+def phase_graph_verbs(tft):
     n, blocks = 200_000_000, 8
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.rand(n, device="cuda", generator=gen)  # float32
@@ -283,6 +303,7 @@ def phase_graph_verbs(tft) -> None:
         reduce_sum_rel_err=sum_rel, sum_rtol=_SUM_RTOL,
     )
     phase_reduce_rows(tft, df, want_sum, want_min)
+    return df
 
 
 def _pair_graph(tft, combine):
@@ -582,6 +603,198 @@ def phase_kmeans(tft, rows: int = 10_000_000, dim: int = 100, k: int = 10,
     )
 
 
+def _fixture(name: str) -> bytes:
+    """A GraphDef written by TensorFlow (the card's machine has none) and
+    committed by ``tests/fixtures/torch_port/make_fixtures.py``."""
+    with open(os.path.join(_FIXTURES, name), "rb") as f:
+        return f.read()
+
+
+def phase_inception(tft, images: int = 2048, blocks: int = 8, image_size: int = 299,
+                    width: int = 32, classes: int = 1000, checked: int = 16) -> None:
+    """BASELINE config 5: a frozen Inception GraphDef scoring an image
+    column. `InceptionLite` at Inception-v3's stem widths (32 and 64
+    channels at 299x299, 1000 classes) goes to wire bytes, and
+    `map_blocks` scores 2,048 random images in 8 blocks on the card. The
+    first ``checked`` images' probabilities are held against the port's
+    CPU run of the same bytes."""
+    from tensorframes_tpu_torch.models import InceptionLite
+
+    graph, _ = tft.dsl.build(
+        InceptionLite(image_size=image_size, width=width, num_classes=classes,
+                      seed=SEED).scoring_graph()
+    )
+    wire = graph.to_bytes()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    imgs = torch.rand(images, image_size, image_size, 3, device="cuda", generator=gen)
+    df = tft.TensorFrame([tft.Column("images", imgs)]).repartition(blocks)
+
+    def score():
+        return tft.map_blocks(wire, df, fetch_names=["probs"], trim=True)
+
+    # the first call lowers the graph and lets cuDNN choose and cache its
+    # plans for these shapes; the timed call finds them cached
+    first, first_s = _wall(score)
+    del first
+    torch.cuda.reset_peak_memory_stats()
+    out, secs = _wall(score)
+    peak = torch.cuda.max_memory_allocated()
+    probs = out.column("probs").values
+    if tuple(probs.shape) != (images, classes) or not torch.isfinite(probs).all():
+        raise AssertionError(f"Inception: bad probabilities {tuple(probs.shape)}")
+    sum_err = float((probs.double().sum(1) - 1.0).abs().max())
+    if sum_err > 1e-5:
+        raise AssertionError(f"Inception: probabilities sum to 1 within {sum_err:.3e}")
+
+    cpu = tft.map_blocks(
+        wire, tft.TensorFrame.from_dict({"images": imgs[:checked].cpu().numpy()}),
+        fetch_names=["probs"], trim=True, device="cpu",
+    ).host_values("probs")
+    # the graph's operations (convolutions and the matmul, 2 per
+    # multiply-add), counted by torch's FLOP counter on one CPU image
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tensorframes_tpu_torch.ops.lowering import build_callable
+
+    one = build_callable(graph, ["probs"], ["images"], torch.device("cpu"))
+    with FlopCounterMode(display=False) as flops:
+        one(torch.zeros(1, image_size, image_size, 3))
+    flop_per_image = flops.get_total_flops()
+    card = probs[:checked].cpu()
+    err = _check_close("Inception card vs CPU", card, torch.from_numpy(cpu),
+                       _INCEPTION_RTOL, _INCEPTION_ATOL)
+    top2 = np.sort(cpu, axis=1)[:, -2:]
+    near_ties = int((top2[:, 1] - top2[:, 0] < 1e-5).sum())
+    differ = card.numpy().argmax(1) != cpu.argmax(1)
+    if (differ & (top2[:, 1] - top2[:, 0] >= 1e-5)).any():
+        raise AssertionError("Inception: top-1 differs from the CPU's on a clear winner")
+    _emit(
+        "inception_scoring", images=images, blocks=blocks, image_size=image_size,
+        width=width, classes=classes, graph_bytes=len(wire), first_call_s=first_s,
+        seconds=secs, images_per_s=images / secs, gflop_per_image=flop_per_image / 1e9,
+        achieved_tflop_s=flop_per_image * images / secs / 1e12,
+        float32_bound_s=flop_per_image * images / _PEAK_F32_FLOPS,
+        cudnn_plans="cached (the timed call follows an untimed call at the same shapes)",
+        peak_memory_bytes=peak, checked_images=checked, max_abs_err=err,
+        top1_differences=int(differ.sum()), top2_near_ties=near_ties,
+        tolerance={"rtol": _INCEPTION_RTOL, "atol": _INCEPTION_ATOL},
+    )
+
+
+def _branchy_reference(x: np.ndarray):
+    """The branchy per-row graph in numpy: ``(x > 0 ? 2x : x - 5) + v``,
+    ``v`` = ``x`` halved until ``|v| <= 1``, looped by trip, not by row."""
+    c = np.where(x > 0, x * np.float32(2.0), x - np.float32(5.0))
+    v, k = x.copy(), np.zeros(len(x), np.int32)
+    active = np.abs(v) > 1.0
+    while active.any():
+        v[active] *= np.float32(0.5)
+        k[active] += 1
+        active = np.abs(v) > 1.0
+    return c + v, k
+
+
+def phase_control_flow(tft, rows: int = 10_000_000, blocks: int = 8) -> None:
+    """Imported TF control flow: the branchy per-row graph as v1 rings and
+    as v2 ``If``/``While``, and the cond + 3-trip product loop, through
+    `map_rows` (the lifted plan: one call per block); then a block-level
+    graph with a scalar predicate (a reduction over the block) and a scalar
+    loop carry through `map_blocks`. Every result is exact."""
+    from tensorframes_tpu_torch.utils.profiling import reset_stats, stats
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    x = (torch.rand(rows, device="cuda", generator=gen) - 0.5) * 40.0
+    df = tft.TensorFrame([tft.Column("x", x)]).repartition(blocks)
+    xh = x.cpu().numpy()
+    want_out, want_trips = _branchy_reference(xh)
+    want_cw = np.where(xh > 0, xh * np.float32(2.0), xh - np.float32(5.0)) + (
+        (xh + np.float32(1.0)) * (xh + np.float32(1.0)) * (xh + np.float32(1.0))
+    )
+    result = {}
+    for name, fetches in (
+        ("branchy_v1.pb", ["out", "trips"]), ("branchy_v2.pb", ["out", "trips"]),
+        ("cond_while_v1.pb", ["out"]), ("cond_while_v2.pb", ["out"]),
+    ):
+        data = _fixture(name)
+        tft.map_rows(data, df, fetch_names=fetches)  # lowers once
+        reset_stats()
+        out, secs = _wall(lambda: tft.map_rows(data, df, fetch_names=fetches))
+        counts = stats()
+        if counts.get("map_rows.plan.lifted") != 1.0 or "map_rows.plan.per_row" in counts:
+            raise AssertionError(f"map_rows {name}: expected the lifted plan, counters say {counts}")
+        if name.startswith("branchy"):
+            got_out, got_trips = out.host_values("out"), out.host_values("trips")
+            if not (np.array_equal(got_out, want_out) and np.array_equal(got_trips, want_trips)):
+                raise AssertionError(f"map_rows {name}: differs from the numpy per-row reference")
+        elif not np.array_equal(out.host_values("out"), want_cw):
+            raise AssertionError(f"map_rows {name}: differs from the numpy reference")
+        result[name.replace(".pb", "")] = dict(
+            seconds=secs, rows_per_s=rows / secs,
+            dense_trips_all_blocks=counts.get(
+                "vectorize.while.trips", counts.get("control.while.trips")
+            ),
+            host_syncs=counts.get("vectorize.while.host_syncs", 0)
+            + counts.get("control.while.host_syncs", 0),
+        )
+        del out
+
+    # block level: a scalar cond on the block's sum and a scalar loop; the
+    # blocks alternate in sign so float32 rounding of the sum cannot flip
+    # the predicate
+    sign = torch.repeat_interleave(
+        torch.tensor([1.0 if i % 2 == 0 else -1.0 for i in range(blocks)], device="cuda"),
+        torch.tensor(np.diff(df.offsets), device="cuda"),
+    )
+    y = x + sign
+    ydf = tft.TensorFrame([tft.Column("x", y)], df.offsets)
+    data = _fixture("block_cond_while.pb")
+    tft.map_blocks(data, ydf, fetch_names=["out"])  # lowers once
+    reset_stats()
+    out, block_s = _wall(lambda: tft.map_blocks(data, ydf, fetch_names=["out"]))
+    counts = stats()
+    yh = y.cpu().numpy()
+    want = []
+    for lo, hi in zip(df.offsets, df.offsets[1:]):
+        b = yh[lo:hi]
+        s, top = np.float32(1.0), np.abs(b).max()
+        while s * top < 1000.0:
+            s *= np.float32(2.0)
+        want.append((b * np.float32(2.0) if b.sum(dtype=np.float64) > 0 else -b) * s)
+    if not np.array_equal(out.host_values("out"), np.concatenate(want)):
+        raise AssertionError("map_blocks block_cond_while: differs from the numpy reference")
+    _emit(
+        "control_flow", rows=rows, blocks=blocks, map_rows=result,
+        block_level=dict(
+            seconds=block_s, rows_per_s=rows / block_s,
+            cond_host_syncs=counts.get("control.cond.host_syncs"),
+            while_trips=counts.get("control.while.trips"),
+            while_host_syncs=counts.get("control.while.host_syncs"),
+        ),
+    )
+
+
+def phase_freezing(tft, df) -> None:
+    """Stateful graphs as TF wrote them, a ref variable (``VariableV2`` +
+    ``Assign``: ``z = x + 3``) and resource variables (``VarHandleOp``:
+    ``z = x * 2 + (-1)``), frozen at import and run by `map_blocks` over
+    phase 3's column. Exact."""
+    x = df.column("x").values
+    result = {}
+    for name, want in (
+        ("var_ref.pb", lambda: x + 3.0),
+        ("var_resource.pb", lambda: x * 2.0 + (-1.0)),
+    ):
+        data = _fixture(name)
+        tft.map_blocks(data, df, fetch_names=["z"])  # lowers once
+        out, secs = _wall(lambda: tft.map_blocks(data, df, fetch_names=["z"]))
+        z = out.column("z").values
+        if z.dtype != torch.float32 or not torch.equal(z, want()):
+            raise AssertionError(f"map_blocks {name}: differs from the variable's arithmetic")
+        result[name.replace(".pb", "")] = dict(seconds=secs, rows_per_s=df.nrows / secs)
+        del out, z
+    _emit("freezing", rows=df.nrows, blocks=df.num_blocks, **result)
+
+
 def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int) -> float:
     from tensorframes_tpu_torch.models import TransformerLM
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention_reference
@@ -630,14 +843,19 @@ def main() -> int:
 
     # the main path: every launch counter starts at 0 here
     flash_attention.launches = 0
-    phase_graph_verbs(tft)
+    verbs_df = phase_graph_verbs(tft)
     phase_map_rows_mlp(tft)
     phase_aggregate(tft)
     phase_kmeans(tft)
+    phase_inception(tft)
+    phase_control_flow(tft)
+    phase_freezing(tft, verbs_df)
+    del verbs_df
     if flash_attention.launches:
         raise AssertionError(
-            f"the verb, aggregate and k-means phases launched flash_attention "
-            f"{flash_attention.launches} times; none of their graphs holds attention"
+            f"the verb, aggregate, k-means, Inception, control-flow and freezing "
+            f"phases launched flash_attention {flash_attention.launches} times; "
+            "none of their graphs holds attention"
         )
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)
     launches = flash_attention.launches

@@ -10,7 +10,9 @@ card unless the caller passes ``device="cpu"``.
 
 The port imports torch and numpy, never jax nor the JAX package. It keeps
 its own copies of the framework-free modules it needs (schema, proto,
-graph IR and builder).
+graph IR and builder, control-flow functionalization, variable freezing,
+the Inception scoring graph). Imported GraphDefs are functionalized and
+frozen as the JAX package does, so TF control flow and variables run.
 
 Float32 matrix products run in full float32: TF32 is turned off here for
 cuBLAS and cuDNN, because the parity bars against the JAX package assume
@@ -38,6 +40,7 @@ from .api import (  # noqa: E402
 from .frame import Column, TensorFrame  # noqa: E402
 from .graph import Graph  # noqa: E402
 from .graph import builder as dsl  # noqa: E402
+from .models import InceptionLite  # noqa: E402
 from .runtime import Executor  # noqa: E402
 from .schema import ColumnInfo, FrameInfo, ScalarType, Shape, Unknown  # noqa: E402
 
@@ -50,6 +53,7 @@ __all__ = [
     "FrameInfo",
     "GroupedFrame",
     "Graph",
+    "InceptionLite",
     "ScalarType",
     "Shape",
     "TensorFrame",

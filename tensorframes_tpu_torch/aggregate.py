@@ -11,7 +11,9 @@ the JAX package runs under its default config:
 - `_aggregate_exact`: rows sorted by group id once; for each distinct
   group size, the groups of that size are gathered to
   ``(groups, size, *cell)`` on the device and run through the lowered
-  callable under `torch.func.vmap`. Taken by every other graph.
+  callable under `torch.func.vmap` (one call a group for a graph with
+  control flow, whose predicates `vmap` cannot read). Taken by every
+  other graph.
 
 Not ported: the chunked plan (unreachable under the JAX package's default
 config) and the TPU-only one-hot segment sum.
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from .frame import Column, TensorFrame, as_tensor, factorize_keys
+from .graph import vectorize as _vec
 from .graph.analysis import GraphSummary
 from .graph.ir import Graph, base_name as _base
 from .ops.lowering import build_callable
@@ -83,13 +86,17 @@ def _rowwise_transform(graph: Graph, roots, ph_rank: Callable) -> bool:
     `_ROWWISE_OPS`; all placeholders agree on one lead rank; and every
     constant stays below it (or has a size-1 lead).
 
-    A control-flow node (`_Cond`/`_While`) is not row-local here: the port
-    has no control flow yet, so such a graph takes the exact plan and
-    fails there with `GraphLoweringError`, never with a wrong result."""
+    Functionalized control flow (`_Cond`/`_While`) is deferred, not
+    rejected: once the lead rank is known, `graph.vectorize` re-runs this
+    walk over each branch/cond/body subgraph at that rank. A control node
+    whose subgraphs are row-local lowers to a masked dense program (cond
+    -> select, while -> convergence-masked loop) and is row-local itself;
+    rejections are counted by reason (``vectorize.fallback.<reason>``)."""
     seen: set = set()
     stack = [_base(r) for r in roots]
     const_shapes: List[tuple] = []
     ranks: set = set()
+    control_nodes: List = []
     while stack:
         name = stack.pop()
         if name in seen:
@@ -108,16 +115,22 @@ def _rowwise_transform(graph: Graph, roots, ph_rank: Callable) -> bool:
         if node.op == "Const":
             const_shapes.append(tuple(node.attrs["value"].value.to_numpy().shape))
             continue
-        if node.op not in _ROWWISE_OPS:
+        if node.op in _vec.CONTROL_OPS:
+            # the verdict needs the lead rank: defer it, but walk the
+            # node's own inputs (pred, loop vars, captures) now
+            control_nodes.append(node)
+        elif node.op not in _ROWWISE_OPS:
             return False
         stack.extend(src for src, _ in node.data_inputs())
     if len(ranks) != 1:
         return False
     lead_rank = ranks.pop()
-    return all(
+    if not all(
         len(cs) < lead_rank or (len(cs) == lead_rank and (not cs or cs[0] == 1))
         for cs in const_shapes
-    )
+    ):
+        return False
+    return all(_vec.subgraphs_row_local(graph, n, lead_rank) for n in control_nodes)
 
 
 def _chunk_combiners(
@@ -224,10 +237,18 @@ def _aggregate_exact(
     col_data = {
         n: as_tensor(frame.column(mapping[n]).values, device)[order] for n in feed_names
     }
-    vfn = ex.cached(
-        "vmap-agg", graph, fetch_list, feed_names, device,
-        lambda: torch.func.vmap(build_callable(graph, fetch_list, feed_names, device)),
-    )
+    if any(n.op in _vec.CONTROL_OPS for n in graph.toposort(fetch_list)):
+        # torch.func.vmap cannot read a batched predicate: one call a group
+        fn = ex.callable_for(graph, fetch_list, feed_names, device)
+
+        def vfn(*cols):
+            outs = [fn(*[c[g] for c in cols]) for g in range(cols[0].shape[0])]
+            return tuple(torch.stack(o) for o in zip(*outs))
+    else:
+        vfn = ex.cached(
+            "vmap-agg", graph, fetch_list, feed_names, device,
+            lambda: torch.func.vmap(build_callable(graph, fetch_list, feed_names, device)),
+        )
     bases = [_base(f) for f in fetch_list]
     results: Dict[str, Optional[torch.Tensor]] = {b: None for b in bases}
     for size in np.unique(counts[counts > 0]):

@@ -19,11 +19,19 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .aggregate import _aggregate_exact, _aggregate_segment, _chunk_combiners
+from .aggregate import (
+    _aggregate_exact,
+    _aggregate_segment,
+    _chunk_combiners,
+    _rowwise_transform,
+)
 from .device import DeviceLike, resolve_device
 from .frame import Column, TensorFrame, as_tensor
 from .graph import builder as dsl
+from .graph import vectorize as _vec
 from .graph.analysis import GraphSummary, analyze_graph
+from .graph.control_flow import functionalize
+from .graph.freeze import freeze_variables
 from .graph.ir import Graph, base_name
 from .ops.lowering import build_callable
 from .runtime.executor import Executor, default_executor
@@ -71,7 +79,11 @@ def _as_graph(
         raise TypeError(f"cannot interpret fetches of type {type(fetches)!r}")
     if not fetch_names:
         raise ValueError("imported graphs need explicit fetch_names=[...]")
-    return g, list(fetch_names)
+    # TF control flow (v1 Switch/Merge rings, v2 If/While, function calls)
+    # becomes _Cond/_While pseudo-nodes first; then stateful graphs are
+    # frozen, where the reference froze them (core.py:42-56)
+    g, fetch_list = functionalize(g, list(fetch_names))
+    return freeze_variables(g), list(fetch_list)
 
 
 _REDUCE_SUFFIXES = ("_input", "_1", "_2")
@@ -343,6 +355,56 @@ def map_blocks(
 # ---------------------------------------------------------------------------
 
 
+def _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev):
+    """`map_rows`' plan for this graph, counted: ``run(feeds, rows)`` gives
+    one block's outputs, each with the row axis (see `map_rows`)."""
+    if not any(n.op in _vec.CONTROL_OPS for n in graph.toposort(fetch_list)):
+        _count("map_rows.plan.vmap")
+        in_dims = tuple(None if n in bindings else 0 for n in feed_names)
+        vfn = ex.cached(
+            f"vmap-rows-[{','.join(sorted(bindings))}]" if bindings else "vmap-rows",
+            graph, fetch_list, feed_names, dev,
+            lambda: torch.func.vmap(
+                build_callable(graph, fetch_list, feed_names, dev), in_dims=in_dims
+            ),
+        )
+        return lambda feeds, rows: vfn(*feeds)
+
+    block_rank = {n: summary.inputs[n].shape.rank + 1 for n in feed_names}
+    if not bindings and _rowwise_transform(graph, fetch_list, block_rank.get):
+        _count("map_rows.plan.lifted")
+        fn = ex.cached(
+            "lifted-rows", graph, fetch_list, feed_names, dev,
+            lambda: build_callable(
+                _vec.lift_to_block_level(graph.clone()), fetch_list, feed_names, dev,
+                row_axis=True,
+            ),
+        )
+        cell_ranks = [summary.outputs[base_name(f)].shape.rank for f in fetch_list]
+
+        def lifted(feeds, rows):
+            # an output the branches computed alike for every row has no
+            # row axis yet
+            return tuple(
+                o if o.dim() > r else o.expand((rows,) + tuple(o.shape))
+                for o, r in zip(fn(*feeds), cell_ranks)
+            )
+
+        return lifted
+
+    _count("map_rows.plan.per_row")
+    fn = ex.callable_for(graph, fetch_list, feed_names, dev)
+    per_row = [n not in bindings for n in feed_names]
+
+    def rows_one_by_one(feeds, rows):
+        outs = [
+            fn(*[f[i] if r else f for f, r in zip(feeds, per_row)]) for i in range(rows)
+        ]
+        return tuple(torch.stack(col) for col in zip(*outs))
+
+    return rows_one_by_one
+
+
 @torch.inference_mode()
 def map_rows(
     fetches,
@@ -354,10 +416,21 @@ def map_rows(
     device: DeviceLike = None,
 ) -> TensorFrame:
     """Apply a per-row graph, or a plain function of row cells returning
-    a dict of named outputs, to every row: vectorized over the block's
-    rows with `torch.func.vmap`, one call per block (the reference ran one
-    session per row). Bound placeholders are the same for every row
-    (``in_dims=None``)."""
+    a dict of named outputs, to every row, one call per block where the
+    graph allows it (the reference ran one session per row). Three plans:
+
+    - ``vmap``, for a graph without control flow: the per-row callable
+      vectorized over the block's rows with `torch.func.vmap`;
+    - ``lifted``, for a graph with `_Cond`/`_While` that is row-local
+      (`aggregate._rowwise_transform`) and has no bindings: the graph
+      lifted to block level, so its predicates carry the row axis and
+      `graph.vectorize` selects per row and loops under a per-row mask,
+      as JAX's batching rules do under `vmap`;
+    - ``per_row``, for any other graph with control flow: the callable
+      once per row (`torch.func.vmap` cannot read a batched predicate).
+
+    Bound placeholders are the same for every row. The plan taken is
+    counted (``map_rows.plan.<plan>``)."""
     dev = resolve_device(device)
     bindings = _normalize_bindings(bindings)
     if callable(fetches) and not isinstance(fetches, dsl.Tensor):
@@ -374,14 +447,7 @@ def map_rows(
             "row; use map_blocks (or run the graph once and broadcast)"
         )
     ex = executor or default_executor()
-    in_dims = tuple(None if n in bindings else 0 for n in feed_names)
-    vfn = ex.cached(
-        f"vmap-rows-[{','.join(sorted(bindings))}]" if bindings else "vmap-rows",
-        graph, fetch_list, feed_names, dev,
-        lambda: torch.func.vmap(
-            build_callable(graph, fetch_list, feed_names, dev), in_dims=in_dims
-        ),
-    )
+    run_block = _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev)
     bound = _bound_tensors(bindings, dev)
     out_names = [base_name(f) for f in fetch_list]
     acc: Dict[str, List[torch.Tensor]] = {n: [] for n in out_names}
@@ -389,7 +455,7 @@ def map_rows(
         lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
         if lo == hi:
             continue
-        outs = vfn(*_feeds(frame, mapping, feed_names, lo, hi, dev, bound))
+        outs = run_block(_feeds(frame, mapping, feed_names, lo, hi, dev, bound), hi - lo)
         for n, o in zip(out_names, outs):
             acc[n].append(o)
     out_cols = [

@@ -17,6 +17,7 @@ import torch
 from ..graph.ir import Graph, parse_edge
 from .registry import GraphLoweringError, LowerCtx, get_rule
 from . import standard  # noqa: F401  (populates the registry)
+from . import control  # noqa: F401  (_Cond/_While and TensorList rules)
 
 __all__ = ["build_callable", "GraphLoweringError"]
 
@@ -40,12 +41,14 @@ def build_callable(
     fetches: Sequence[str],
     feed_names: Sequence[str],
     device: torch.device,
+    row_axis: bool = False,
 ) -> Callable[..., Tuple[Any, ...]]:
     """Build ``fn(*feed_tensors) -> tuple(fetch_values)`` running on
     ``device`` (``meta`` for shape probes).
 
     ``feed_names`` fixes the positional order of placeholder arguments.
-    Fetches may use ``name:k`` syntax.
+    Fetches may use ``name:k`` syntax. ``row_axis`` lowers a per-row graph
+    lifted to block level (`LowerCtx.row_axis`).
     """
     order = graph.toposort(list(fetches))
     feed_pos = {name: i for i, name in enumerate(feed_names)}
@@ -62,8 +65,9 @@ def build_callable(
                 "tensorframes_tpu_torch.ops.registry.registered_ops()"
             )
 
-    ctx = LowerCtx(device)
-    host_ctx = LowerCtx(_CPU)
+    # control-flow rules resolve their body Subgraphs through the ctx
+    ctx = LowerCtx(device, graph, row_axis)
+    host_ctx = LowerCtx(_CPU, graph, row_axis)
 
     # Constant subgraphs (no placeholder ancestors) are evaluated ONCE
     # here, on the host, and their numpy results baked into every call:

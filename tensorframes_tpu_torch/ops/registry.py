@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..graph.ir import GraphNode
+from ..graph.ir import Graph, GraphNode
 from ..schema import ScalarType
 
 __all__ = [
@@ -66,15 +66,34 @@ def registered_ops() -> List[str]:
 
 
 class LowerCtx:
-    """Per-lowering context: the device tensors live on, static-value
-    recovery, and the host->device cache of the graph's constants."""
+    """Per-lowering context: the device tensors live on, the graph being
+    lowered (control-flow rules find their bodies in ``graph.subgraphs``),
+    static-value recovery, and the host->device cache of the graph's
+    constants. ``memo`` lets a rule keep what it builds once per lowering
+    (a body's callable) across the calls of the lowered function.
 
-    def __init__(self, device: torch.device):
+    ``row_axis`` marks a per-row graph lifted to block level
+    (`graph.vectorize.lift_to_block_level`): any value may carry a row
+    axis its per-row graph does not declare, as under `vmap`, so the
+    control-flow rules let a carry or a branch output gain that axis."""
+
+    def __init__(
+        self, device: torch.device, graph: Optional["Graph"] = None, row_axis: bool = False
+    ):
         self.device = device
+        self.graph = graph
+        self.row_axis = row_axis
+        self.memo: Dict[Any, Any] = {}
         # id(constant numpy array) -> its tensor on `device`; filled only
         # for arrays the lowered callable keeps alive (`pin`), so an id is
         # never reused by another array while its entry exists
         self._pinned: Dict[int, torch.Tensor] = {}
+
+    @property
+    def is_meta(self) -> bool:
+        """A shape probe: values are never computed, so nothing may be
+        read back to the host."""
+        return self.device.type == "meta"
 
     def static(self, value, node: GraphNode, what: str) -> np.ndarray:
         """``value`` as a host numpy array, or a clear error if it is a
@@ -103,7 +122,7 @@ class LowerCtx:
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         dtype = ScalarType.from_np_dtype(arr.dtype).torch_dtype
-        if self.device.type == "meta":  # shape probes: values never matter
+        if self.is_meta:  # shape probes: values never matter
             return torch.empty(arr.shape, dtype=dtype, device="meta")
         from ..frame import as_tensor
 

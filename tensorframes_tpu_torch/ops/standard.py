@@ -1,11 +1,8 @@
 """Standard op set: torch lowerings for the TF GraphDef ops of the port.
 
 The PyTorch counterpart of `tensorframes_tpu/ops/standard.py`: every rule
-of that module except the convolution family (Conv2D,
-DepthwiseConv2dNative, MaxPool/MaxPoolV2, AvgPool, FusedBatchNorm/V2/V3,
-BatchNormWithGlobalNormalization, LRN, ResizeBilinear), which waits for
-the frozen-model slice. Every other op raises `GraphLoweringError` naming
-it at build time.
+of that module (`ops.control` holds the control-flow ones). An op without a
+rule raises `GraphLoweringError` naming it at build time.
 
 The JAX rules are the reference, also where they depart from TF:
 - binary ops do NOT promote dtypes (the graph's ``T`` attr fixes one dtype);
@@ -23,6 +20,15 @@ The JAX rules are the reference, also where they depart from TF:
 
 Shape, ShapeN, Size, Rank and Range return host numpy like Const, so a
 downstream `LowerCtx.static` still recovers them.
+
+The convolution family (Conv2D, DepthwiseConv2dNative, MaxPool/MaxPoolV2,
+AvgPool) takes NHWC tensors and HWIO filters, as TF graphs do, and runs
+them on ATen's (cuDNN's on the card) NCHW kernels through ``channels_last``
+views: an NHWC tensor permuted to NCHW is already ``channels_last``, so no
+layout copy is made. TF's ``SAME`` padding puts the odd row or column at
+the bottom and right, which ATen's symmetric padding cannot express; such
+a pad is made explicit with `F.pad` (-inf for MaxPool), and AvgPool divides
+by the count of in-bounds elements, as the JAX rule does.
 """
 
 from __future__ import annotations
@@ -434,6 +440,266 @@ def _log_softmax(ctx, node, inputs):
 def _leaky_relu(ctx, node, inputs):
     alpha = float(node.attr("alpha", 0.2))
     return F.leaky_relu(ctx.tensor(inputs[0]), negative_slope=alpha)
+
+
+# ---------------------------------------------------------------------------
+# convolution family (Inception): NHWC graphs on ATen's NCHW kernels
+# ---------------------------------------------------------------------------
+
+
+def _data_inputs(ctx, node: GraphNode, inputs, n: int) -> List[torch.Tensor]:
+    """The first ``n`` inputs as tensors, or an error naming the op."""
+    if len(inputs) < n:
+        raise GraphLoweringError(
+            f"{node.op!r} node {node.name!r} takes {n} inputs, got {len(inputs)}"
+        )
+    return [ctx.tensor(v) for v in inputs[:n]]
+
+
+def _padding(node: GraphNode) -> str:
+    p = node.attr("padding", b"VALID")
+    p = (p.decode() if isinstance(p, bytes) else str(p)).upper()
+    if p not in ("SAME", "VALID"):
+        raise GraphLoweringError(
+            f"{node.op!r} node {node.name!r}: padding {p!r} is not lowered "
+            "(SAME or VALID)"
+        )
+    return p
+
+
+def _same_pad(size: int, k: int, stride: int, dilation: int = 1) -> Tuple[int, int]:
+    """TF ``SAME`` padding of one spatial dim: (before, after), the odd
+    element after."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def _spatial_pads(node, hw, kernel, strides, dilations=(1, 1)) -> List[Tuple[int, int]]:
+    if _padding(node) == "VALID":
+        return [(0, 0), (0, 0)]
+    return [_same_pad(*a) for a in zip(hw, kernel, strides, dilations)]
+
+
+def _ints_attr(node: GraphNode, key: str, default=None) -> List[int]:
+    av = node.attrs.get(key)
+    if av is None:
+        if default is None:
+            raise GraphLoweringError(f"{node.op!r} node {node.name!r} has no {key!r} attr")
+        return list(default)
+    return [int(v) for v in av.value.i]
+
+
+def _spatial(node: GraphNode, values: List[int], what: str) -> Tuple[int, int]:
+    """The (H, W) entries of a 4-entry strides/ksize/dilations list in the
+    node's data format; the batch and channel entries must be 1."""
+    fmt = _data_format(node)
+    if fmt not in ("NHWC", "NCHW") or len(values) != 4:
+        raise GraphLoweringError(
+            f"{node.op!r} node {node.name!r}: {what} {values} in data format "
+            f"{fmt!r} is not lowered (4 entries, NHWC or NCHW)"
+        )
+    hw, nc = ((1, 2), (0, 3)) if fmt == "NHWC" else ((2, 3), (0, 1))
+    if any(values[d] != 1 for d in nc):
+        raise GraphLoweringError(
+            f"{node.op!r} node {node.name!r}: {what} {values} acts on the batch "
+            "or channel dim, which is not lowered"
+        )
+    return values[hw[0]], values[hw[1]]
+
+
+def _nchw(x: torch.Tensor, fmt: str) -> torch.Tensor:
+    """An NCHW view of ``x``; of an NHWC tensor it is ``channels_last``."""
+    return x.permute(0, 3, 1, 2) if fmt == "NHWC" else x
+
+
+def _from_nchw(y: torch.Tensor, fmt: str) -> torch.Tensor:
+    return y.permute(0, 2, 3, 1) if fmt == "NHWC" else y
+
+
+def _symmetric(pads) -> bool:
+    return all(lo == hi for lo, hi in pads)
+
+
+def _conv(node, x, w_oihw, fmt, strides, dilations=(1, 1), groups=1) -> torch.Tensor:
+    xn = _nchw(x, fmt)
+    pads = _spatial_pads(node, xn.shape[2:], w_oihw.shape[2:], strides, dilations)
+    if _symmetric(pads):
+        padding = tuple(lo for lo, _ in pads)
+    else:
+        (pt, pb), (pl, pr) = pads
+        xn, padding = F.pad(xn, (pl, pr, pt, pb)), 0
+    y = F.conv2d(xn, w_oihw, stride=strides, padding=padding, dilation=dilations, groups=groups)
+    return _from_nchw(y, fmt)
+
+
+@register("Conv2D")
+def _conv2d(ctx, node, inputs):
+    x, w = _data_inputs(ctx, node, inputs, 2)
+    fmt = _data_format(node)
+    strides = _spatial(node, _ints_attr(node, "strides"), "strides")
+    dilations = _spatial(node, _ints_attr(node, "dilations", (1, 1, 1, 1)), "dilations")
+    # HWIO filter -> OIHW; full float32 (the package turns TF32 off)
+    return _conv(node, x, w.permute(3, 2, 0, 1), fmt, strides, dilations)
+
+
+@register("DepthwiseConv2dNative")
+def _depthwise_conv(ctx, node, inputs):
+    x, w = _data_inputs(ctx, node, inputs, 2)
+    # the JAX rule takes NHWC without dilations; the port refuses the rest
+    # instead of computing them as NHWC
+    if _data_format(node) != "NHWC" or any(
+        d != 1 for d in _ints_attr(node, "dilations", (1, 1, 1, 1))
+    ):
+        raise GraphLoweringError(
+            f"{node.op!r} node {node.name!r}: only NHWC without dilations is "
+            "lowered, as in the JAX package"
+        )
+    strides = _spatial(node, _ints_attr(node, "strides"), "strides")
+    # w: [H, W, C, M] -> groups of one input channel each; output channel
+    # c*M + m belongs to group c, so the filter reshapes channel-major
+    h, wd, c, m = w.shape
+    w_oihw = w.reshape(h, wd, 1, c * m).permute(3, 2, 0, 1)
+    return _conv(node, x, w_oihw, "NHWC", strides, groups=c)
+
+
+def _pool_geometry(ctx, node, inputs):
+    """(fmt, NCHW view, kernel, strides, pads) of a pooling node; MaxPoolV2
+    may carry ksize and strides as constant inputs instead of attrs."""
+    x = ctx.tensor(inputs[0])
+    fmt = _data_format(node)
+    if x.dim() != 4:
+        raise GraphLoweringError(
+            f"{node.op!r} node {node.name!r}: input of rank {x.dim()}; pooling "
+            "is lowered for 4-d tensors"
+        )
+    if "ksize" in node.attrs:
+        ksize, strides = _ints_attr(node, "ksize"), _ints_attr(node, "strides")
+    else:
+        if len(inputs) < 3:
+            raise GraphLoweringError(
+                f"{node.op!r} node {node.name!r} has neither ksize/strides "
+                "attrs nor inputs"
+            )
+        ksize = ctx.static_int_list(inputs[1], node, "ksize")
+        strides = ctx.static_int_list(inputs[2], node, "strides")
+    kernel = _spatial(node, ksize, "ksize")
+    strides = _spatial(node, strides, "strides")
+    xn = _nchw(x, fmt)
+    return fmt, xn, kernel, strides, _spatial_pads(node, xn.shape[2:], kernel, strides)
+
+
+def _explicit_pad(xn: torch.Tensor, pads, value: float) -> torch.Tensor:
+    (pt, pb), (pl, pr) = pads
+    return F.pad(xn, (pl, pr, pt, pb), value=value)
+
+
+@register("MaxPool", "MaxPoolV2")
+def _max_pool(ctx, node, inputs):
+    fmt, xn, kernel, strides, pads = _pool_geometry(ctx, node, inputs)
+    if _symmetric(pads):  # ATen pads with -inf itself
+        y = F.max_pool2d(xn, kernel, strides, padding=tuple(lo for lo, _ in pads))
+    else:
+        y = F.max_pool2d(_explicit_pad(xn, pads, float("-inf")), kernel, strides)
+    return _from_nchw(y, fmt)
+
+
+@register("AvgPool")
+def _avg_pool(ctx, node, inputs):
+    """The window sum over the in-bounds elements divided by their count."""
+    fmt, xn, kernel, strides, pads = _pool_geometry(ctx, node, inputs)
+    if _symmetric(pads):
+        y = F.avg_pool2d(
+            xn, kernel, strides, padding=tuple(lo for lo, _ in pads),
+            count_include_pad=False,
+        )
+    else:
+        total = F.avg_pool2d(_explicit_pad(xn, pads, 0.0), kernel, strides, divisor_override=1)
+        ones = torch.ones((1, 1) + tuple(xn.shape[2:]), dtype=xn.dtype, device=xn.device)
+        count = F.avg_pool2d(_explicit_pad(ones, pads, 0.0), kernel, strides, divisor_override=1)
+        y = total / count
+    return _from_nchw(y, fmt)
+
+
+@register("FusedBatchNorm", "FusedBatchNormV2", "FusedBatchNormV3")
+def _fused_batch_norm(ctx, node, inputs):
+    """``(y, mean, variance)``; with ``is_training`` the batch's mean and
+    biased variance replace the given ones."""
+    x, scale, offset, mean, var = _data_inputs(ctx, node, inputs, 5)
+    eps = float(node.attr("epsilon", 1e-4))
+    nchw = _data_format(node) == "NCHW"
+    if bool(node.attr("is_training", False)):
+        var, mean = torch.var_mean(x, dim=(0, 2, 3) if nchw else (0, 1, 2), correction=0)
+    if nchw:
+        scale, offset, mean, var = (v.reshape(1, -1, 1, 1) for v in (scale, offset, mean, var))
+    inv = scale * torch.rsqrt(var + eps)
+    y = (x - mean) * inv + offset
+    return (y, mean.reshape(-1), var.reshape(-1))
+
+
+@register("BatchNormWithGlobalNormalization")
+def _batch_norm_global(ctx, node, inputs):
+    x, mean, var, beta, gamma = _data_inputs(ctx, node, inputs, 5)
+    eps = float(node.attr("variance_epsilon", 1e-4))
+    inv = torch.rsqrt(var + eps)
+    if bool(node.attr("scale_after_normalization", True)):
+        inv = inv * gamma
+    return x * inv + (beta - mean * inv)
+
+
+@register("LRN")
+def _lrn(ctx, node, inputs):
+    """Local response normalisation over the last (channel) axis, a
+    symmetric window of ``2 r + 1`` channels."""
+    x = ctx.tensor(inputs[0])
+    r = int(node.attr("depth_radius", 5))
+    if r < 0:
+        raise GraphLoweringError(
+            f"'LRN' node {node.name!r}: depth_radius {r} must be at least 0"
+        )
+    bias = float(node.attr("bias", 1.0))
+    alpha = float(node.attr("alpha", 1.0))
+    beta = float(node.attr("beta", 0.5))
+    c = x.shape[-1]
+    sq = F.pad(torch.square(x), (r, r))
+    summed = sq.narrow(-1, 0, c)
+    for j in range(1, 2 * r + 1):
+        summed = summed + sq.narrow(-1, j, c)
+    return x / torch.pow(bias + alpha * summed, beta)
+
+
+@register("ResizeBilinear")
+def _resize_bilinear(ctx, node, inputs):
+    """TF1 bilinear resize with its coordinate conventions: legacy
+    asymmetric (default), ``align_corners`` or ``half_pixel_centers``.
+    The output is float32 whatever the input type."""
+    x = _data_inputs(ctx, node, inputs, 1)[0].to(torch.float32)  # NHWC
+    if len(inputs) < 2:
+        raise GraphLoweringError(f"'ResizeBilinear' node {node.name!r} has no size input")
+    out_h, out_w = ctx.static_int_list(inputs[1], node, "size")
+    align = bool(node.attr("align_corners", False))
+    half_pixel = bool(node.attr("half_pixel_centers", False))
+
+    def src(out_n: int, in_n: int) -> torch.Tensor:
+        o = torch.arange(out_n, dtype=torch.float32, device=x.device)
+        if align and out_n > 1:
+            return o * ((in_n - 1) / (out_n - 1))
+        if half_pixel:
+            return torch.clamp_min((o + 0.5) * (in_n / out_n) - 0.5, 0.0)
+        return o * (in_n / out_n)
+
+    def lerp_axis(arr: torch.Tensor, out_n: int, axis: int) -> torch.Tensor:
+        in_n = arr.shape[axis]
+        coords = src(out_n, in_n)
+        lo = torch.floor(coords).to(torch.int64).clamp(0, in_n - 1)
+        hi = torch.clamp_max(lo + 1, in_n - 1)
+        shape = [1] * arr.dim()
+        shape[axis] = out_n
+        w = (coords - lo).reshape(shape)
+        a, b = arr.index_select(axis, lo), arr.index_select(axis, hi)
+        return a * (1 - w) + b * w
+
+    return lerp_axis(lerp_axis(x, out_h, 1), out_w, 2)
 
 
 # ---------------------------------------------------------------------------

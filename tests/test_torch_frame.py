@@ -170,8 +170,9 @@ class TestDevice:
 
 
 def test_import_guard_no_jax():
-    """Importing the port (and running a verb) loads neither jax nor any
-    module of the JAX package."""
+    """Importing the port (and running the verbs, imported graphs with
+    control flow and variables among them) loads neither jax nor any module
+    of the JAX package."""
     code = textwrap.dedent(
         """
         import sys
@@ -179,11 +180,17 @@ def test_import_guard_no_jax():
         import tensorframes_tpu_torch as tft
         import tensorframes_tpu_torch.aggregate
         import tensorframes_tpu_torch.fn_frontend
+        import tensorframes_tpu_torch.graph.control_flow
+        import tensorframes_tpu_torch.graph.freeze
+        import tensorframes_tpu_torch.graph.vectorize
         import tensorframes_tpu_torch.models
+        import tensorframes_tpu_torch.models.inception
         import tensorframes_tpu_torch.models.kmeans
         import tensorframes_tpu_torch.models.mlp
+        import tensorframes_tpu_torch.ops.control
         import tensorframes_tpu_torch.ops.flash_attention
         import tensorframes_tpu_torch.ops.standard
+        import tensorframes_tpu_torch.tools.profile_imported
         import tensorframes_tpu_torch.utils.profiling
         df = tft.TensorFrame.from_dict(
             {"x": np.arange(6.0), "k": np.array([0, 1, 0, 1, 2, 2])}, num_blocks=2
@@ -197,6 +204,13 @@ def test_import_guard_no_jax():
         tft.map_rows(lambda x, w: {"y": x * w}, df, bindings={"w": 2.0}, device="cpu")
         pts = tft.TensorFrame.from_dict({"p": np.arange(12.0).reshape(6, 2)})
         tensorframes_tpu_torch.models.kmeans(pts, "p", 2, 1, device="cpu")
+        fixtures = "tests/fixtures/torch_port/"
+        xs = tft.TensorFrame.from_dict({"x": np.linspace(-9, 9, 7).astype(np.float32)})
+        tft.map_rows(fixtures + "branchy_v1.pb", xs, fetch_names=["out"], device="cpu")
+        tft.map_blocks(fixtures + "var_resource.pb", xs, fetch_names=["z"], device="cpu")
+        g, _ = tft.dsl.build(tft.InceptionLite(image_size=16, width=4).scoring_graph())
+        imgs = tft.TensorFrame.from_dict({"images": np.zeros((2, 16, 16, 3), np.float32)})
+        tft.map_blocks(g.to_bytes(), imgs, fetch_names=["probs"], trim=True, device="cpu")
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"

@@ -1,5 +1,6 @@
-"""PyTorch port: `models.MLP` and `models.kmeans` held to the JAX models on
-the CPU.
+"""PyTorch port: `models.MLP`, `models.kmeans` and `models.InceptionLite`
+held to the JAX models on the CPU, and the frozen Keras Inception-v3 graph
+scored by both packages.
 
 Tolerances:
 - MLP logits and softmax scores (float32 products, TF32 off): rtol 1e-5,
@@ -7,8 +8,15 @@ Tolerances:
   orders;
 - k-means: the same seed draws the same initial centres; the counts are
   exact and the centres within rtol 1e-5, atol 1e-6 (float32 sums of the
-  assigned points in a different order).
+  assigned points in a different order);
+- InceptionLite and the frozen Keras Inception-v3 probabilities: rtol 1e-4,
+  atol 1e-6 (float32 convolutions summed in another order by XLA's and
+  ATen's CPU kernels, through dozens of layers), and the same top-1.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -17,9 +25,10 @@ import tensorframes_tpu as tfs
 import tensorframes_tpu_torch as tft
 import torch
 from tensorframes_tpu.graph import builder as jdsl
+from tensorframes_tpu.models import InceptionLite as JInceptionLite
 from tensorframes_tpu.models import MLP as JMLP
 from tensorframes_tpu.models.kmeans import kmeans as j_kmeans
-from tensorframes_tpu_torch.models import MLP, kmeans
+from tensorframes_tpu_torch.models import MLP, InceptionLite, kmeans
 
 CPU = "cpu"
 
@@ -110,3 +119,78 @@ class TestKMeans:
             kmeans(tdf, "p", k=2, device=CPU)
         with pytest.raises(ValueError, match="num_iters"):
             kmeans(tdf, "p", k=2, num_iters=0, device=CPU)
+
+
+class TestInceptionLite:
+    @pytest.mark.parametrize(
+        "kw",
+        [dict(image_size=16, width=4, seed=0), dict(image_size=32, width=8, num_classes=10, seed=3),
+         dict(image_size=299, width=32, num_classes=1000, seed=0)],
+        ids=["tiny", "default-widths", "smoke-widths"],
+    )
+    def test_scoring_graph_bytes_equal_the_jax_model(self, kw):
+        """The weights live in the GraphDef: equal bytes carry them over."""
+        jg, jf = jdsl.build(JInceptionLite(**kw).scoring_graph())
+        tg, tf_ = tft.dsl.build(InceptionLite(**kw).scoring_graph())
+        assert tf_ == jf == ["probs"]
+        assert tg.to_bytes() == jg.to_bytes()
+        assert tft.InceptionLite is InceptionLite
+
+    def test_probabilities_match_the_jax_model(self):
+        raw = jdsl.build(JInceptionLite(image_size=16, width=4, seed=0).scoring_graph())[0].to_bytes()
+        imgs = np.random.default_rng(0).standard_normal((12, 16, 16, 3)).astype(np.float32)
+        ref = np.asarray(tfs.map_blocks(
+            raw, tfs.TensorFrame.from_dict({"images": imgs}, num_blocks=3),
+            fetch_names=["probs"], trim=True,
+        )["probs"].values)
+        got = tft.map_blocks(
+            raw, tft.TensorFrame.from_dict({"images": imgs}, num_blocks=3),
+            fetch_names=["probs"], trim=True, device=CPU,
+        ).host_values("probs")
+        assert got.shape == ref.shape == (12, 10) and got.dtype == np.float32
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)
+        np.testing.assert_array_equal(got.argmax(1), ref.argmax(1))
+
+
+def _freeze_keras_inception(tmp_path, hw=75, batch=2):
+    """Keras Inception-v3, frozen in a child process by the benchmark's
+    `benchmarks._util.freeze_keras_model` (TF2 freezing needs eager mode,
+    which another test module may have turned off in this process)."""
+    pytest.importorskip("tensorflow")
+    pb, npz = tmp_path / "iv3.pb", tmp_path / "iv3.npz"
+    code = (
+        "import os\n"
+        "os.environ.setdefault('CUDA_VISIBLE_DEVICES', '-1')\n"
+        "os.environ.setdefault('TF_CPP_MIN_LOG_LEVEL', '2')\n"
+        "import numpy as np\n"
+        "from benchmarks._util import freeze_keras_model\n"
+        f"wire, innode, outnode, _ = freeze_keras_model('InceptionV3', {hw})\n"
+        f"feeds = np.random.default_rng(0).normal(size=({batch}, {hw}, {hw}, 3)).astype(np.float32)\n"
+        f"open({str(pb)!r}, 'wb').write(wire)\n"
+        f"np.savez({str(npz)!r}, feeds=feeds, innode=innode, outnode=outnode)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    d = np.load(npz)
+    return pb.read_bytes(), str(d["innode"]), str(d["outnode"]), d["feeds"]
+
+
+def test_frozen_keras_inception_v3_matches_the_jax_package(tmp_path):
+    """The real Keras graph (2,000+ nodes, ~96 MB of frozen constants) at
+    its smallest input, 75x75, scored by both packages on the CPU."""
+    wire, in_node, out_node, images = _freeze_keras_inception(tmp_path)
+    assert len(wire) > 50_000_000
+    ref = np.asarray(tfs.map_blocks(
+        wire, tfs.TensorFrame.from_dict({"images": images}),
+        fetch_names=[out_node], feed_dict={in_node: "images"},
+    )[out_node].values)
+    got = tft.map_blocks(
+        wire, tft.TensorFrame.from_dict({"images": images}),
+        fetch_names=[out_node], feed_dict={in_node: "images"}, device=CPU,
+    ).host_values(out_node)
+    assert got.shape == ref.shape == (2, 1000)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(got.argmax(1), ref.argmax(1))

@@ -40,7 +40,7 @@ _ATOL = {np.dtype(np.float32): 1e-6, np.dtype(np.float64): 1e-12}
 
 F32, F64, I32, I64, BOOL = np.float32, np.float64, np.int32, np.int64, np.bool_
 
-# the convolution family waits for the frozen-model slice
+# the convolution family (held to the JAX rules in tests/test_torch_conv.py)
 _CONV_FAMILY = {
     "Conv2D", "DepthwiseConv2dNative", "MaxPool", "MaxPoolV2", "AvgPool",
     "FusedBatchNorm", "FusedBatchNormV2", "FusedBatchNormV3",
@@ -128,22 +128,49 @@ def _op(name, *parents, **attrs):
 
 
 def test_registry_holds_every_jax_standard_op_but_the_convolution_family():
-    jax_standard = {
-        n for n in j_registered_ops()
-        if j_get_rule(n).fn.__module__ == "tensorframes_tpu.ops.standard"
-    }
-    assert _CONV_FAMILY <= jax_standard
-    port = set(registered_ops())
-    assert port == jax_standard - _CONV_FAMILY
-    assert len(port) == len(jax_standard) - 11
+    """The convolution family came in with the frozen-model slice, and the
+    control-flow rules with it: the port now lowers every op name the JAX
+    package's `ops/standard.py` and `ops/control.py` register."""
+    modules = {"tensorframes_tpu.ops.standard", "tensorframes_tpu.ops.control"}
+    jax_ops = {n for n in j_registered_ops() if j_get_rule(n).fn.__module__ in modules}
+    assert _CONV_FAMILY <= jax_ops
+    assert set(registered_ops()) == jax_ops == set(j_registered_ops())
+
+
+def _unlowerable(op):
+    """A graph holding ``op`` that its rule cannot lower, and its feeds."""
+    x = np.zeros((2, 3), np.float32)
+    img = np.zeros((1, 4, 4, 2), np.float32)
+    w = np.zeros((1, 1, 2, 2), np.float32)
+    size = np.array([2, 2], np.int32)
+    if op == "Conv2D":
+        return _op(op, _ph(img, "x"), _ph(w, "w"), strides=[1, 1, 1, 1], padding="EXPLICIT"), \
+            {"x": img, "w": w}
+    if op == "DepthwiseConv2dNative":
+        return _op(op, _ph(img, "x"), _ph(w, "w"), strides=[1, 1, 1, 1], padding="SAME",
+                   data_format="NCHW"), {"x": img, "w": w}
+    if op == "LRN":
+        return _op(op, _ph(img, "x"), depth_radius=-1), {"x": img}
+    if op == "ResizeBilinear":  # the size must be a constant
+        return _op(op, _ph(img, "x"), _ph(size, "size")), {"x": img, "size": size}
+    if op == "TensorListReserve":  # the extents must be constants
+        return _op(op, _ph(size, "size"), _const(3, np.int32)), {"size": size}
+    # pooling of a 2-d tensor, a batch norm or a _While missing its inputs
+    # or its body subgraph
+    return _op(op, _ph(x, "x")), {"x": x}
 
 
 @pytest.mark.parametrize("op", sorted(_CONV_FAMILY) + ["_While", "TensorListReserve"])
 def test_ops_outside_the_port_raise_naming_the_op(op):
-    x = np.zeros((2, 3), np.float32)
-    g, _ = jdsl.build(_op(op, _ph(x, "x")).named("o"))
+    """These ops were outside the port until the frozen-model slice; each
+    now raises `GraphLoweringError` naming the op on a graph it cannot
+    lower, never an untyped error."""
+    fetch, feeds = _unlowerable(op)
+    g, _ = jdsl.build(fetch.named("o"))
+    names = sorted(feeds)
     with pytest.raises(GraphLoweringError, match=repr(op)):
-        t_build(TGraph.from_bytes(g.to_bytes()), ["o"], ["x"], CPU)
+        fn = t_build(TGraph.from_bytes(g.to_bytes()), ["o"], names, CPU)
+        fn(*[torch.from_numpy(feeds[n]) for n in names])
 
 
 # ---------------------------------------------------------------------------

@@ -113,8 +113,10 @@ class TestMapBlocks:
 
     def test_unsupported_op_is_named(self):
         tdf = tft.TensorFrame.from_dict({"x": _data(np.float64)})
-        t = tdsl._nary("LRN", [tft.block(tdf, "x")]).named("e")
-        with pytest.raises(GraphLoweringError, match="'LRN'"):
+        # an op neither package lowers (LRN was one until the port took the
+        # convolution family)
+        t = tdsl._nary("Conv3D", [tft.block(tdf, "x")]).named("e")
+        with pytest.raises(GraphLoweringError, match="'Conv3D'"):
             tft.map_blocks(t, tdf, device=CPU)
 
     def test_executor_builds_once(self):
