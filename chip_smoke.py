@@ -40,14 +40,21 @@ main path through the entry points a user calls:
    `map_blocks`, with the host syncs counted;
 10. variable freezing: a ``VariableV2`` and a ``VarHandleOp`` graph as TF
     wrote them, through `map_blocks` over phase 3's column, exact;
-11. one JSON line listing every kernel with its launches on the main path
-    (phases 3-10), its error and its times;
-12. as the last line, ``{"ok": true, "device": {...}}``.
+11. frame breadth: ragged `map_rows` over 1,000,000 float32 rows of 1-64
+    values (64 shape buckets), `pad_ragged` and a masked sum, a
+    string-keyed aggregate at config 4's widths (10,000,000 x 8 float32,
+    1,000 string ids), a bytes pass-through over 10,000,000 rows, and the
+    function front end on all-empty frames;
+12. one JSON line listing every kernel with its launches on the main path
+    (phases 3-11), its error and its times;
+13. as the last line, ``{"ok": true, "device": {...}}``.
 
-Phases 8-10 run after phase 6 and before phase 7. Phases 3-6 and 8-10 run
+Phases 8-11 run after phase 6 and before phase 7. Phases 3-6 and 8-11 run
 no hand-written kernel (their ops are ATen, cuBLAS and cuDNN calls), so the
 script checks that the attention kernel's count is still 0 after them and
-counts its launches in phase 7 alone.
+counts its launches in phase 7 alone. The script imports neither pandas
+nor pyarrow. The port factorizes string keys with pandas where pandas
+imports, and in one dict pass where it does not; phase 11 times both.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once. It imports
@@ -795,6 +802,250 @@ def phase_freezing(tft, df) -> None:
     _emit("freezing", rows=df.nrows, blocks=df.num_blocks, **result)
 
 
+def _ragged_column(rows: int, max_len: int, seed: int):
+    """``rows`` float32 cells of lengths uniform in 1..``max_len``: (cells,
+    flat values, row starts, lengths)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, max_len + 1, rows)
+    flat = rng.random(int(lens.sum()), dtype=np.float32)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    return np.split(flat, starts[1:]), flat, starts, lens
+
+
+def phase_frame_breadth(tft, ragged_rows: int = 1_000_000, max_len: int = 64,
+                        agg_rows: int = 10_000_000, dim: int = 8, nids: int = 1000,
+                        blocks: int = 8) -> None:
+    """Ragged `map_rows` (graph and function), `pad_ragged` with a masked
+    sum, a string-keyed aggregate and a bytes pass-through, and the
+    function front end over all-empty frames."""
+    from tensorframes_tpu_torch.fn_frontend import _assemble_ragged, _bucket_rows, _run_buckets
+    from tensorframes_tpu_torch.frame import factorize_keys
+    from tensorframes_tpu_torch.utils.profiling import reset_stats, stats
+
+    dev = torch.device("cuda")
+    dsl = tft.dsl
+    result = {}
+
+    # (a) ragged map_rows: one call per length bucket
+    t0 = time.perf_counter()
+    cells, flat, starts, lens = _ragged_column(ragged_rows, max_len, SEED)
+    df = tft.TensorFrame.from_dict({"v": cells}, num_blocks=blocks)
+    build_s = time.perf_counter() - t0
+    del cells
+    want_sum = np.add.reduceat(flat.astype(np.float64), starts)
+    want_max = np.maximum.reduceat(flat, starts)
+    buckets = len(np.unique(lens))
+    v = tft.row(df, "v")
+    s_graph = dsl.reduce_sum(v, axes=[0]).named("s")
+    w_graph = (v * 2.0).named("w")
+
+    def ragged_call(what, call):
+        call()  # lowers once
+        reset_stats()
+        out, secs = _wall(call)
+        counts = stats()
+        if counts.get("map_rows.plan.ragged") != 1.0 or counts.get("map_rows.ragged.buckets") != buckets:
+            raise AssertionError(f"ragged map_rows {what}: counters say {counts}, "
+                                 f"expected the ragged plan over {buckets} buckets")
+        return out, secs
+
+    out, sum_s = ragged_call("sum", lambda: tft.map_rows(s_graph, df))
+    got_sum = out.column("s").values
+    if not (got_sum.is_cuda and got_sum.dtype == torch.float32):
+        raise AssertionError(f"ragged sum: {got_sum.device} {got_sum.dtype}, expected float32 on cuda")
+    sum_err = _check_close("ragged map_rows sum", got_sum.cpu().double(),
+                           torch.from_numpy(want_sum), _SUM_RTOL, 0.0)
+    got_sum = got_sum.cpu().numpy()
+    del out
+
+    out, twice_s = ragged_call("v * 2", lambda: tft.map_rows(w_graph, df))
+    col = out.column("w")
+    if col.is_dense or col.device is not None:
+        raise AssertionError("ragged map_rows v * 2: expected ragged host cells")
+    sample = np.random.default_rng(SEED + 1).choice(ragged_rows, 1000, replace=False)
+    for i in sample:
+        cell = col.row(int(i))
+        if cell.dtype != np.float32 or not np.array_equal(cell, flat[starts[i]:starts[i] + lens[i]] * 2):
+            raise AssertionError(f"ragged map_rows v * 2: row {i} differs")
+    doubled = np.concatenate(col.ragged)
+    if not np.array_equal(doubled, flat * 2):
+        raise AssertionError("ragged map_rows v * 2: the rows in order differ from 2 v")
+    checksum = float(doubled.sum(dtype=np.float64))
+    del out, col, doubled
+
+    out, max_s = ragged_call("max", lambda: tft.map_rows(lambda v: {"m": v.max()}, df))
+    if not np.array_equal(out.host_values("m"), want_max):
+        raise AssertionError("ragged map_rows(fn) max differs from numpy")
+    del out
+
+    # the plan's stages apart: bucketing and assembly on the host, the
+    # bucket calls (host gather, one copy, kernels) between them; the
+    # device time is CUDA events around each bucket's call
+    column = df.column("v")
+    vsum = torch.func.vmap(lambda v: {"s": v.sum()})
+    events = []
+
+    def timed(feeds, rows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = vsum(*feeds)
+        end.record()
+        events.append((start, end))
+        return out
+
+    t0 = time.perf_counter()
+    parts = _bucket_rows([column], ragged_rows)
+    bucket_s = time.perf_counter() - t0
+    chunks, run_s = _wall(lambda: _run_buckets(timed, [column], parts, dev))
+    device_ms = sum(a.elapsed_time(b) for a, b in events)
+    _, dense_assemble_s = _wall(lambda: _assemble_ragged(chunks, ragged_rows))
+    vtwice = torch.func.vmap(lambda v: {"w": v * 2.0})
+    wchunks = _run_buckets(lambda feeds, rows: vtwice(*feeds), [column], parts, dev)
+    torch.cuda.synchronize()
+    _, ragged_assemble_s = _wall(lambda: _assemble_ragged(wchunks, ragged_rows))
+    del chunks, wchunks
+    result["ragged_map_rows"] = dict(
+        rows=ragged_rows, values=int(lens.sum()), max_len=max_len, blocks=blocks,
+        buckets=buckets, column_build_s=build_s,
+        sum_s=sum_s, sum_rows_per_s=ragged_rows / sum_s, sum_max_abs_err=sum_err,
+        sum_rtol=_SUM_RTOL, times_two_s=twice_s, times_two_rows_per_s=ragged_rows / twice_s,
+        times_two_checksum=checksum, fn_max_s=max_s, fn_max_rows_per_s=ragged_rows / max_s,
+        stages_of_the_sum=dict(bucketing_host_s=bucket_s, bucket_calls_s=run_s,
+                               bucket_calls_device_ms=device_ms,
+                               dense_assembly_s=dense_assemble_s),
+        ragged_assembly_of_times_two_s=ragged_assemble_s,
+    )
+
+    # (b) pad_ragged, then a masked block sum on the card
+    padded, pad_s = _wall(lambda: df.pad_ragged("v").to_device())
+    if tuple(padded.column("v").values.shape) != (ragged_rows, max_len):
+        raise AssertionError(f"pad_ragged: shape {tuple(padded.column('v').values.shape)}")
+
+    def masked_sum(v, v_len):
+        keep = torch.arange(v.shape[1], device=v.device) < v_len[:, None]
+        return {"t": torch.where(keep, v, 0.0).sum(1)}
+
+    tft.map_blocks(masked_sum, padded)
+    out, masked_s = _wall(lambda: tft.map_blocks(masked_sum, padded))
+    got_t = out.column("t").values
+    masked_err = _check_close("masked sum over pad_ragged", got_t.cpu().double(),
+                              torch.from_numpy(want_sum), _SUM_RTOL, 0.0)
+    vs_ragged = float(np.abs(got_t.cpu().numpy() - got_sum).max())
+    result["pad_ragged"] = dict(
+        pad_and_copy_s=pad_s, masked_sum_s=masked_s, masked_rows_per_s=ragged_rows / masked_s,
+        max_abs_err=masked_err, max_abs_diff_from_ragged_sum=vs_ragged, rtol=_SUM_RTOL,
+    )
+    del df, padded, out, got_t, flat
+
+    # (c) string keys at config 4's widths: mean and variance per id
+    ids = np.array([f"user_{i:06d}" for i in range(nids)], dtype=object)
+    rng = np.random.default_rng(SEED)
+    codes = rng.integers(0, nids, agg_rows)
+    keys = ids[codes]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    vals = torch.rand(agg_rows, dim, device="cuda", generator=gen)
+    t0 = time.perf_counter()
+    kdf = tft.TensorFrame([tft.Column("k", keys), tft.Column("v", vals)])
+    key_column_s = time.perf_counter() - t0
+    # the two host factorizations `factorize_keys` has: pandas' where it
+    # imports (a first call imports it), and the dict pass that runs
+    # without pandas, timed with pandas hidden; they give the same codes
+    factorize_keys(["k"], [keys[:10]], dev)
+    pandas = sys.modules.get("pandas")
+    (_, codes_default), factorize_s = _wall(lambda: factorize_keys(["k"], [kdf.host_values("k")], dev))
+    sys.modules["pandas"] = None
+    try:
+        (_, codes_dict), dict_pass_s = _wall(lambda: factorize_keys(["k"], [kdf.host_values("k")], dev))
+    finally:
+        if pandas is None:
+            del sys.modules["pandas"]
+        else:
+            sys.modules["pandas"] = pandas
+    if not torch.equal(codes_default, codes_dict):
+        raise AssertionError("string keys: the dict pass and pandas give different codes")
+    del codes_default, codes_dict
+    m = dsl.reduce_mean(dsl.block(kdf, "v", tf_name="m_input"), axes=[0]).named("m")
+    q = dsl.reduce_mean(dsl.square(dsl.block(kdf, "v", tf_name="q_input")), axes=[0]).named("q")
+    feed = {"m_input": "v", "q_input": "v"}
+    grouped = tft.group_by(kdf, "k")
+    tft.aggregate([m, q], grouped, feed_dict=feed)  # lowers once
+    reset_stats()
+    out, agg_s = _wall(lambda: tft.aggregate([m, q], grouped, feed_dict=feed))
+    _plan_ran("string-keyed aggregate", "aggregate.plan.segment")
+    got_k = out.host_values("k")
+    if out.column("k").device is not None or got_k.tolist() != sorted(ids.tolist()):
+        raise AssertionError("string-keyed aggregate: the key column is not the sorted ids")
+    got_m, got_q = out.host_values("m"), out.host_values("q")
+    vh = vals.cpu().numpy()
+    counts = np.bincount(codes, minlength=nids).astype(np.float64)
+    want_m, want_q = np.empty((nids, dim)), np.empty((nids, dim))
+    for j in range(dim):
+        c = vh[:, j].astype(np.float64)
+        want_m[:, j] = np.bincount(codes, weights=c, minlength=nids) / counts
+        want_q[:, j] = np.bincount(codes, weights=c * c, minlength=nids) / counts
+    del vh
+    mean_err = _check_close("string-keyed mean", torch.from_numpy(got_m.astype(np.float64)),
+                            torch.from_numpy(want_m), _SUM_RTOL, 0.0)
+    sq_err = _check_close("string-keyed mean of squares",
+                          torch.from_numpy(got_q.astype(np.float64)),
+                          torch.from_numpy(want_q), _SUM_RTOL, 0.0)
+    var_err = _check_close(
+        "string-keyed variance",
+        torch.from_numpy(got_q.astype(np.float64) - got_m.astype(np.float64) ** 2),
+        torch.from_numpy(want_q - want_m**2), 0.0,
+        torch.from_numpy(_SUM_RTOL * (want_q + 2 * want_m**2)),
+    )
+    result["string_keyed_aggregate"] = dict(
+        rows=agg_rows, dim=dim, ids=nids, key_column_build_s=key_column_s,
+        factorize_host_s=factorize_s, factorize_dict_pass_host_s=dict_pass_s,
+        pandas_version=getattr(pandas, "__version__", None),
+        aggregate_s=agg_s, rows_per_s=agg_rows / agg_s, mean_max_abs_err=mean_err,
+        mean_of_squares_max_abs_err=sq_err, variance_max_abs_err=var_err, rtol=_SUM_RTOL,
+    )
+    del out, grouped, kdf
+
+    # (d) a bytes column through map_blocks beside a computed fetch
+    x = vals[:, 0].contiguous()
+    del vals
+    sdf = tft.TensorFrame([tft.Column("x", x), tft.Column("id", keys)]).repartition(blocks)
+    tag = dsl.placeholder(tft.ScalarType.string, tft.Shape(()), name="id")
+    fetches = [(tft.block(sdf, "x") + 3.0).named("z"), dsl.identity(tag).named("t")]
+    tft.map_blocks(fetches, sdf)  # lowers once
+    out, pass_s = _wall(lambda: tft.map_blocks(fetches, sdf))
+    z, t = out.column("z"), out.column("t")
+    if t.device is not None or t.dtype is not tft.ScalarType.string or not np.array_equal(
+        t.host_values(), keys
+    ):
+        raise AssertionError("bytes pass-through: the ids did not come back unchanged on the host")
+    if not (z.values.is_cuda and torch.equal(z.values, x + 3.0)):
+        raise AssertionError("bytes pass-through: x + 3 is not x + 3 on the card")
+    if out.columns != ["t", "z", "x", "id"]:
+        raise AssertionError(f"bytes pass-through: columns {out.columns}")
+    result["string_passthrough"] = dict(rows=agg_rows, blocks=blocks, seconds=pass_s,
+                                        rows_per_s=agg_rows / pass_s)
+    del out, sdf, x, keys
+
+    # (e) the function front end over all-empty frames, on the card: the
+    # JAX package's names, shapes and dtypes (tests/test_torch_verbs.py)
+    empty = tft.TensorFrame([tft.Column("x", torch.zeros(0, 3, device="cuda"))])
+    cases = {
+        "map_blocks": (tft.map_blocks(lambda x: {"y": x * 2.0 + 1.0}, empty), ["y", "x"]),
+        "map_rows": (tft.map_rows(lambda x: {"y": x * 2.0 + 1.0}, empty), ["y", "x"]),
+        "map_blocks_trim_keepdims": (
+            tft.map_blocks(lambda x: {"s": x.sum(0, keepdim=True)}, empty, trim=True), ["s"]),
+    }
+    for name, (frame, names) in cases.items():
+        if frame.columns != names:
+            raise AssertionError(f"empty {name}: columns {frame.columns}, expected {names}")
+        for c in names:
+            val = frame.column(c).values
+            if tuple(val.shape) != (0, 3) or val.dtype != torch.float32 or not val.is_cuda:
+                raise AssertionError(f"empty {name}: {c} is {tuple(val.shape)} {val.dtype} "
+                                     f"on {val.device}, expected (0, 3) float32 on cuda")
+    result["empty_frame_functions"] = {n: f.columns for n, (f, _) in cases.items()}
+    _emit("frame_breadth", **result)
+
+
 def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int) -> float:
     from tensorframes_tpu_torch.models import TransformerLM
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention_reference
@@ -851,11 +1102,12 @@ def main() -> int:
     phase_control_flow(tft)
     phase_freezing(tft, verbs_df)
     del verbs_df
+    phase_frame_breadth(tft)
     if flash_attention.launches:
         raise AssertionError(
-            f"the verb, aggregate, k-means, Inception, control-flow and freezing "
-            f"phases launched flash_attention {flash_attention.launches} times; "
-            "none of their graphs holds attention"
+            f"the verb, aggregate, k-means, Inception, control-flow, freezing and "
+            f"frame-breadth phases launched flash_attention {flash_attention.launches} "
+            "times; none of their graphs holds attention"
         )
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)
     launches = flash_attention.launches

@@ -13,6 +13,10 @@ its own copies of the framework-free modules it needs (schema, proto,
 graph IR and builder, control-flow functionalization, variable freezing,
 the Inception scoring graph). Imported GraphDefs are functionalized and
 frozen as the JAX package does, so TF control flow and variables run.
+Columns may be dense, ragged or strings; ragged and string cells stay on
+the host. pandas and pyarrow (for `TensorFrame.from_pandas`/`from_arrow`
+and `io`) are imported only where they are used, so the package loads
+without them.
 
 Float32 matrix products run in full float32: TF32 is turned off here for
 cuBLAS and cuDNN, because the parity bars against the JAX package assume
@@ -24,11 +28,16 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
+from . import io  # noqa: E402
 from .api import (  # noqa: E402
     GroupedFrame,
     aggregate,
     analyze,
+    append_shape,
     block,
+    block_to_row,
+    explain,
+    explain_detailed,
     group_by,
     map_blocks,
     map_rows,
@@ -60,9 +69,14 @@ __all__ = [
     "Unknown",
     "aggregate",
     "analyze",
+    "append_shape",
     "block",
+    "block_to_row",
     "dsl",
+    "explain",
+    "explain_detailed",
     "group_by",
+    "io",
     "map_blocks",
     "map_rows",
     "print_schema",

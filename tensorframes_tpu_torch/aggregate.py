@@ -21,7 +21,7 @@ config) and the TPU-only one-hot segment sum.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -32,24 +32,34 @@ from .graph.analysis import GraphSummary
 from .graph.ir import Graph, base_name as _base
 from .ops.lowering import build_callable
 from .ops.standard import segment_reduce
+from .schema import ScalarType
 
 
 def _factorized(grouped, device: torch.device):
-    """Group keys moved to ``device`` and factorized there:
-    ``(key_out, inverse, num_groups)``."""
+    """``(key_out, inverse on device, num_groups)``: numeric keys moved to
+    ``device`` and factorized there, string keys factorized on the host
+    (`frame.factorize_keys`)."""
     frame = grouped.frame
-    keys = [as_tensor(frame.column(k).values, device) for k in grouped.keys]
-    key_out, inverse = factorize_keys(grouped.keys, keys)
+    keys = []
+    for k in grouped.keys:
+        col = frame.column(k)
+        numeric = col.is_dense and col.dtype is not ScalarType.string
+        keys.append(as_tensor(col.values, device) if numeric else col.host_values())
+    key_out, inverse = factorize_keys(grouped.keys, keys, device)
     return key_out, inverse, len(next(iter(key_out.values())))
 
 
 def _keyed_output(
-    key_out: Dict[str, torch.Tensor],
+    key_out: Dict[str, Union[torch.Tensor, np.ndarray]],
     results: Dict[str, torch.Tensor],
     bases: List[str],
 ) -> TensorFrame:
-    """Key columns, then the outputs sorted by name (`DebugRowOps.scala:583-598`)."""
-    cols = [Column(k, v) for k, v in key_out.items()]
+    """Key columns, then the outputs sorted by name (`DebugRowOps.scala:583-598`).
+    A string key is a host string column, empty for an empty frame."""
+    cols = [
+        Column(k, v, ScalarType.string if isinstance(v, np.ndarray) and v.dtype == object else None)
+        for k, v in key_out.items()
+    ]
     cols += [Column(b, results[b]) for b in sorted(bases)]
     return TensorFrame(cols)
 

@@ -1,19 +1,26 @@
 """The five verbs: `map_blocks`, `map_rows`, `reduce_blocks`, `reduce_rows`
-and `aggregate` (with `group_by`), plus `block`, `row` and `analyze`.
+and `aggregate` (with `group_by`), plus `block`, `row`, `analyze`,
+`append_shape`, `explain`, `explain_detailed`, `block_to_row` and the
+fluent frame methods (``df.map_blocks(...)``, ``grouped.agg(...)``).
 
 The PyTorch counterpart of `tensorframes_tpu/api.py`. A graph (DSL tensor,
 `Graph`, GraphDef bytes or file path) is analyzed, its placeholders are
 matched to columns (or to per-call ``bindings``), and a lowered callable
 runs once per block on ``device`` (default: the CUDA card). Outputs stay on
 that device as tensors; `Column.host_values` is the one way back to numpy.
+Block-level verbs need dense columns; `map_rows` also runs over ragged
+ones, one call per shape bucket. Bytes columns pass through a map as an
+identity and are never computed on. A pandas DataFrame in gives a pandas
+DataFrame out.
 
-Not in the port yet: the mesh/scheduler/lazy/global routes, string
-pass-through, shape bucketing (eager PyTorch has no per-shape compile to
-bound) and the chunked aggregate plan.
+Not in the port yet: the mesh/scheduler/lazy/global routes, shape
+bucketing (eager PyTorch has no per-shape compile to bound) and the chunked
+aggregate plan.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -26,7 +33,7 @@ from .aggregate import (
     _rowwise_transform,
 )
 from .device import DeviceLike, resolve_device
-from .frame import Column, TensorFrame, as_tensor
+from .frame import Column, TensorFrame, _to_numpy, as_tensor
 from .graph import builder as dsl
 from .graph import vectorize as _vec
 from .graph.analysis import GraphSummary, analyze_graph
@@ -35,7 +42,7 @@ from .graph.freeze import freeze_variables
 from .graph.ir import Graph, base_name
 from .ops.lowering import build_callable
 from .runtime.executor import Executor, default_executor
-from .schema import ScalarType, Shape
+from .schema import ColumnInfo, ScalarType, Shape
 from .utils.profiling import count as _count
 
 __all__ = [
@@ -50,10 +57,36 @@ __all__ = [
     "row",
     "analyze",
     "print_schema",
+    "append_shape",
+    "explain",
+    "explain_detailed",
+    "block_to_row",
 ]
 
 Fetches = Union[dsl.Tensor, Sequence[dsl.Tensor], Graph, bytes, str]
 Bindings = Optional[Dict[str, Union[np.ndarray, torch.Tensor]]]
+
+# the ops of `GroupedFrame.agg` specs (`tensorframes_tpu/graph/plan.py:63`)
+AGG_OPS = ("sum", "mean", "min", "max")
+
+
+def _is_pandas(obj) -> bool:
+    return type(obj).__module__.startswith("pandas")
+
+
+def _pandas_in_out(verb):
+    """A verb that takes a pandas DataFrame where it takes a frame and then
+    returns one (the reference's local-debug path, `core.py:171-183`)."""
+
+    @functools.wraps(verb)
+    def wrapper(fetches, frame, *args, **kwargs):
+        if not _is_pandas(frame):
+            return verb(fetches, frame, *args, **kwargs)
+        out = verb(fetches, TensorFrame.from_pandas(frame), *args, **kwargs)
+        return out.to_pandas() if isinstance(out, TensorFrame) else out
+
+    return wrapper
+
 
 # ---------------------------------------------------------------------------
 # graph normalization + placeholder <-> column matching
@@ -204,20 +237,139 @@ def _match_columns(
 
 
 def _prepare(
-    fetches, frame, feed_dict, fetch_names, block_level, bindings=None, validate=None
+    graph, fetch_list, frame, feed_dict, block_level, bindings=None, validate=None
 ):
-    """Graph, fetches, analysis and placeholder -> column mapping. A
-    verb's naming convention (``validate``) is checked before the columns
-    are matched, so a misnamed placeholder is reported as such."""
+    """Analysis and placeholder -> column mapping of a graph `_as_graph`
+    normalized. A verb's naming convention (``validate``) is checked before
+    the columns are matched, so a misnamed placeholder is reported as
+    such."""
     bindings = bindings if bindings is not None else {}
-    graph, fetch_list = _as_graph(fetches, fetch_names)
     overrides = _ph_overrides(graph, frame, feed_dict, block_level, bindings)
     summary = analyze_graph(graph, fetch_list, placeholder_shapes=overrides)
     _check_bindings(summary, bindings)
     if validate is not None:
         validate(summary, fetch_list)
     mapping = _match_columns(summary, frame, feed_dict, block_level, bindings)
-    return graph, fetch_list, summary, mapping
+    return summary, mapping
+
+
+def _require_dense(frame: TensorFrame, cols: Sequence[str], verb: str) -> None:
+    for c in cols:
+        if not frame.column(c).is_dense:
+            raise ValueError(
+                f"{verb}: column {c!r} is ragged (rows have varying shapes); "
+                "block-level ops need uniform cells — use map_rows, or fix "
+                "the data"
+            )
+
+
+# ---------------------------------------------------------------------------
+# bytes/string cells: identity pass-through (the reference's Binary scope)
+# ---------------------------------------------------------------------------
+
+
+def _split_string_passthrough(
+    graph: Graph, fetch_list: List[str]
+) -> Tuple[Graph, List[str], Dict[str, str]]:
+    """Partition fetches into device fetches and bytes pass-throughs.
+
+    The reference supports Binary cells at one scope: a single scalar cell
+    carried through, never computed on (`datatypes.scala:577-581`). A fetch
+    that is an Identity chain over a string placeholder becomes a host-side
+    copy of the column; a fetch that computes on string data raises.
+    Returns the device-only subgraph, the device fetches, and ``{fetch base
+    -> string placeholder name}``."""
+    str_phs = {
+        ph.name for ph in graph.placeholders() if ph.dtype_attr is ScalarType.string
+    }
+    if not str_phs:
+        return graph, fetch_list, {}
+    passthrough: Dict[str, str] = {}
+    device_fetches: List[str] = []
+    for f in fetch_list:
+        cur, ph = base_name(f), None
+        while True:
+            node = graph[cur]
+            if node.op in ("Placeholder", "PlaceholderV2"):
+                ph = node.name if node.name in str_phs else None
+                break
+            if node.op in ("Identity", "Snapshot", "StopGradient"):
+                cur = node.data_inputs()[0][0]
+                continue
+            break
+        if ph is not None:
+            passthrough[base_name(f)] = ph
+        else:
+            device_fetches.append(f)
+    if device_fetches:
+        keep = {n.name for n in graph.toposort(device_fetches)}
+        touched = keep & str_phs
+        if touched:
+            raise ValueError(
+                f"fetches {sorted(base_name(f) for f in device_fetches)} compute "
+                f"on bytes-column data (via {sorted(touched)}); bytes cells "
+                "support identity pass-through only (the reference's "
+                "one-scalar-cell Binary scope, datatypes.scala:577-581)"
+            )
+        dev_graph = Graph([n for n in graph.nodes if n.name in keep])
+    else:
+        dev_graph = Graph([])
+    return dev_graph, device_fetches, passthrough
+
+
+def _string_passthrough_columns(
+    passthrough: Dict[str, str], frame: TensorFrame, feed_dict: Optional[Dict[str, str]]
+) -> List[Column]:
+    """Resolve and validate the bytes columns; each output column holds
+    the input's row values, on the host."""
+    feed_dict = feed_dict or {}
+    cols = []
+    for base, ph in passthrough.items():
+        col_name = feed_dict.get(ph, _default_column(ph, frame))
+        if col_name not in frame.info:
+            raise ValueError(
+                f"placeholder {ph!r} wants column {col_name!r} which is not "
+                f"in the frame (columns: {frame.columns})"
+            )
+        info = frame.info[col_name]
+        if info.dtype is not ScalarType.string:
+            raise ValueError(
+                f"placeholder {ph!r} is a bytes placeholder but column "
+                f"{col_name!r} has dtype {info.dtype.name}"
+            )
+        if info.cell_shape.rank != 0:
+            raise ValueError(
+                f"bytes column {col_name!r} must hold one scalar cell per "
+                "row (the reference's Binary scope, datatypes.scala:577-581)"
+            )
+        col = frame.column(col_name)
+        if col.is_dense:  # a fixed-width numpy string array
+            cols.append(Column(base, col.values.astype(object), ScalarType.string))
+        else:  # string cells are never written to: share them
+            cols.append(col.with_info(ColumnInfo(base, ScalarType.string, Shape(()))))
+    return cols
+
+
+def _with_string_passthrough(
+    str_pass, frame, feed_dict, fetch_list, bindings, verb: str, run_graph
+) -> TensorFrame:
+    """The verb's output when some fetches are bytes pass-throughs: the
+    device fetches through ``run_graph()`` (when any are left), the bytes
+    columns copied on the host, then the input columns."""
+    str_cols = _string_passthrough_columns(str_pass, frame, feed_dict)
+    if fetch_list:
+        out = run_graph()
+        dev_cols = [out.column(base_name(f)) for f in fetch_list]
+    else:
+        if bindings:
+            # no compute graph runs, so no placeholder can take a binding:
+            # a misspelt key must not be dropped
+            raise ValueError(
+                f"{verb}: bindings {sorted(bindings)} match no placeholder "
+                "(the graph is pure string pass-through)"
+            )
+        dev_cols = []
+    return _output_frame(frame, dev_cols + str_cols, append_input=True)
 
 
 def _empty_output(
@@ -292,6 +444,7 @@ def _block_rows(outs: Dict[str, torch.Tensor], rows: int, trim: bool) -> int:
 # ---------------------------------------------------------------------------
 
 
+@_pandas_in_out
 @torch.inference_mode()
 def map_blocks(
     fetches,
@@ -310,7 +463,8 @@ def map_blocks(
     input columns ride along; with ``trim=True`` the row count may change
     and the input columns are dropped. ``bindings`` feeds named
     placeholders (or function parameters) one array for every block; new
-    values on a later call reuse the same lowering.
+    values on a later call reuse the same lowering. A fetch that is the
+    identity of a bytes column copies that column on the host.
     """
     dev = resolve_device(device)
     bindings = _normalize_bindings(bindings)
@@ -318,9 +472,25 @@ def map_blocks(
         from .fn_frontend import _map_blocks_fn
 
         return _map_blocks_fn(fetches, frame, trim, dev, bindings)
-    graph, fetch_list, summary, mapping = _prepare(
-        fetches, frame, feed_dict, fetch_names, True, bindings
-    )
+    graph, fetch_list = _as_graph(fetches, fetch_names)
+    graph, fetch_list, str_pass = _split_string_passthrough(graph, fetch_list)
+    if str_pass:
+        if trim:
+            raise ValueError(
+                "map_blocks(trim): bytes pass-through requires a row-preserving map"
+            )
+        return _with_string_passthrough(
+            str_pass, frame, feed_dict, fetch_list, bindings, "map_blocks",
+            lambda: _map_blocks_graph(
+                graph, fetch_list, frame, feed_dict, False, executor, bindings, dev
+            ),
+        )
+    return _map_blocks_graph(graph, fetch_list, frame, feed_dict, trim, executor, bindings, dev)
+
+
+def _map_blocks_graph(graph, fetch_list, frame, feed_dict, trim, executor, bindings, dev):
+    summary, mapping = _prepare(graph, fetch_list, frame, feed_dict, True, bindings)
+    _require_dense(frame, list(mapping.values()), "map_blocks")
     ex = executor or default_executor()
     feed_names = sorted(summary.inputs)
     fn = ex.callable_for(graph, fetch_list, feed_names, dev)
@@ -405,6 +575,7 @@ def _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev):
     return rows_one_by_one
 
 
+@_pandas_in_out
 @torch.inference_mode()
 def map_rows(
     fetches,
@@ -430,17 +601,37 @@ def map_rows(
       once per row (`torch.func.vmap` cannot read a batched predicate).
 
     Bound placeholders are the same for every row. The plan taken is
-    counted (``map_rows.plan.<plan>``)."""
+    counted (``map_rows.plan.<plan>``). Over ragged columns the rows are
+    grouped by cell shape and the plan runs once per group, whatever the
+    blocks (``map_rows.plan.ragged``, ``map_rows.ragged.buckets``); an
+    output whose groups agree on its cell shape is dense on ``device``,
+    any other is ragged on the host. A fetch that is the identity of a
+    bytes column copies that column on the host."""
     dev = resolve_device(device)
     bindings = _normalize_bindings(bindings)
     if callable(fetches) and not isinstance(fetches, dsl.Tensor):
         from .fn_frontend import _map_rows_fn
 
         return _map_rows_fn(fetches, frame, dev, bindings)
-    graph, fetch_list, summary, mapping = _prepare(
-        fetches, frame, feed_dict, fetch_names, False, bindings
-    )
+    graph, fetch_list = _as_graph(fetches, fetch_names)
+    graph, fetch_list, str_pass = _split_string_passthrough(graph, fetch_list)
+    if str_pass:
+        return _with_string_passthrough(
+            str_pass, frame, feed_dict, fetch_list, bindings, "map_rows",
+            lambda: _map_rows_graph(graph, fetch_list, frame, feed_dict, executor, bindings, dev),
+        )
+    return _map_rows_graph(graph, fetch_list, frame, feed_dict, executor, bindings, dev)
+
+
+def _map_rows_graph(graph, fetch_list, frame, feed_dict, executor, bindings, dev):
+    summary, mapping = _prepare(graph, fetch_list, frame, feed_dict, False, bindings)
     feed_names = sorted(summary.inputs)
+    dense = all(frame.column(c).is_dense for c in mapping.values())
+    if bindings and not dense:
+        raise ValueError(
+            "map_rows: bindings are not supported with ragged feed "
+            "columns; densify the columns or bake the values as constants"
+        )
     if bindings and not mapping:
         raise ValueError(
             "map_rows: every placeholder is bound, so nothing varies per "
@@ -448,8 +639,20 @@ def map_rows(
         )
     ex = executor or default_executor()
     run_block = _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev)
-    bound = _bound_tensors(bindings, dev)
     out_names = [base_name(f) for f in fetch_list]
+    if not dense:
+        from .fn_frontend import _run_ragged_bucketed
+
+        per_out = _run_ragged_bucketed(
+            run_block, [frame.column(mapping[n]) for n in feed_names], frame.nrows, dev,
+            out_names,
+        )
+        out_cols = [
+            per_out[n] if n in per_out else Column(n, _empty_output(summary, n, False, dev))
+            for n in out_names
+        ]
+        return _output_frame(frame, out_cols, append_input=True)
+    bound = _bound_tensors(bindings, dev)
     acc: Dict[str, List[torch.Tensor]] = {n: [] for n in out_names}
     for bi in range(frame.num_blocks):
         lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
@@ -521,6 +724,7 @@ def _results(bases: List[str], values):
     return values[0] if len(bases) == 1 else dict(zip(bases, values))
 
 
+@_pandas_in_out
 @torch.inference_mode()
 def reduce_blocks(
     fetches,
@@ -534,9 +738,11 @@ def reduce_blocks(
     Returns one tensor for one fetch, a dict of tensors for several; the
     results stay on ``device``."""
     dev = resolve_device(device)
-    graph, fetch_list, summary, mapping = _prepare(
-        fetches, frame, feed_dict, fetch_names, True, validate=_validate_reduce_blocks
+    graph, fetch_list = _as_graph(fetches, fetch_names)
+    summary, mapping = _prepare(
+        graph, fetch_list, frame, feed_dict, True, validate=_validate_reduce_blocks
     )
+    _require_dense(frame, list(mapping.values()), "reduce_blocks")
     ex = executor or default_executor()
     feed_names = sorted(summary.inputs)
     fn = ex.callable_for(graph, fetch_list, feed_names, dev)
@@ -622,6 +828,7 @@ def _monoid_reductions(graph: Graph, bases: List[str], summary: GraphSummary):
     return out
 
 
+@_pandas_in_out
 @torch.inference_mode()
 def reduce_rows(
     fetches,
@@ -646,9 +853,11 @@ def reduce_rows(
       callable once per row, the carry kept on ``device``.
     """
     dev = resolve_device(device)
-    graph, fetch_list, summary, mapping = _prepare(
-        fetches, frame, feed_dict, fetch_names, False, validate=_validate_reduce_rows
+    graph, fetch_list = _as_graph(fetches, fetch_names)
+    summary, mapping = _prepare(
+        graph, fetch_list, frame, feed_dict, False, validate=_validate_reduce_rows
     )
+    _require_dense(frame, list(mapping.values()), "reduce_rows")
     bases = [base_name(f) for f in fetch_list]
     for b in bases:
         c1, c2 = mapping[b + "_1"], mapping[b + "_2"]
@@ -698,7 +907,10 @@ def reduce_rows(
 
 
 class GroupedFrame:
-    """`group_by(frame, *keys)`: the RelationalGroupedDataset analogue."""
+    """`group_by(frame, *keys)`: the RelationalGroupedDataset analogue. Any
+    scalar column is a key: numbers factorize on the verb's device, strings
+    and other objects on the host (the reference grouped by any Catalyst
+    column type)."""
 
     def __init__(self, frame: TensorFrame, keys: Sequence[str]):
         self.frame = frame
@@ -707,9 +919,38 @@ class GroupedFrame:
             if not frame.info[k].cell_shape.is_scalar:
                 raise ValueError(f"group key {k!r} must be a scalar column")
 
+    def aggregate(self, fetches, **kw) -> TensorFrame:
+        return aggregate(fetches, self, **kw)
+
+    def agg(self, device: DeviceLike = None, **specs) -> TensorFrame:
+        """Keyed aggregation from ``out=('op', column)`` specs, ops among
+        `AGG_OPS`: each lowers to a reduce over axis 0 of its column."""
+        fetches, feed = _agg_spec_exprs(self.frame, specs)
+        return aggregate(fetches, self, feed_dict=feed, device=device)
+
 
 def group_by(frame: TensorFrame, *keys: str) -> GroupedFrame:
     return GroupedFrame(frame, keys)
+
+
+def _agg_spec_exprs(frame: TensorFrame, specs: Dict[str, Tuple[str, str]]):
+    """``out=(op, column)`` specs as the DSL reduce fetches and the
+    feed_dict `aggregate` takes."""
+    fetches = []
+    feed: Dict[str, str] = {}
+    for out, spec in sorted(specs.items()):
+        if (
+            not isinstance(spec, (tuple, list)) or len(spec) != 2
+            or not all(isinstance(s, str) for s in spec)
+        ):
+            raise TypeError(f"agg spec {out}={spec!r}: want a ('op', 'column') pair")
+        op, colname = spec
+        if op not in AGG_OPS:
+            raise ValueError(f"agg op {op!r} is not one of {list(AGG_OPS)}")
+        ph = dsl.block(frame, colname, tf_name=f"{out}_input")
+        fetches.append(getattr(dsl, f"reduce_{op}")(ph, axes=[0]).named(out))
+        feed[f"{out}_input"] = colname
+    return fetches, feed
 
 
 @torch.inference_mode()
@@ -728,13 +969,16 @@ def aggregate(
     A graph `_chunk_combiners` classifies (a Sum/Min/Max/Prod/float Mean
     over axis 0 of a row-wise transform of its placeholder) takes the
     segment plan; any other graph the exact plan, whole groups through the
-    graph (`DebugRowOps.aggregate`, `DebugRowOps.scala:554-599`).
+    graph (`DebugRowOps.aggregate`, `DebugRowOps.scala:554-599`). A string
+    key's column comes back as host strings.
     """
     dev = resolve_device(device)
     frame = grouped.frame
-    graph, fetch_list, summary, mapping = _prepare(
-        fetches, frame, feed_dict, fetch_names, True, validate=_validate_reduce_blocks
+    graph, fetch_list = _as_graph(fetches, fetch_names)
+    summary, mapping = _prepare(
+        graph, fetch_list, frame, feed_dict, True, validate=_validate_reduce_blocks
     )
+    _require_dense(frame, list(mapping.values()), "aggregate")
     ex = executor or default_executor()
     feed_names = sorted(summary.inputs)
     classified = _chunk_combiners(graph, fetch_list, summary)
@@ -755,20 +999,83 @@ def aggregate(
 
 
 def block(frame: TensorFrame, col_name: str, tf_name: Optional[str] = None):
-    """Block placeholder for a column (`tfs.block`)."""
+    """Block placeholder for a column (`tfs.block`); takes a pandas
+    DataFrame too."""
+    if _is_pandas(frame):
+        frame = TensorFrame.from_pandas(frame)
     return dsl.block(frame, col_name, tf_name)
 
 
 def row(frame: TensorFrame, col_name: str, tf_name: Optional[str] = None):
-    """Row placeholder for a column (`tfs.row`)."""
+    """Row placeholder for a column (`tfs.row`); takes a pandas DataFrame
+    too."""
+    if _is_pandas(frame):
+        frame = TensorFrame.from_pandas(frame)
     return dsl.row(frame, col_name, tf_name)
 
 
 def analyze(frame: TensorFrame) -> TensorFrame:
-    """Scan the data and refine column shapes (dense columns already know
-    theirs)."""
+    """Scan the data and refine column shapes (`ExperimentalOperations.analyze`)."""
     return frame.analyze()
 
 
 def print_schema(frame: TensorFrame) -> None:
     frame.print_schema()
+
+
+def append_shape(frame: TensorFrame, col: str, shape) -> TensorFrame:
+    """`tfs.append_shape` (`ExperimentalOperations.scala:53-68`)."""
+    return frame.append_shape(col, shape if isinstance(shape, Shape) else Shape(shape))
+
+
+def explain(frame: TensorFrame) -> str:
+    """The frame's schema as text (`DebugRowOps.scala:535-552`)."""
+    return frame.info.explain()
+
+
+def explain_detailed(frame: TensorFrame):
+    """The frame's per-column metadata, the `FrameInfo` itself
+    (`ExperimentalOperations.scala:27`)."""
+    return frame.info
+
+
+def block_to_row(frame: TensorFrame) -> TensorFrame:
+    """Each block as one row: every column's rank grows by one, its new
+    lead dim the block's row count. Blocks of unequal size give a ragged
+    column. The cells are host arrays."""
+    cells: Dict[str, list] = {name: [] for name in frame.columns}
+    for blk in frame.blocks():
+        for name in frame.columns:
+            col = blk[name]
+            if not col.is_dense:
+                raise ValueError(
+                    f"block_to_row: column {name!r} is ragged; analyze/pad first"
+                )
+            values = col.values
+            cells[name].append(_to_numpy(values) if isinstance(values, torch.Tensor) else values)
+    return TensorFrame([Column(n, cells[n], frame[n].dtype) for n in frame.columns])
+
+
+# ---------------------------------------------------------------------------
+# fluent methods (the reference's Scala implicits: ``df.mapBlocks(...)``,
+# ``grouped.aggregate(...)``, `dsl/Implicits.scala:25-124`)
+# ---------------------------------------------------------------------------
+
+
+def _install_fluent_methods() -> None:
+    slice_block = TensorFrame.block
+
+    def _block(self, arg, tf_name=None):
+        # df.block(i) slices block i; df.block("col") is a placeholder
+        return dsl.block(self, arg, tf_name) if isinstance(arg, str) else slice_block(self, arg)
+
+    TensorFrame.map_blocks = lambda self, fetches, **kw: map_blocks(fetches, self, **kw)
+    TensorFrame.map_rows = lambda self, fetches, **kw: map_rows(fetches, self, **kw)
+    TensorFrame.reduce_blocks = lambda self, fetches, **kw: reduce_blocks(fetches, self, **kw)
+    TensorFrame.reduce_rows = lambda self, fetches, **kw: reduce_rows(fetches, self, **kw)
+    TensorFrame.group_by = lambda self, *keys: GroupedFrame(self, keys)
+    TensorFrame.block = _block
+    TensorFrame.row = lambda self, col, tf_name=None: dsl.row(self, col, tf_name)
+
+
+_install_fluent_methods()

@@ -9,6 +9,10 @@ The PyTorch counterpart of the counter surface of
 - ``map_rows.plan.vmap`` (no control flow), ``map_rows.plan.lifted`` (a
   row-local graph with control flow, run once per block) and
   ``map_rows.plan.per_row`` (any other graph with control flow);
+- ``map_rows.plan.ragged``: a `map_rows` over ragged columns, one plan
+  run per shape bucket; ``map_rows.ragged.buckets``: those buckets;
+- ``host_sync``: a device column's first copy to the host
+  (`Column.host_values`);
 - ``control.cond.host_syncs``: host reads of a scalar `_Cond` predicate;
   ``control.while.trips`` / ``control.while.host_syncs``: trips of a
   scalar `_While` and host reads of its predicate;

@@ -1,8 +1,8 @@
 """PyTorch port: `group_by` + `aggregate` held to the JAX package on the CPU.
 
-Mirrors `tests/test_verbs.py::TestAggregate` (numeric keys),
-`TestMultiKeyAggregate` and the plan choice of `TestAggregateChunked`
-under the default config. The reference is the JAX package's unmeshed
+Mirrors `tests/test_verbs.py::TestAggregate` (numeric, string, mixed and
+NaN keys), `TestMultiKeyAggregate`, `GroupedFrame.agg` and the plan choice
+of `TestAggregateChunked` under the default config. The reference is the JAX package's unmeshed
 plan: its meshed mean/variance test fails in the reference itself.
 Both packages emit the distinct keys in sorted order (a NaN key last), so
 the outputs compare row by row. Tolerances:
@@ -11,8 +11,11 @@ the outputs compare row by row. Tolerances:
   the segment plan sums in a different order than the reference.
 """
 
+import sys
+
 import numpy as np
 import pytest
+import torch
 
 import tensorframes_tpu as tfs
 import tensorframes_tpu_torch as tft
@@ -30,7 +33,9 @@ def _compare(ref, out, exact=()):
     for c in ref.columns:
         r, o = np.asarray(ref.host_values(c)), out.host_values(c)
         assert (o.shape, o.dtype) == (r.shape, r.dtype), c
-        if r.dtype.kind in "biu" or c in exact:
+        if r.dtype.kind in "OUS":  # string keys: host values, in the same order
+            assert out[c].device is None and o.tolist() == r.tolist(), c
+        elif r.dtype.kind in "biu" or c in exact:
             np.testing.assert_array_equal(o, r)
         else:
             np.testing.assert_allclose(o, r, rtol=_RTOL[r.dtype], atol=0)
@@ -230,6 +235,107 @@ def test_results_stay_on_the_verbs_device():
     assert all(out.column(c).device is not None for c in out.columns)
 
 
-def test_factorize_keys_refuses_strings_naming_the_queue():
-    with pytest.raises(ValueError, match="Queue 1 item 2"):
-        factorize_keys(["s"], [np.array(["a", "b"], dtype=object)])
+_STRING_KEYS = {
+    "strings": np.array(["b", "a", "c", "a", "b", "b", "d"] * 3, dtype=object),
+    "bytes": np.array([b"y", b"x", b"y", b"z"] * 4, dtype=object),
+    "fixed_width": np.array(["q", "p", "q", "r", "p"] * 3),
+    "with_missing": np.array(["b", None, "a", np.nan, "b", "a", None], dtype=object),
+    "strings_and_numbers": np.array(["b", 3, "a", 1, "b", 2.5, 3], dtype=object),
+}
+
+
+@pytest.mark.parametrize("name", list(_STRING_KEYS))
+def test_factorize_keys_refuses_strings_naming_the_queue(name, monkeypatch):
+    """String and object keys factorize on the host into the reference's
+    codes and sorted key order (None and NaN one key, last; numbers before
+    strings), with pandas and with pandas hidden, as on the card's
+    machine."""
+    keys = _STRING_KEYS[name]
+    import pandas as pd
+
+    want_codes, want_uniq = pd.factorize(keys, sort=True, use_na_sentinel=False)
+    for hide in (False, True):
+        if hide:
+            monkeypatch.setitem(sys.modules, "pandas", None)
+        key_out, inverse = factorize_keys(["s"], [keys], torch.device(CPU))
+        assert inverse.dtype == torch.int64 and inverse.device == torch.device(CPU)
+        np.testing.assert_array_equal(inverse.numpy(), want_codes)
+        got = key_out["s"]
+        assert got.dtype == np.asarray(want_uniq).dtype
+        assert [x if x == x else "nan" for x in got.tolist()] == [
+            x if x == x else "nan" for x in np.asarray(want_uniq).tolist()]
+    if name in ("strings", "bytes", "fixed_width"):
+        data = {"k": keys, "x": np.arange(len(keys), dtype=np.float64)}
+        for prog in (_reduce("sum"), _div_root):
+            ref, out = _aggregate_both(data, ["k"], prog, num_blocks=2)
+            _compare(ref, out)
+
+
+@pytest.mark.parametrize("prog,exact", [(_reduce("sum"), ()), (_reduce("max"), ("x",)),
+                                        (_div_root, ())], ids=["segment", "segment_max", "exact"])
+def test_string_keys(prog, exact):
+    rng = np.random.default_rng(5)
+    ids = np.array([f"user_{i:03d}" for i in range(40)], dtype=object)
+    data = {"k": ids[rng.integers(0, 40, 300)], "x": rng.uniform(0.5, 1.5, (300, 2))}
+    ref, out = _aggregate_both(data, ["k"], prog)
+    _compare(ref, out, exact=exact)
+    assert out.host_values("k").tolist() == sorted(set(data["k"]))
+
+
+def test_string_keys_with_missing_values():
+    data = {"k": np.array(["b", None, "a", "b", None, "a", "c"], dtype=object),
+            "x": np.arange(7.0)}
+    ref, out = _aggregate_both(data, ["k"], _reduce("sum"), num_blocks=2)
+    keys = out.host_values("k").tolist()
+    assert keys[:3] == ["a", "b", "c"] and np.isnan(keys[3])
+    np.testing.assert_array_equal(out.host_values("x"), [7.0, 3.0, 6.0, 5.0])
+    np.testing.assert_array_equal(out.host_values("x"), np.asarray(ref["x"].values))
+
+
+@pytest.mark.parametrize("prog", [_reduce("sum"), _div_root], ids=["segment", "exact"])
+def test_mixed_string_and_int_keys(prog):
+    data = {"a": np.array(["p", "q", "p", "q", "p"], dtype=object),
+            "b": np.array([1, 1, 2, 1, 1], dtype=np.int64), "x": np.arange(5.0) + 1}
+    ref, out = _aggregate_both(data, ["a", "b"], prog, num_blocks=2)
+    _compare(ref, out)
+    assert [tuple(r) for r in out.to_pandas().to_numpy()] == [
+        tuple(r) for r in ref.to_pandas().to_numpy()]
+    ref, out = _aggregate_both(data, ["b", "a"], prog, num_blocks=2)
+    _compare(ref, out)
+
+
+def test_empty_string_keyed_aggregate():
+    data = {"k": np.array([], dtype=object), "x": np.zeros(0)}
+    dtypes_j, dtypes_t = {"k": tfs.ScalarType.string}, {"k": tft.ScalarType.string}
+    jdf = tfs.TensorFrame.from_dict(data, dtypes=dtypes_j)
+    tdf = tft.TensorFrame.from_dict(data, dtypes=dtypes_t)
+    probe_j, probe_t = (m.TensorFrame.from_dict({"x": np.zeros(4)}) for m in (tfs, tft))
+    ref = tfs.aggregate(_reduce("sum")(jdsl, probe_j), tfs.group_by(jdf, "k"))
+    out = tft.aggregate(_reduce("sum")(tdsl, probe_t), tft.group_by(tdf, "k"), device=CPU)
+    assert out.nrows == ref.nrows == 0
+    assert out.columns == ref.columns == ["k", "x"]
+    assert out["k"].dtype is tft.ScalarType.string
+    assert out.host_values("x").dtype == np.float64
+
+
+@pytest.mark.parametrize("key", ["k", "s"])
+def test_grouped_agg_specs(key):
+    rng = np.random.default_rng(6)
+    data = {"k": rng.integers(0, 5, 60), "s": np.array(list("xyz"), dtype=object)[rng.integers(0, 3, 60)],
+            "x": rng.uniform(0.5, 1.5, 60), "v": rng.uniform(0.5, 1.5, (60, 2)).astype(np.float32)}
+    jdf = tfs.TensorFrame.from_dict(data, num_blocks=3)
+    tdf = tft.TensorFrame.from_dict(data, num_blocks=3)
+    specs = dict(total=("sum", "x"), avg=("mean", "v"), lo=("min", "x"), hi=("max", "v"))
+    ref = tfs.group_by(jdf, key).agg(**specs)
+    reset_stats()
+    out = tft.group_by(tdf, key).agg(device=CPU, **specs)
+    assert stats() == {"aggregate.plan.segment": 1.0}
+    _compare(ref, out, exact=("lo", "hi"))
+
+
+def test_grouped_agg_spec_errors():
+    tdf = tft.TensorFrame.from_dict({"k": np.arange(3), "x": np.arange(3.0)})
+    with pytest.raises(ValueError, match="not one of"):
+        tft.group_by(tdf, "k").agg(device=CPU, m=("median", "x"))
+    with pytest.raises(TypeError, match="pair"):
+        tft.group_by(tdf, "k").agg(device=CPU, m="x")

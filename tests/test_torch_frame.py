@@ -71,10 +71,25 @@ class TestFrame:
         assert df.host_values("x") is df.host_values("x")
 
     def test_string_and_ragged_columns_refused(self):
-        with pytest.raises(UnsupportedTypeError):
-            tft.TensorFrame.from_dict({"s": np.array(["a", "b"], dtype=object)})
-        with pytest.raises(UnsupportedTypeError):
-            tft.TensorFrame.from_dict({"s": np.array(["a", "bc"])})
+        """String and ragged columns are host columns, as in the reference;
+        only the device refuses them (`as_tensor`)."""
+        data = {
+            "s": np.array(["a", "b", "a"], dtype=object),
+            "u": np.array(["a", "bc", "d"]),
+            "r": [np.arange(2.0), np.arange(3.0), np.arange(1.0)],
+        }
+        port, ref = tft.TensorFrame.from_dict(data), tfs.TensorFrame.from_dict(data)
+        assert repr(port) == repr(ref)
+        for name in data:
+            assert port[name].is_dense == ref[name].is_dense
+            assert port[name].device is None
+        assert port.host_values("s").tolist() == ["a", "b", "a"]
+        assert port.host_values("u").tolist() == ref.host_values("u").tolist()
+        for got, want in zip(port["r"].rows(), ref["r"].rows()):
+            np.testing.assert_array_equal(got, want)
+        for name in ("s", "u"):
+            with pytest.raises(UnsupportedTypeError, match="strings stay on the host"):
+                tft.frame.as_tensor(port.host_values(name), torch.device(CPU))
 
     def test_uint32_refused_on_device(self):
         df = tft.TensorFrame.from_dict({"u": np.arange(3, dtype=np.uint32)})
@@ -169,6 +184,31 @@ class TestDevice:
         assert torch.backends.cudnn.allow_tf32 is False
 
 
+def test_import_guard_no_pandas_or_pyarrow():
+    """The port must load where neither pandas nor pyarrow is installed:
+    importing it, and its I/O module, loads neither."""
+    code = textwrap.dedent(
+        """
+        import sys
+        import tensorframes_tpu_torch
+        import tensorframes_tpu_torch.io
+        import tensorframes_tpu_torch.fn_frontend
+        import tensorframes_tpu_torch.frame
+        bad = sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("pandas", "pyarrow")
+        )
+        print(bad)
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_import_guard_no_jax():
     """Importing the port (and running the verbs, imported graphs with
     control flow and variables among them) loads neither jax nor any module
@@ -202,6 +242,13 @@ def test_import_guard_no_jax():
         x2 = tft.dsl.placeholder(tft.ScalarType.float64, tft.Shape(()), name="x_2")
         tft.reduce_rows((x1 * 0.5 + x2).named("x"), df, device="cpu")
         tft.map_rows(lambda x, w: {"y": x * w}, df, bindings={"w": 2.0}, device="cpu")
+        rag = tft.TensorFrame.from_dict(
+            {"v": [np.arange(2.0), np.arange(3.0)], "s": np.array(["a", "b"], dtype=object)}
+        )
+        tft.map_rows(tft.dsl.reduce_sum(tft.row(rag, "v"), axes=[0]).named("t"), rag, device="cpu")
+        tft.aggregate(s.named("x"), tft.group_by(
+            tft.TensorFrame.from_dict({"x": np.arange(2.0), "s": rag.host_values("s")}), "s"
+        ), device="cpu")
         pts = tft.TensorFrame.from_dict({"p": np.arange(12.0).reshape(6, 2)})
         tensorframes_tpu_torch.models.kmeans(pts, "p", 2, 1, device="cpu")
         fixtures = "tests/fixtures/torch_port/"

@@ -341,6 +341,44 @@ class TestFunctionFrontEnd:
             tft.map_blocks(lambda nope: {"a": nope}, tdf, device=CPU)
 
 
+class TestEmptyFrameFunctions:
+    """The function front end on an all-empty frame: output names, shapes
+    and dtypes from one call on zero-row feeds, as the JAX package takes
+    them from `jax.eval_shape`."""
+
+    def _frames(self):
+        x = np.zeros((0, 3), np.float32)
+        return tfs.TensorFrame.from_dict({"x": x}), tft.TensorFrame.from_dict({"x": x})
+
+    def _assert_same(self, out, ref):
+        assert out.columns == ref.columns
+        for c in ref.columns:
+            r, o = np.asarray(ref[c].values), out.host_values(c)
+            assert (o.shape, o.dtype) == (r.shape, r.dtype), c
+
+    def test_map_blocks_fn(self):
+        jdf, tdf = self._frames()
+        fn = lambda x: {"y": x * 2.0 + 1.0}  # noqa: E731
+        out = tft.map_blocks(fn, tdf, device=CPU)
+        self._assert_same(out, tfs.map_blocks(fn, jdf))
+        assert out.columns == ["y", "x"] and out.host_values("y").shape == (0, 3)
+        assert out["y"].device == torch.device(CPU)
+
+    def test_map_rows_fn(self):
+        jdf, tdf = self._frames()
+        fn = lambda x: {"y": x * 2.0 + 1.0}  # noqa: E731
+        out = tft.map_rows(fn, tdf, device=CPU)
+        self._assert_same(out, tfs.map_rows(fn, jdf))
+        assert out.columns == ["y", "x"] and out.host_values("y").shape == (0, 3)
+
+    def test_trimmed_keepdims_sum(self):
+        jdf, tdf = self._frames()
+        out = tft.map_blocks(lambda x: {"s": x.sum(0, keepdim=True)}, tdf, trim=True, device=CPU)
+        ref = tfs.map_blocks(lambda x: {"s": x.sum(0, keepdims=True)}, jdf, trim=True)
+        self._assert_same(out, ref)
+        assert out.columns == ["s"] and out.nrows == 0 and out.host_values("s").shape == (0, 3)
+
+
 class TestBindings:
     """Bound placeholders and function parameters, held to the JAX
     package's `bindings=` on the same inputs (elementwise: exact)."""
