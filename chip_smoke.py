@@ -45,16 +45,29 @@ main path through the entry points a user calls:
     string-keyed aggregate at config 4's widths (10,000,000 x 8 float32,
     1,000 string ids), a bytes pass-through over 10,000,000 rows, and the
     function front end on all-empty frames;
-12. one JSON line listing every kernel with its launches on the main path
-    (phases 3-11), its error and its times;
-13. as the last line, ``{"ok": true, "device": {...}}``.
+12. out-of-core streaming: `reduce_blocks_stream` of the README vector
+    `reduce_sum` (with a `reduce_min`) as GraphDef bytes over the north
+    star's 1,000,000,000 float32 rows in chunks of 128,000,000
+    (`examples/billion_row_reduce.py`), with the H2D rate of one pinned
+    chunk, the on-chip and ingest rates, the device's busy share and its
+    peak memory; the same stream over 256,000,000 rows with the ingest
+    pipeline on and off; 16 Parquet and 16 Arrow IPC shards (4,000,000
+    rows of ``x`` float32 and ``v`` float32[8], uneven row groups, one
+    empty shard) through `stream_dataset`; that stream made durable, cut
+    by its deadline and resumed in a fresh process; and a slow stream's
+    deadline, after which no pipeline thread may live;
+13. one JSON line listing every kernel with its launches on the main path
+    (phases 3-12), its error and its times;
+14. as the last line, ``{"ok": true, "device": {...}}``.
 
-Phases 8-11 run after phase 6 and before phase 7. Phases 3-6 and 8-11 run
-no hand-written kernel (their ops are ATen, cuBLAS and cuDNN calls), so the
-script checks that the attention kernel's count is still 0 after them and
-counts its launches in phase 7 alone. The script imports neither pandas
-nor pyarrow. The port factorizes string keys with pandas where pandas
-imports, and in one dict pass where it does not; phase 11 times both.
+Phases 8-12 run after phase 6 and before phase 7. Phases 3-6 and 8-12 run
+no hand-written kernel (their ops are ATen, cuBLAS and cuDNN calls and the
+stream's copies), so the script checks that the attention kernel's count
+is still 0 after them and counts its launches in phase 7 alone. The script
+never imports pandas; phase 12 alone imports pyarrow, for its dataset and
+durable parts, and prints them as skipped where pyarrow is missing. The
+port factorizes string keys with pandas where pandas imports, and in one
+dict pass where it does not; phase 11 times both.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once. It imports
@@ -1046,6 +1059,417 @@ def phase_frame_breadth(tft, ragged_rows: int = 1_000_000, max_len: int = 64,
     _emit("frame_breadth", **result)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: out-of-core streaming
+# ---------------------------------------------------------------------------
+
+# the durable stream's resume runs in a fresh interpreter: it reads the
+# committed checkpoint and prints the stream's results and its counters
+_RESUME_CHILD = r"""
+import json, sys
+import numpy as np
+import tensorframes_tpu_torch as tft
+from tensorframes_tpu_torch.utils import telemetry
+
+root, ck, fetch_bytes, fetch_names, feed = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5]
+out = tft.reduce_blocks_stream(
+    open(fetch_bytes, "rb").read(), tft.stream_dataset(root), json.loads(feed),
+    fetch_names=json.loads(fetch_names), checkpoint=ck,
+)
+flat = telemetry.flat_counters()
+print("RESULT " + json.dumps({
+    "values": {k: v.cpu().numpy().tolist() for k, v in out.items()},
+    "checkpoint_chunks_skipped": flat.get("checkpoint_chunks_skipped", 0),
+    "decoded_chunks": flat.get("ingest_chunks{stage=decode}", 0),
+}))
+"""
+
+
+def _ingest_threads():
+    import threading
+
+    return [t.name for t in threading.enumerate() if t.is_alive() and t.name.startswith("tfs-ingest")]
+
+
+def _stage_counters():
+    """ingest_stage_busy_seconds / ingest_stage_wait_seconds by stage."""
+    from tensorframes_tpu_torch.utils import telemetry
+
+    out = {}
+    for (name, labels), v in telemetry.labeled_counters().items():
+        if name in ("ingest_stage_busy_seconds", "ingest_stage_wait_seconds", "ingest_chunks"):
+            out.setdefault(dict(labels).get("stage", "?"), {})[name] = v
+    return out
+
+
+class _ReduceEvents:
+    """CUDA events around every `reduce_blocks` call the stream makes (its
+    chunks and combines), for the device's busy time; restores the verb on
+    exit."""
+
+    def __init__(self, api):
+        self.api, self.pairs = api, []
+
+    def __enter__(self):
+        inner = self.inner = self.api.reduce_blocks
+
+        def timed(*a, **k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*a, **k)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        self.api.reduce_blocks = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.api.reduce_blocks = self.inner
+        return False
+
+    def busy_s(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs) / 1e3
+
+
+def _chunk_reference(arr: np.ndarray):
+    """(float64 sum, min, seconds) of one chunk's float32 values."""
+    t0 = time.perf_counter()
+    return float(arr.sum(dtype=np.float64)), float(arr.min()), time.perf_counter() - t0
+
+
+def _north_star_chunks(tft, rows: int, chunk_rows: int, acc: dict, pool):
+    """`examples/billion_row_reduce.py`'s chunks as host frames. The
+    float64 reference of each chunk is computed on ``pool`` (numpy's
+    reductions release the GIL), so the producer pays only the
+    synthesis."""
+    made = 0
+    while made < rows:
+        n = min(chunk_rows, rows - made)
+        t0 = time.perf_counter()
+        arr = np.arange(made, made + n, dtype=np.float64).astype(np.float32)
+        acc["synth_s"] += time.perf_counter() - t0
+        acc["refs"].append(pool.submit(_chunk_reference, arr))
+        yield tft.TensorFrame.from_dict({"x": arr})
+        made += n
+
+
+def _north_star(tft, rows: int, chunk_rows: int):
+    """The README vector `reduce_sum` (and a `reduce_min` beside it) as
+    GraphDef bytes over ``rows`` float32 rows in chunks of ``chunk_rows``."""
+    from tensorframes_tpu_torch import api
+    from tensorframes_tpu_torch.utils.profiling import reset_stats, stats
+
+    probe = tft.TensorFrame.from_dict({"x": np.zeros(4, np.float32)})
+    s = tft.dsl.reduce_sum(tft.block(probe, "x", tf_name="x_input"), axes=[0]).named("x")
+    mn = tft.dsl.reduce_min(tft.block(probe, "x", tf_name="m_input"), axes=[0]).named("m")
+    g, fetches = tft.dsl.build([s, mn])
+    wire, feed = g.to_bytes(), {"x_input": "x", "m_input": "x"}
+    from concurrent.futures import ThreadPoolExecutor
+
+    acc = {"synth_s": 0.0, "refs": []}
+    reset_stats()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with _ReduceEvents(api) as ev, ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        out = tft.reduce_blocks_stream(wire, _north_star_chunks(tft, rows, chunk_rows, acc, pool),
+                                       feed, fetch_names=fetches)
+        got_sum, got_min = out["x"].item(), out["m"].item()  # reads end in a sync
+        secs = time.perf_counter() - t0
+        busy = ev.busy_s()
+        refs = [f.result() for f in acc["refs"]]
+    peak = torch.cuda.max_memory_allocated() - base
+    acc.update(sum=sum(r[0] for r in refs), min=min(r[1] for r in refs),
+               ref_s=sum(r[2] for r in refs))
+    counts = stats()
+    rel = abs(got_sum - acc["sum"]) / abs(acc["sum"])
+    if out["x"].dtype != torch.float32 or rel > _SUM_RTOL:
+        raise AssertionError(f"stream sum {got_sum} vs float64 {acc['sum']}: rel err {rel:.3e}")
+    if got_min != acc["min"]:
+        raise AssertionError(f"stream min {got_min} != numpy {acc['min']}")
+    if counts.get("reduce_blocks_stream.transfer_fallback", 0):
+        raise AssertionError(f"the transfer stage fell back: {counts}")
+    return dict(
+        seconds=secs, rows_per_s=rows / secs, sum_rel_err=rel, min=got_min,
+        chunks=int(counts.get("reduce_blocks_stream.chunks", 0)),
+        folds=int(counts.get("reduce_blocks_stream.fold", 0)),
+        transfer_fallbacks=int(counts.get("reduce_blocks_stream.transfer_fallback", 0)),
+        synthesis_s=acc["synth_s"], reference_s=acc["ref_s"],
+        compute_busy_s=busy, compute_busy_share=busy / secs,
+        peak_device_bytes=peak,
+    )
+
+
+def _stream_probes(tft, chunk_rows: int):
+    """One chunk's synthesis, its trip through the transfer stage, the H2D
+    copy of one pinned chunk alone, and the reduce of a device-resident
+    chunk (CUDA events), each timed apart."""
+    from tensorframes_tpu_torch.streaming import _TransferStage
+
+    t0 = time.perf_counter()
+    arr = np.arange(0, chunk_rows, dtype=np.float64).astype(np.float32)
+    synth_s = time.perf_counter() - t0
+    frame = tft.TensorFrame.from_dict({"x": arr})
+    stage = _TransferStage(torch.device("cuda"))
+    for _ in range(2):  # warm: both pinned slots, the copy stream
+        stage(frame)
+    stage.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = stage.receive(stage(frame))
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    resident = staged.column("x").values
+    if not torch.equal(resident.cpu(), torch.from_numpy(arr)):
+        raise AssertionError("the transfer stage changed the chunk's values")
+    del staged
+
+    pinned = torch.empty(chunk_rows, dtype=torch.float32, pin_memory=True)
+    pinned.copy_(torch.from_numpy(arr))
+    h2d_ms = _time_ms(lambda: resident.copy_(pinned, non_blocking=True), 3)
+
+    df = tft.TensorFrame([tft.Column("x", resident)])
+    probe = tft.TensorFrame.from_dict({"x": np.zeros(4, np.float32)})
+    s = tft.dsl.reduce_sum(tft.block(probe, "x", tf_name="x_input"), axes=[0]).named("x")
+    wire = tft.dsl.build(s)[0].to_bytes()
+    reduce_ms = _time_ms(lambda: tft.reduce_blocks(wire, df, fetch_names=["x"]), 5)
+    del df, resident, pinned
+    nbytes = chunk_rows * 4
+    return dict(
+        synthesis_s_per_chunk=synth_s, transfer_stage_s_per_chunk=stage_s,
+        h2d_pinned_ms=h2d_ms, h2d_pinned_gbps=nbytes / (h2d_ms * 1e-3) / 1e9,
+        on_chip_reduce_ms=reduce_ms, on_chip_rows_per_s=chunk_rows / (reduce_ms * 1e-3),
+        ingest_rows_per_s=chunk_rows / (synth_s + stage_s),
+        reduce_bytes_bound_ms=nbytes / _PEAK_HBM_BYTES * 1e3,
+    )
+
+
+def _write_dataset(tft, root: str, shards: int, rows: int, width: int):
+    """``shards`` Parquet and ``shards`` Arrow IPC files of ``rows`` rows
+    (``x`` float32, ``v`` float32[width], uniform in [0, 1)), each in 2-6
+    row groups / record batches of uneven size; shard 0 of the Parquet
+    files is empty. Returns the float64 reference and the row count."""
+    from tensorframes_tpu_torch import io as tio
+
+    ref = {"x_sum": 0.0, "x_min": math.inf, "x_max": -math.inf,
+           "v_sum": np.zeros(width, np.float64)}
+    total = 0
+    for i in range(2 * shards):
+        fmt = "parquet" if i < shards else "ipc"
+        n = 0 if i == 0 else rows
+        rng = np.random.default_rng(SEED + i)
+        x = rng.random(n, dtype=np.float32)
+        v = rng.random((n, width), dtype=np.float32)
+        groups = 2 + i % 5
+        cuts = np.sort(rng.choice(np.arange(1, max(n, 2)), size=groups - 1, replace=False)) if n else []
+        offsets = [0, *map(int, cuts), n] if n else None
+        frame = tft.TensorFrame([tft.Column("x", x), tft.Column("v", v)], offsets)
+        path = os.path.join(root, f"shard-{i:03d}." + ("parquet" if fmt == "parquet" else "arrow"))
+        (tio.write_parquet if fmt == "parquet" else tio.write_arrow_ipc)(frame, path)
+        if n:
+            ref["x_sum"] += float(x.sum(dtype=np.float64))
+            ref["x_min"] = min(ref["x_min"], float(x.min()))
+            ref["x_max"] = max(ref["x_max"], float(x.max()))
+            ref["v_sum"] += v.sum(axis=0, dtype=np.float64)
+        total += n
+    return ref, total
+
+
+def _dataset_fetches(tft, width: int):
+    probe = tft.TensorFrame.from_dict(
+        {"x": np.zeros(2, np.float32), "v": np.zeros((2, width), np.float32)}
+    )
+    d = tft.dsl
+    fetches = [
+        d.reduce_sum(tft.block(probe, "x", tf_name="x_sum_input"), axes=[0]).named("x_sum"),
+        d.reduce_min(tft.block(probe, "x", tf_name="x_min_input"), axes=[0]).named("x_min"),
+        d.reduce_max(tft.block(probe, "x", tf_name="x_max_input"), axes=[0]).named("x_max"),
+        d.reduce_sum(tft.block(probe, "v", tf_name="v_sum_input"), axes=[0]).named("v_sum"),
+    ]
+    g, names = d.build(fetches)
+    feed = {"x_sum_input": "x", "x_min_input": "x", "x_max_input": "x", "v_sum_input": "v"}
+    return g.to_bytes(), names, feed
+
+
+def _check_dataset(what: str, out: dict, ref: dict) -> float:
+    """Max relative error of the sums (rtol 1e-5 vs float64); min and max
+    exact."""
+    got = {k: np.asarray(v.cpu().numpy() if isinstance(v, torch.Tensor) else v, np.float64)
+           for k, v in out.items()}
+    if got["x_min"] != ref["x_min"] or got["x_max"] != ref["x_max"]:
+        raise AssertionError(f"{what}: min/max {got['x_min']}/{got['x_max']} vs "
+                             f"{ref['x_min']}/{ref['x_max']}")
+    rel = max(abs(got["x_sum"] - ref["x_sum"]) / ref["x_sum"],
+              float(np.max(np.abs(got["v_sum"] - ref["v_sum"]) / ref["v_sum"])))
+    if rel > _SUM_RTOL:
+        raise AssertionError(f"{what}: sums rel err {rel:.3e} > {_SUM_RTOL}")
+    return rel
+
+
+def _dataset_phases(tft, shards: int, shard_rows: int, width: int = 8) -> None:
+    """A multi-file dataset through `stream_dataset`, then the same stream
+    made durable, cut by its deadline and resumed in a fresh interpreter."""
+    import tempfile
+
+    from tensorframes_tpu_torch.ingest.dataset import _auto_decode_workers
+    from tensorframes_tpu_torch.utils import telemetry
+    from tensorframes_tpu_torch.utils.profiling import reset_stats, stats
+
+    with tempfile.TemporaryDirectory(prefix="tfs-stream-") as tmp:
+        data = os.path.join(tmp, "data")
+        os.mkdir(data)
+        t0 = time.perf_counter()
+        ref, rows = _write_dataset(tft, data, shards, shard_rows, width)
+        write_s = time.perf_counter() - t0
+        wire, names, feed = _dataset_fetches(tft, width)
+
+        telemetry.reset()
+        reset_stats()
+        t0 = time.perf_counter()
+        out = tft.reduce_blocks_stream(wire, tft.stream_dataset(data), feed, fetch_names=names)
+        err = _check_dataset("dataset stream", out, ref)
+        secs = time.perf_counter() - t0
+        counts = stats()
+        if counts.get("reduce_blocks_stream.transfer_fallback", 0):
+            raise AssertionError(f"dataset stream: the transfer stage fell back: {counts}")
+        _emit(
+            "stream_dataset", shards=2 * shards, empty_shards=1, rows=rows, bytes_per_row=4 * (1 + width),
+            write_s=write_s, seconds=secs, rows_per_s=rows / secs,
+            chunks=int(counts.get("reduce_blocks_stream.chunks", 0)),
+            folds=int(counts.get("reduce_blocks_stream.fold", 0)),
+            decode_workers=_auto_decode_workers(), stages=_stage_counters(),
+            max_sum_rel_err=err, sum_rtol=_SUM_RTOL,
+        )
+
+        # durable: the same stream, cut by its deadline, resumed elsewhere
+        ck = os.path.join(tmp, "stream.ckpt")
+        budget = 0.5 * secs
+        reset_stats()
+        t0 = time.perf_counter()
+        try:
+            tft.reduce_blocks_stream(wire, tft.stream_dataset(data), feed, fetch_names=names,
+                                     checkpoint=ck, timeout_s=budget)
+        except tft.DeadlineExceeded as e:
+            watermark = e.tfs_checkpoint_watermark
+        else:
+            raise AssertionError(f"durable stream finished inside its {budget:.2f} s budget")
+        cut_s = time.perf_counter() - t0
+        wire_path = os.path.join(tmp, "fetches.pb")
+        with open(wire_path, "wb") as f:
+            f.write(wire)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _RESUME_CHILD, data, ck, wire_path, json.dumps(names),
+             json.dumps(feed)],
+            capture_output=True, text=True, timeout=600, env=env, cwd=repo,
+        )
+        resume_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"resume process failed:\n{proc.stderr[-3000:]}")
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")][-1]
+        child = json.loads(line[len("RESULT "):])
+        resumed = child["values"]
+        if not child["checkpoint_chunks_skipped"] > 0:
+            raise AssertionError(f"the resume skipped no chunk: {child}")
+        for k in ("x_min", "x_max"):
+            if np.float32(resumed[k]) != out[k].item():
+                raise AssertionError(f"resumed {k} {resumed[k]} != uninterrupted {out[k].item()}")
+        rel = max(abs(resumed["x_sum"] - out["x_sum"].item()) / out["x_sum"].item(),
+                  float(np.max(np.abs(np.asarray(resumed["v_sum"]) - out["v_sum"].cpu().numpy())
+                               / out["v_sum"].cpu().numpy())))
+        if rel > _SUM_RTOL:
+            raise AssertionError(f"resumed sums rel err {rel:.3e} vs the uninterrupted stream")
+        err = _check_dataset("resumed stream", resumed, ref)
+        _emit(
+            "stream_durable", budget_s=budget, cut_after_s=cut_s, watermark=watermark,
+            chunks_before_cut=int(stats().get("reduce_blocks_stream.chunks", 0)),
+            resume_process_s=resume_s,
+            checkpoint_chunks_skipped=child["checkpoint_chunks_skipped"],
+            resumed_decoded_chunks=child["decoded_chunks"],
+            min_max_bit_equal=True, sum_rel_err_vs_uninterrupted=rel, max_sum_rel_err=err,
+        )
+
+
+def phase_streaming(tft, rows: int = 1_000_000_000, chunk_rows: int = 128_000_000,
+                    overlap_rows: int = 256_000_000, shards: int = 16,
+                    shard_rows: int = 4_000_000, slow_chunks: int = 40) -> None:
+    """Phase 12: `reduce_blocks_stream` over the north star's 1B rows, the
+    overlap with the pipeline on and off, a multi-file dataset, a durable
+    stream resumed in a fresh interpreter, and a deadline's teardown."""
+    from tensorframes_tpu_torch import config
+
+    try:
+        import pyarrow
+        has_pyarrow = pyarrow.__version__
+    except ImportError:
+        has_pyarrow = None
+    print(json.dumps({"pyarrow": has_pyarrow is not None, "version": has_pyarrow}), flush=True)
+
+    probes = _stream_probes(tft, chunk_rows)
+    ns = _north_star(tft, rows, chunk_rows)
+    depth = config.get().stream_prefetch_depth
+    limit = (depth + 3) * chunk_rows * 4
+    if ns["peak_device_bytes"] > limit:
+        raise AssertionError(f"device memory peaked at {ns['peak_device_bytes']} bytes over the "
+                             f"stream, above (depth + 3) chunks = {limit}")
+    if ns["folds"] < 1:
+        raise AssertionError(f"the stream never folded: {ns}")
+    n_chunks = math.ceil(rows / chunk_rows)
+    stage_s = [probes["synthesis_s_per_chunk"], probes["transfer_stage_s_per_chunk"],
+               probes["on_chip_reduce_ms"] * 1e-3]
+    bound_s = n_chunks * max(stage_s)
+    _emit(
+        "stream_north_star", rows=rows, chunk_rows=chunk_rows, chunk_bytes=chunk_rows * 4,
+        prefetch_depth=depth, **ns, **probes,
+        perfect_overlap_bound_s=bound_s, overhead_vs_bound=ns["seconds"] / bound_s,
+        peak_device_chunks=ns["peak_device_bytes"] / (chunk_rows * 4), peak_limit_chunks=depth + 3,
+        sum_rtol=_SUM_RTOL,
+    )
+
+    times = {}
+    for on in (True, False):
+        with config.override(ingest_pipeline=on):
+            r = _north_star(tft, overlap_rows, chunk_rows)
+        times["pipeline_on" if on else "pipeline_off"] = r["seconds"]
+    _emit("stream_overlap", rows=overlap_rows, chunk_rows=chunk_rows, **times,
+          off_over_on=times["pipeline_off"] / times["pipeline_on"])
+
+    if has_pyarrow is None:
+        for name in ("stream_dataset", "stream_durable"):
+            _emit(name, skipped="pyarrow not installed")
+    else:
+        _dataset_phases(tft, shards, shard_rows)
+
+    # deadline: a slow generator under a 0.5 s budget
+    def slow():
+        for i in range(slow_chunks):
+            time.sleep(0.1)
+            yield tft.TensorFrame.from_dict({"x": np.full(1024, float(i), np.float32)})
+
+    probe = tft.TensorFrame.from_dict({"x": np.zeros(4, np.float32)})
+    s = tft.dsl.reduce_sum(tft.block(probe, "x", tf_name="x_input"), axes=[0]).named("x")
+    t0 = time.perf_counter()
+    try:
+        tft.reduce_blocks_stream(s, slow(), timeout_s=0.5)
+    except tft.DeadlineExceeded:
+        raised_s = time.perf_counter() - t0
+    else:
+        raise AssertionError("the slow stream finished inside its 0.5 s budget")
+    t1 = time.perf_counter()
+    while _ingest_threads() and time.perf_counter() - t1 < 2.0:
+        time.sleep(0.01)
+    left = _ingest_threads()
+    if left:
+        raise AssertionError(f"pipeline threads alive 2 s after the deadline: {left}")
+    _emit("stream_deadline", budget_s=0.5, raised_after_s=raised_s,
+          threads_gone_after_s=time.perf_counter() - t1)
+
+
 def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int) -> float:
     from tensorframes_tpu_torch.models import TransformerLM
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention_reference
@@ -1103,11 +1527,12 @@ def main() -> int:
     phase_freezing(tft, verbs_df)
     del verbs_df
     phase_frame_breadth(tft)
+    phase_streaming(tft)
     if flash_attention.launches:
         raise AssertionError(
-            f"the verb, aggregate, k-means, Inception, control-flow, freezing and "
-            f"frame-breadth phases launched flash_attention {flash_attention.launches} "
-            "times; none of their graphs holds attention"
+            f"the verb, aggregate, k-means, Inception, control-flow, freezing, "
+            f"frame-breadth and streaming phases launched flash_attention "
+            f"{flash_attention.launches} times; none of their graphs holds attention"
         )
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)
     launches = flash_attention.launches

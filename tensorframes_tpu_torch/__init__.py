@@ -18,6 +18,12 @@ the host. pandas and pyarrow (for `TensorFrame.from_pandas`/`from_arrow`
 and `io`) are imported only where they are used, so the package loads
 without them.
 
+`reduce_blocks_stream` folds an iterator of frames (or a multi-file
+`stream_dataset`) chunk by chunk, with host I/O, the host-to-card copy and
+the reduce overlapped; `map_blocks`, `map_rows`, `reduce_blocks` and the
+stream take ``timeout_s=`` (`deadline_scope` for a whole chain), and a
+stream may be made durable with ``checkpoint=``. `config` holds the knobs.
+
 Float32 matrix products run in full float32: TF32 is turned off here for
 cuBLAS and cuDNN, because the parity bars against the JAX package assume
 it.
@@ -28,6 +34,8 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
+from . import config  # noqa: E402
+from . import ingest  # noqa: E402
 from . import io  # noqa: E402
 from .api import (  # noqa: E402
     GroupedFrame,
@@ -43,6 +51,7 @@ from .api import (  # noqa: E402
     map_rows,
     print_schema,
     reduce_blocks,
+    reduce_blocks_stream,
     reduce_rows,
     row,
 )
@@ -50,19 +59,31 @@ from .frame import Column, TensorFrame  # noqa: E402
 from .graph import Graph  # noqa: E402
 from .graph import builder as dsl  # noqa: E402
 from .models import InceptionLite  # noqa: E402
+from .io import stream_dataset  # noqa: E402
 from .runtime import Executor  # noqa: E402
+from .runtime.checkpoint import CheckpointError  # noqa: E402
+from .runtime.deadline import (  # noqa: E402
+    Cancelled,
+    DeadlineExceeded,
+    OverloadError,
+    deadline_scope,
+)
 from .schema import ColumnInfo, FrameInfo, ScalarType, Shape, Unknown  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "Cancelled",
+    "CheckpointError",
     "Column",
     "ColumnInfo",
+    "DeadlineExceeded",
     "Executor",
     "FrameInfo",
     "GroupedFrame",
     "Graph",
     "InceptionLite",
+    "OverloadError",
     "ScalarType",
     "Shape",
     "TensorFrame",
@@ -72,15 +93,20 @@ __all__ = [
     "append_shape",
     "block",
     "block_to_row",
+    "config",
+    "deadline_scope",
     "dsl",
     "explain",
     "explain_detailed",
     "group_by",
+    "ingest",
     "io",
     "map_blocks",
     "map_rows",
     "print_schema",
     "reduce_blocks",
+    "reduce_blocks_stream",
     "reduce_rows",
     "row",
+    "stream_dataset",
 ]

@@ -144,13 +144,19 @@ def _rowwise_transform(graph: Graph, roots, ph_rank: Callable) -> bool:
 
 
 def _chunk_combiners(
-    graph: Graph, fetch_list: List[str], summary: GraphSummary
+    graph: Graph, fetch_list: List[str], summary: GraphSummary,
+    require_direct: bool = False,
 ) -> Optional[Dict[str, str]]:
     """Classify each fetch as ``Reduce(rowwise(placeholder), axis=0)``.
 
     Returns base -> combiner tag when every fetch is a recognized monoid
     reduce over the lead axis of a row-local transform of its
-    placeholder, else None (the exact whole-group plan)."""
+    placeholder, else None (the exact whole-group plan).
+
+    ``require_direct`` additionally demands each reduce consume its
+    placeholder DIRECTLY (no transform in between): `reduce_blocks_stream`
+    recombines partials through the same graph when it tree-folds, where
+    an interposed transform would be re-applied to the partials."""
     out: Dict[str, str] = {}
     for f in fetch_list:
         try:
@@ -166,6 +172,10 @@ def _chunk_combiners(
             return None
         data_in = node.data_inputs()
         if len(data_in) != 2:
+            return None
+        if require_direct and graph[data_in[0][0]].op not in (
+            "Placeholder", "PlaceholderV2"
+        ):
             return None
         idx_node = graph[data_in[1][0]]
         if idx_node.op != "Const":

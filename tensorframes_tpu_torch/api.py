@@ -13,6 +13,11 @@ ones, one call per shape bucket. Bytes columns pass through a map as an
 identity and are never computed on. A pandas DataFrame in gives a pandas
 DataFrame out.
 
+`map_blocks`, `map_rows` and `reduce_blocks` take ``timeout_s=``
+(`runtime.deadline.deadline_entry`): the budget is checked before every
+block and before the combine, and a top-level call takes an admission slot.
+`reduce_blocks_stream` (`streaming.py`) folds an iterator of frames.
+
 Not in the port yet: the mesh/scheduler/lazy/global routes, shape
 bucketing (eager PyTorch has no per-shape compile to bound) and the chunked
 aggregate plan.
@@ -41,6 +46,8 @@ from .graph.control_flow import functionalize
 from .graph.freeze import freeze_variables
 from .graph.ir import Graph, base_name
 from .ops.lowering import build_callable
+from .runtime import deadline as _dl
+from .runtime.deadline import deadline_entry as _deadline_entry
 from .runtime.executor import Executor, default_executor
 from .schema import ColumnInfo, ScalarType, Shape
 from .utils.profiling import count as _count
@@ -49,6 +56,7 @@ __all__ = [
     "map_blocks",
     "map_rows",
     "reduce_blocks",
+    "reduce_blocks_stream",
     "reduce_rows",
     "aggregate",
     "group_by",
@@ -445,6 +453,7 @@ def _block_rows(outs: Dict[str, torch.Tensor], rows: int, trim: bool) -> int:
 
 
 @_pandas_in_out
+@_deadline_entry("map_blocks")
 @torch.inference_mode()
 def map_blocks(
     fetches,
@@ -503,6 +512,7 @@ def _map_blocks_graph(graph, fetch_list, frame, feed_dict, trim, executor, bindi
         if lo == hi:
             out_sizes.append(0)
             continue  # an empty block contributes nothing
+        _dl.check("map_blocks")
         outs = fn(*_feeds(frame, mapping, feed_names, lo, hi, dev, bound))
         named = {base_name(f): o for f, o in zip(fetch_list, outs)}
         out_sizes.append(_block_rows(named, hi - lo, trim))
@@ -576,6 +586,7 @@ def _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev):
 
 
 @_pandas_in_out
+@_deadline_entry("map_rows")
 @torch.inference_mode()
 def map_rows(
     fetches,
@@ -658,6 +669,7 @@ def _map_rows_graph(graph, fetch_list, frame, feed_dict, executor, bindings, dev
         lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
         if lo == hi:
             continue
+        _dl.check("map_rows")
         outs = run_block(_feeds(frame, mapping, feed_names, lo, hi, dev, bound), hi - lo)
         for n, o in zip(out_names, outs):
             acc[n].append(o)
@@ -719,12 +731,23 @@ def _combine_partials(fn, feed_src: List[int], partials: List[Tuple]) -> Tuple:
     return fn(*stacked)
 
 
+def _stack_parts(parts: List) -> Union[np.ndarray, torch.Tensor]:
+    """Stack partials: on the device of the first tensor among them when
+    any is a tensor (host partials, spilled or restored from a checkpoint,
+    move there), else with host numpy."""
+    dev = next((p.device for p in parts if isinstance(p, torch.Tensor)), None)
+    if dev is None:
+        return np.stack([np.asarray(p) for p in parts])
+    return torch.stack([as_tensor(p, dev) for p in parts])
+
+
 def _results(bases: List[str], values):
     """One tensor for one fetch, a dict of tensors for several."""
     return values[0] if len(bases) == 1 else dict(zip(bases, values))
 
 
 @_pandas_in_out
+@_deadline_entry("reduce_blocks")
 @torch.inference_mode()
 def reduce_blocks(
     fetches,
@@ -755,9 +778,13 @@ def reduce_blocks(
         lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
         if lo == hi:
             continue  # the reduction identity would poison the combine
+        _dl.check("reduce_blocks")
         partials.append(fn(*_feeds(frame, mapping, feed_names, lo, hi, dev)))
     if not partials:
         raise ValueError("reduce_blocks on an empty frame")
+    # a verb whose budget ran out during the blocks must not start the
+    # combine
+    _dl.check("reduce_blocks")
     final = (
         partials[0]
         if len(partials) == 1
@@ -1079,3 +1106,6 @@ def _install_fluent_methods() -> None:
 
 
 _install_fluent_methods()
+
+
+from .streaming import reduce_blocks_stream  # noqa: E402  (streaming imports api)

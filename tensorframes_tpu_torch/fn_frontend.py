@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .frame import Column, TensorFrame, _to_numpy, as_tensor
+from .runtime import deadline as _dl
 from .utils.profiling import count as _count
 
 _META = torch.device("meta")
@@ -131,6 +132,7 @@ def _map_blocks_fn(
         if lo == hi:
             out_sizes.append(0)
             continue
+        _dl.check("map_blocks")
         outs = call(*_api._feeds(frame, _identity(params), params, lo, hi, device, bound))
         out_sizes.append(_api._block_rows(outs, hi - lo, trim))
         for name, o in outs.items():
@@ -303,6 +305,7 @@ def _map_rows_fn(
             lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
             if lo == hi:
                 continue
+            _dl.check("map_rows")
             feeds = _api._feeds(frame, _identity(params), params, lo, hi, device, bound)
             for name, o in vfn(*feeds).items():
                 acc.setdefault(name, []).append(o)

@@ -1,15 +1,17 @@
-"""Arrow IPC and Parquet files in and out, one file at a time.
+"""Arrow IPC and Parquet files in and out.
 
-The PyTorch counterpart of the single-file part of `tensorframes_tpu/io.py`.
-A block is one Arrow record batch or one Parquet row group, so the block
-structure survives a round trip (empty blocks too, in Arrow IPC; Parquet
-has no empty row groups). Decoding stays on the host: a frame read here
-holds host columns, and moving it to the card is the caller's step
-(`TensorFrame.to_device`). pyarrow is imported inside each function.
+The PyTorch counterpart of `tensorframes_tpu/io.py`. A block is one Arrow
+record batch or one Parquet row group, so the block structure survives a
+round trip (empty blocks too, in Arrow IPC; Parquet has no empty row
+groups). Decoding stays on the host: a frame read here holds host columns,
+and moving it to the card is the caller's step (`TensorFrame.to_device`,
+or the transfer stage of `reduce_blocks_stream`). pyarrow is imported
+inside each function.
 
-Multi-file datasets (a list of paths, a directory or a glob) and
-`stream_dataset` need the port of the ingest pipeline and are refused with
-`NotImplementedError` (ROADMAP Queue 1 item 8).
+A list of paths, a directory or a glob given to `stream_arrow_ipc` /
+`stream_parquet` is a multi-file dataset: it streams through the pipelined
+ingest engine (`stream_dataset`, `ingest.dataset`). The whole-file readers
+and the writers take one file.
 """
 
 from __future__ import annotations
@@ -32,21 +34,26 @@ __all__ = [
     "stream_dataset",
 ]
 
-_MULTI_FILE = (
-    "multi-file datasets (a list of paths, a directory or a glob) go through "
-    "the ingest pipeline, which the PyTorch port does not have yet (ROADMAP "
-    "Queue 1 item 8); pass one file"
-)
+def _is_multi_path(path) -> bool:
+    """A list/tuple, a directory, or a glob pattern routes to the
+    multi-file dataset pipeline; a single file keeps the lightweight
+    one-handle reader."""
+    if not isinstance(path, (str, os.PathLike)):
+        return True
+    p = os.fspath(path)
+    return os.path.isdir(p) or _glob.has_magic(p)
 
 
 def _single_path(path) -> str:
-    """``path`` as one file name; a list, a directory or a glob raises."""
-    if not isinstance(path, (str, os.PathLike)):
-        raise NotImplementedError(_MULTI_FILE)
-    p = os.fspath(path)
-    if os.path.isdir(p) or _glob.has_magic(p):
-        raise NotImplementedError(_MULTI_FILE)
-    return p
+    """``path`` as one file name for the whole-file readers and the
+    writers; a list, a directory or a glob raises."""
+    if _is_multi_path(path):
+        raise ValueError(
+            f"{path!r} is a multi-file dataset (a list of paths, a directory "
+            "or a glob): stream it with stream_arrow_ipc / stream_parquet / "
+            "stream_dataset; this function takes one file"
+        )
+    return os.fspath(path)
 
 
 def _record_batches(frame: TensorFrame):
@@ -102,8 +109,13 @@ def read_arrow_ipc(path, num_blocks: Optional[int] = None) -> TensorFrame:
 def stream_arrow_ipc(path, batches_per_frame: int = 1) -> Iterator[TensorFrame]:
     """Yield one host frame per ``batches_per_frame`` record batches, so
     host memory stays bounded whatever the file's size. The file closes
-    when the stream ends, fails or is closed."""
-    path = _single_path(path)
+    when the stream ends, fails or is closed.
+
+    A directory, a glob or a sequence of paths is a multi-file dataset,
+    routed through the pipelined ingest engine (`stream_dataset`)."""
+    if _is_multi_path(path):
+        return stream_dataset(path, format="ipc", chunk_groups=batches_per_frame)
+    path = os.fspath(path)
     if batches_per_frame < 1:
         raise ValueError("batches_per_frame must be >= 1")
     return _stream_arrow_ipc(path, batches_per_frame)
@@ -181,8 +193,12 @@ def read_parquet(path, num_blocks: Optional[int] = None) -> TensorFrame:
 
 def stream_parquet(path, row_groups_per_frame: int = 1) -> Iterator[TensorFrame]:
     """Yield one host frame per ``row_groups_per_frame`` row groups, the
-    Parquet twin of `stream_arrow_ipc`."""
-    path = _single_path(path)
+    Parquet twin of `stream_arrow_ipc` (multi-file datasets included)."""
+    if _is_multi_path(path):
+        return stream_dataset(
+            path, format="parquet", chunk_groups=row_groups_per_frame
+        )
+    path = os.fspath(path)
     if row_groups_per_frame < 1:
         raise ValueError("row_groups_per_frame must be >= 1")
     return _stream_parquet(path, row_groups_per_frame)
@@ -201,7 +217,19 @@ def _stream_parquet(path: str, row_groups_per_frame: int) -> Iterator[TensorFram
         pf.close()
 
 
-def stream_dataset(paths, format: str = "auto", chunk_groups: int = 1, **kw):
-    """Not in the port yet: multi-file streaming needs the ingest
-    pipeline (ROADMAP Queue 1 item 8)."""
-    raise NotImplementedError(_MULTI_FILE)
+def stream_dataset(paths, format: str = "auto", chunk_groups: int = 1,
+                   decode_workers: Optional[int] = None,
+                   depth: Optional[int] = None):
+    """Stream a MULTI-FILE dataset (directory / glob / explicit list of
+    Parquet or Arrow IPC shards) as host frames through the pipelined
+    ingest engine: deterministic shard discovery -> parallel decode
+    (``decode_workers`` threads) -> in-order delivery under the shared
+    buffering budget. Feed to `reduce_blocks_stream`, which composes its
+    H2D transfer stage into the same stage graph. See
+    `ingest.dataset.stream_dataset`."""
+    from .ingest.dataset import stream_dataset as _sd
+
+    return _sd(
+        paths, format=format, chunk_groups=chunk_groups,
+        decode_workers=decode_workers, depth=depth,
+    )

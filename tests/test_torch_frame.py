@@ -194,6 +194,9 @@ def test_import_guard_no_pandas_or_pyarrow():
         import tensorframes_tpu_torch.io
         import tensorframes_tpu_torch.fn_frontend
         import tensorframes_tpu_torch.frame
+        import tensorframes_tpu_torch.ingest
+        import tensorframes_tpu_torch.runtime.checkpoint
+        import tensorframes_tpu_torch.streaming
         bad = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("pandas", "pyarrow")
@@ -232,6 +235,17 @@ def test_import_guard_no_jax():
         import tensorframes_tpu_torch.ops.standard
         import tensorframes_tpu_torch.tools.profile_imported
         import tensorframes_tpu_torch.utils.profiling
+        import tensorframes_tpu_torch.config
+        import tensorframes_tpu_torch.ingest.dataset
+        import tensorframes_tpu_torch.ingest.pipeline
+        import tensorframes_tpu_torch.runtime.checkpoint
+        import tensorframes_tpu_torch.runtime.deadline
+        import tensorframes_tpu_torch.runtime.faults
+        import tensorframes_tpu_torch.runtime.retry
+        import tensorframes_tpu_torch.streaming
+        import tensorframes_tpu_torch.testing.faults
+        import tensorframes_tpu_torch.utils.log
+        import tensorframes_tpu_torch.utils.telemetry
         df = tft.TensorFrame.from_dict(
             {"x": np.arange(6.0), "k": np.array([0, 1, 0, 1, 2, 2])}, num_blocks=2
         )
@@ -258,6 +272,9 @@ def test_import_guard_no_jax():
         g, _ = tft.dsl.build(tft.InceptionLite(image_size=16, width=4).scoring_graph())
         imgs = tft.TensorFrame.from_dict({"images": np.zeros((2, 16, 16, 3), np.float32)})
         tft.map_blocks(g.to_bytes(), imgs, fetch_names=["probs"], trim=True, device="cpu")
+        chunks = [tft.TensorFrame.from_dict({"x": np.arange(4.0) + i}) for i in range(3)]
+        sx = tft.dsl.reduce_sum(tft.block(chunks[0], "x", tf_name="x_input"), axes=[0])
+        tft.reduce_blocks_stream(sx.named("x"), iter(chunks), device="cpu", timeout_s=60)
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"

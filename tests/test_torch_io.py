@@ -93,12 +93,19 @@ class TestRoundTrips:
         _assert_same_frame(back, jread(p, num_blocks=6))
 
     def test_multi_file_paths_wait_for_the_ingest_pipeline(self, fmt, tmp_path):
+        """The whole-file reader and the writer take one file; a list, a
+        directory or a glob streams through the ingest pipeline."""
         write, read, _, _ = _FORMATS[fmt]
+        stream = tio.stream_arrow_ipc if fmt == "ipc" else tio.stream_parquet
         p = str(tmp_path / f"m.{fmt}")
         write(tft.TensorFrame.from_dict({"x": np.arange(3.0)}), p)
         for path in ([p, p], str(tmp_path), str(tmp_path / f"*.{fmt}")):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            with pytest.raises(ValueError, match="stream_dataset"):
                 read(path)
+            with pytest.raises(ValueError, match="stream_dataset"):
+                write(tft.TensorFrame.from_dict({"x": np.arange(3.0)}), path)
+            rows = 6 if isinstance(path, list) else 3
+            assert sum(f.nrows for f in stream(path)) == rows
 
 
 def test_ipc_empty_blocks_preserved(tmp_path):
@@ -177,10 +184,15 @@ def test_stream_generators(fmt, per_frame, tmp_path):
         _assert_same_frame(f, r)
     with pytest.raises(ValueError, match=">= 1"):
         stream(p, 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        stream([p, p])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tio.stream_dataset(str(tmp_path))
+    # a list of paths and a directory are multi-file datasets: the ingest
+    # pipeline yields the same frames as the JAX package's
+    twice = list(stream([p, p], per_frame))
+    jtwice = list(jstream([p, p], per_frame))
+    assert [f.nrows for f in twice] == [r.nrows for r in jtwice] == [f.nrows for f in frames] * 2
+    for f, r in zip(twice, jtwice):
+        _assert_same_frame(f, r)
+    by_dir = list(tio.stream_dataset(str(tmp_path), chunk_groups=per_frame))
+    assert [f.nrows for f in by_dir] == [f.nrows for f in frames]
 
 
 def test_read_frame_is_on_the_host_until_moved(tmp_path):
