@@ -56,18 +56,33 @@ main path through the entry points a user calls:
     empty shard) through `stream_dataset`; that stream made durable, cut
     by its deadline and resumed in a fresh process; and a slow stream's
     deadline, after which no pipeline thread may live;
-13. one JSON line listing every kernel with its launches on the main path
-    (phases 3-12), its error and its times;
-14. as the last line, ``{"ok": true, "device": {...}}``.
+13. lazy plans and the Spark bridge: `benchmarks/fusion_bench.py`'s three
+    maps + `reduce_sum` over phase 3's 200,000,000 float32 rows in 8 blocks,
+    fused (`df.lazy()`) against eager, with the lowered programs, the block
+    calls, a second fused run's cache misses and the peak device memory of
+    each way; the same maps over a host-resident base through `force()`
+    with the plan-prep pipeline on and off; `benchmarks/relational_bench.py`'s
+    plan (`scan -> filter(x > its 95th percentile) -> map_blocks(x*0.5+1) ->
+    group_by(y).agg(sum, max)`) over 16 Parquet shards x 8 row groups x
+    500,000 float64 rows with the optimizer on and off, and the rows each
+    way decoded; a `sort_by` of 10,000,000 device rows and an inner join of
+    10,000,000 x 1,000 keys with their device-to-host bytes; and
+    `spark.reduce_blocks` / `map_blocks` / `aggregate` over a duck-typed
+    Spark DataFrame of 16 partitions x 2,000,000 rows (``k`` int64 of 16
+    keys, ``x0``..``x7`` float64);
+14. one JSON line listing every kernel with its launches on the main path
+    (phases 3-13), its error and its times;
+15. as the last line, ``{"ok": true, "device": {...}}``.
 
-Phases 8-12 run after phase 6 and before phase 7. Phases 3-6 and 8-12 run
-no hand-written kernel (their ops are ATen, cuBLAS and cuDNN calls and the
-stream's copies), so the script checks that the attention kernel's count
-is still 0 after them and counts its launches in phase 7 alone. The script
-never imports pandas; phase 12 alone imports pyarrow, for its dataset and
-durable parts, and prints them as skipped where pyarrow is missing. The
-port factorizes string keys with pandas where pandas imports, and in one
-dict pass where it does not; phase 11 times both.
+Phases 8-13 run after phase 6 and before phase 7. Phases 3-6 and 8-13 run
+no hand-written kernel (their ops are ATen, cuBLAS and cuDNN calls, host
+numpy and the stream's copies), so the script checks that the attention
+kernel's count is still 0 after them and counts its launches in phase 7
+alone. Phase 12 imports pyarrow for its dataset and durable parts, and
+prints them as skipped where pyarrow is missing; phase 13 needs pyarrow and
+pandas and fails without them. The port factorizes string keys with pandas
+where pandas imports, and in one dict pass where it does not; phase 11
+times both.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once. It imports
@@ -1470,6 +1485,467 @@ def phase_streaming(tft, rows: int = 1_000_000_000, chunk_rows: int = 128_000_00
           threads_gone_after_s=time.perf_counter() - t1)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: lazy plans and the Spark bridge
+# ---------------------------------------------------------------------------
+
+
+def _d2h_bytes() -> float:
+    """Bytes the relational executors copied from the card to the host
+    (the ``d2h_bytes`` histogram) since the last telemetry reset."""
+    from tensorframes_tpu_torch.utils import telemetry
+
+    return sum(v[2] for (name, _), v in telemetry.metrics_snapshot()[2].items()
+               if name == "d2h_bytes")
+
+
+def _counting_executor():
+    """An `Executor` that counts the calls of its lowered callables by
+    kind: the Python block dispatches a chain makes."""
+    from collections import Counter
+
+    from tensorframes_tpu_torch.runtime.executor import Executor
+
+    class Counting(Executor):
+        def __init__(self):
+            super().__init__()
+            self.calls = Counter()
+
+        def cached(self, kind, graph, fetches, feed_names, device, make):
+            fn = super().cached(kind, graph, fetches, feed_names, device, make)
+
+            def counted(*feeds):
+                self.calls[kind] += 1
+                return fn(*feeds)
+
+            return counted
+
+    return Counting()
+
+
+def _chain_maps(tft, lf_or_frame, stages: int, eager: bool, ex=None):
+    """`benchmarks/fusion_bench.py`'s chain: ``stages`` maps of
+    x * (1 + 2^-(k+3)) + 1, eager (one verb call per stage) or deferred."""
+    cur, src = lf_or_frame, "x"
+    for k in range(stages):
+        dst = f"c{k}"
+        t = (tft.block(cur, src) * (1.0 + 2.0 ** -(k + 3)) + 1.0).named(dst)
+        cur = tft.map_blocks(t, cur, executor=ex) if eager else cur.map_blocks(t, executor=ex)
+        src = dst
+    return cur, src
+
+
+def _chain_reduce(tft, df, stages: int, eager: bool, ex):
+    cur, src = _chain_maps(tft, df if eager else df.lazy(), stages, eager, ex)
+    s = tft.dsl.reduce_sum(tft.block(cur, src, tf_name=src + "_input"), axes=[0]).named(src)
+    return tft.reduce_blocks(s, cur, executor=ex)
+
+
+def _device_kernels(fn):
+    """(device seconds summed over kernels, kernel launches, device
+    seconds by kind) of one ``fn()`` under `torch.profiler`."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_kind = defaultdict(float)
+    for e in kernels:
+        low = e.name.lower()
+        kind = ("cat / copy" if any(p in low for p in ("cat", "copy", "memcpy", "memset"))
+                else "reduce" if "reduce" in low else "elementwise")
+        by_kind[kind] += e.device_time / 1e6
+    return sum(e.device_time for e in kernels) / 1e6, len(kernels), dict(by_kind)
+
+
+def _measured(fn):
+    """(result, seconds, peak device bytes, peak above the bytes live at
+    the start) of ``fn()``, ending in a device synchronise."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, seconds = _wall(fn)
+    peak = torch.cuda.max_memory_allocated()
+    return out, seconds, peak, peak - base
+
+
+def _fused_chain(tft, rows: int, blocks: int, stages: int = 3) -> None:
+    from collections import Counter
+
+    from tensorframes_tpu_torch import config
+    from tensorframes_tpu_torch.utils.profiling import reset_stats, stats
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x = torch.rand(rows, device="cuda", generator=gen)
+    df = tft.TensorFrame([tft.Column("x", x)]).repartition(blocks)
+
+    # the first run of each way lowers its graphs: the executor counts
+    ex_f, ex_e = _counting_executor(), _counting_executor()
+    fused = _chain_reduce(tft, df, stages, False, ex_f)
+    eager = _chain_reduce(tft, df, stages, True, ex_e)
+    fused_programs = dict(Counter(k[0] for k in ex_f.cache_keys()))
+    eager_programs = dict(Counter(k[0] for k in ex_e.cache_keys()))
+    if fused_programs != {"block": 1, "reduce-combine": 1} or eager_programs != {"block": stages + 1}:
+        raise AssertionError(f"lowered programs: fused {fused_programs}, eager {eager_programs}")
+    fused_calls, eager_calls = dict(ex_f.calls), dict(ex_e.calls)
+    if fused_calls != {"block": blocks, "reduce-combine": 1} or eager_calls != {
+            "block": (stages + 1) * blocks + 1}:
+        raise AssertionError(f"block calls: fused {fused_calls}, eager {eager_calls}")
+    if not torch.equal(fused, eager):
+        raise AssertionError(f"fused {fused.item()!r} != eager {eager.item()!r}")
+    misses = ex_f.cache_misses
+    again = _chain_reduce(tft, df, stages, False, ex_f)
+    if ex_f.cache_misses != misses or not torch.equal(again, fused):
+        raise AssertionError(f"second fused run: {ex_f.cache_misses - misses} new misses")
+
+    times = {"eager": [], "fused": []}
+    peaks = {}
+    for way in ("eager", "fused", "fused", "eager", "eager", "fused"):
+        ex = ex_e if way == "eager" else ex_f
+        out, seconds, peak, above = _measured(
+            lambda: _chain_reduce(tft, df, stages, way == "eager", ex))
+        if not torch.equal(out, fused):
+            raise AssertionError(f"{way} run disagrees with the first fused run")
+        times[way].append(seconds)
+        peaks[way] = (peak, above)
+    device = {way: _device_kernels(lambda: _chain_reduce(tft, df, stages, way == "eager", ex))
+              for way, ex in (("eager", ex_e), ("fused", ex_f))}
+    want = float(x.double().mul(1.125).add(1).mul(1.0625).add(1).mul(1.03125).add(1).sum())
+    rel = abs(fused.item() - want) / abs(want)
+    if rel > _SUM_RTOL:
+        raise AssertionError(f"fused chain sum rel err {rel:.3e} > {_SUM_RTOL} vs float64")
+    _emit(
+        "lazy_fused_chain", rows=rows, blocks=blocks, maps=stages,
+        eager_s=times["eager"], fused_s=times["fused"],
+        eager_median_s=float(np.median(times["eager"])),
+        fused_median_s=float(np.median(times["fused"])),
+        eager_over_fused=float(np.median(times["eager"]) / np.median(times["fused"])),
+        programs={"fused": fused_programs, "eager": eager_programs},
+        block_calls={"fused": fused_calls, "eager": eager_calls},
+        second_fused_run_misses=ex_f.cache_misses - misses,
+        peak_device_bytes={"eager": peaks["eager"][0], "fused": peaks["fused"][0]},
+        peak_above_start_bytes={"eager": peaks["eager"][1], "fused": peaks["fused"][1]},
+        device_kernel_s={w: d[0] for w, d in device.items()},
+        kernel_launches={w: d[1] for w, d in device.items()},
+        device_kernel_s_by_kind={w: d[2] for w, d in device.items()},
+        fused_equals_eager=True, sum_rel_err_vs_f64=rel,
+    )
+
+    # the same maps over a host-resident base: force() with the plan-prep
+    # pipeline on and off, in turns
+    x_host = x.cpu().numpy()
+    device_c = _chain_maps(tft, df.lazy(), stages, False)[0].force()
+    host_df = tft.TensorFrame([tft.Column("x", x_host)]).repartition(blocks)
+    from tensorframes_tpu_torch.utils import telemetry
+
+    # one untimed run each way first: the first pipelined force pins its
+    # staging slots (PyTorch's host allocator keeps them for later forces)
+    times = {"on": [], "off": []}
+    ref = None
+    reset_stats()
+    for i, on in enumerate((False, True) + (False, True, True, False) * 2):
+        telemetry.reset_counters()
+        with config.override(plan_pipeline=on):
+            lf = _chain_maps(tft, host_df.lazy(), stages, False)[0]
+            out, seconds = _wall(lf.force)
+        if on:
+            stages_on = _stage_counters()
+        cols = [out.column(f"c{k}").values for k in range(stages)]
+        if ref is None:
+            ref = cols
+            for c, d in zip(cols, (device_c.column(f"c{k}").values for k in range(stages))):
+                if not torch.equal(c, d):
+                    raise AssertionError("host-resident force disagrees with device-resident")
+        elif not all(torch.equal(a, b) for a, b in zip(cols, ref)):
+            raise AssertionError(f"plan_pipeline={on} disagrees bit for bit")
+        if i >= 2:
+            times["on" if on else "off"].append(seconds)
+        del out, cols
+    fallbacks = stats().get("lazy.force.transfer_fallback", 0.0)
+    if fallbacks:
+        raise AssertionError(f"{fallbacks} plan-prep transfers fell back to synchronous copies")
+    _emit(
+        "lazy_host_pipeline", rows=rows, blocks=blocks, maps=stages,
+        pipeline_on_s=times["on"], pipeline_off_s=times["off"],
+        off_over_on=float(np.median(times["off"]) / np.median(times["on"])),
+        h2d_bytes=rows * 4, transfer_fallbacks=fallbacks, on_equals_off=True,
+        pipeline_stages_last_on_run=stages_on,
+    )
+    del ref, device_c, df, x
+    torch.cuda.empty_cache()
+
+
+def _write_relational(tft, root: str, shards: int, groups: int, group_rows: int):
+    """`benchmarks/relational_bench.py`'s dataset: ``x`` float64 ascending
+    across the whole dataset, ``y`` float64 of 16 keys, ``w`` float64 dead
+    weight; one row group per block. Returns (x, y) for the reference."""
+    from tensorframes_tpu_torch import io as tio
+
+    xs, ys = [], []
+    for i in range(shards):
+        rng = np.random.default_rng(SEED + 100 + i)
+        lo = i * groups * group_rows
+        x = np.arange(lo, lo + groups * group_rows, dtype=np.float64)
+        y = np.floor(rng.random(len(x)) * 16.0)
+        frame = tft.TensorFrame.from_dict({"x": x, "y": y, "w": rng.random(len(x))},
+                                          num_blocks=groups)
+        tio.write_parquet(frame, os.path.join(root, f"shard-{i:04d}.parquet"))
+        xs.append(x)
+        ys.append(y)
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def _relational(tft, shards: int, groups: int, group_rows: int, frac: float = 0.05) -> None:
+    import tempfile
+
+    from tensorframes_tpu_torch import config
+    from tensorframes_tpu_torch.graph import plan as tplan
+    from tensorframes_tpu_torch.utils import telemetry
+
+    total = shards * groups * group_rows
+    cutoff = float(total) * (1.0 - frac)
+    ph = tft.dsl.placeholder(tft.ScalarType.float64, tft.Shape((None,)), name="x")
+    z = (ph * 0.5 + 1.0).named("z")
+
+    def build(root):
+        return (
+            tft.scan(root)
+            .filter(tft.col("x") > cutoff, selectivity=frac)
+            .map_blocks(z, feed_dict={"x": "x"})
+            .group_by("y")
+            .agg(z_sum=("sum", "z"), z_max=("max", "z"))
+        )
+
+    with tempfile.TemporaryDirectory(prefix="tfs-relational-") as root:
+        t0 = time.perf_counter()
+        x, y = _write_relational(tft, root, shards, groups, group_rows)
+        write_s = time.perf_counter() - t0
+        parquet_bytes = sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root))
+        keep = x > cutoff
+        survivors = int(keep.sum())
+        zs, ks = x[keep] * 0.5 + 1.0, y[keep]
+        keys = np.unique(ks)
+        want_sum = np.array([zs[ks == k].sum() for k in keys])
+        want_max = np.array([zs[ks == k].max() for k in keys])
+        del x, y, keep, zs, ks
+
+        runs, decisions = {"on": [], "off": []}, None
+        results, decoded = {}, {}
+        for on in (True, False, False, True):
+            tplan.reset_state()
+            telemetry.reset_counters()
+            with config.override(plan_optimizer=on):
+                rel = build(root)
+                out, seconds = _wall(rel.force)
+                if on:
+                    decisions = [d for d in rel.optimize()[1] if d["accepted"]]
+            runs["on" if on else "off"].append(seconds)
+            decoded["on" if on else "off"] = telemetry.flat_counters()["ingest_rows_decoded"]
+            results.setdefault(on, out)
+            if on:
+                pushed = tplan.state()["pushdown_rows_skipped"]
+        if decoded["on"] > survivors + shards * group_rows or decoded["off"] != total:
+            raise AssertionError(f"rows decoded {decoded} for {survivors} survivors of {total}")
+        accepted = sorted({d["rule"] for d in decisions})
+        if not {"pushdown_into_scan", "prune_columns"} <= set(accepted):
+            raise AssertionError(f"accepted rewrites {accepted}")
+        on_out, off_out = results[True], results[False]
+        for c in ("y", "z_sum", "z_max"):
+            a = torch.as_tensor(on_out.host_values(c))
+            b = torch.as_tensor(off_out.host_values(c))
+            if not torch.equal(a, b):
+                raise AssertionError(f"optimizer on/off disagree on {c}")
+        got_y = np.asarray(on_out.host_values("y"))
+        got_sum = np.asarray(on_out.host_values("z_sum"))
+        got_max = np.asarray(on_out.host_values("z_max"))
+        if not np.array_equal(got_y, keys) or not np.array_equal(got_max, want_max):
+            raise AssertionError("group keys or z_max disagree with the numpy groupby")
+        rel_err = float(np.max(np.abs(got_sum - want_sum) / np.abs(want_sum)))
+        if rel_err > 1e-12:
+            raise AssertionError(f"z_sum rel err {rel_err:.3e} > 1e-12 vs the numpy groupby")
+    _emit(
+        "relational_scan", shards=shards, row_groups=groups, group_rows=group_rows, rows=total,
+        parquet_bytes=parquet_bytes, write_s=write_s, survivors=survivors,
+        optimizer_on_s=runs["on"], optimizer_off_s=runs["off"],
+        off_over_on=float(np.median(runs["off"]) / np.median(runs["on"])),
+        rows_decoded=decoded, pushdown_rows_skipped=pushed, accepted_rewrites=accepted,
+        on_equals_off=True, z_sum_rel_err_vs_numpy=rel_err,
+    )
+
+
+def _sort_and_join(tft, rows: int, keys: int) -> None:
+    import pandas as pd
+
+    from tensorframes_tpu_torch.utils import telemetry
+
+    rng = np.random.default_rng(SEED + 200)
+    k = rng.random(rows)
+    v = np.arange(rows, dtype=np.float64)
+    df = tft.TensorFrame.from_dict({"k": k, "v": v}).repartition(8).to_device()
+    telemetry.reset()
+    out, sort_s = _wall(df.sort_by("k").force)
+    sort_d2h = _d2h_bytes()
+    order = np.argsort(k, kind="stable")
+    if not (np.array_equal(out.host_values("k"), k[order])
+            and np.array_equal(out.host_values("v"), v[order])):
+        raise AssertionError("sort_by disagrees with numpy's stable argsort")
+    del out, df
+
+    ids = rng.integers(0, keys, rows).astype(np.int64)
+    right_ids = rng.permutation(keys).astype(np.int64)
+    label = rng.random(keys)
+    left = tft.TensorFrame.from_dict({"id": ids, "v": v}).repartition(8).to_device()
+    right = tft.TensorFrame.from_dict({"id": right_ids, "label": label})
+    telemetry.reset()
+    out, join_s = _wall(left.join(right, on="id").force)
+    join_d2h = _d2h_bytes()
+    want = pd.merge(pd.DataFrame({"id": ids, "v": v}), pd.DataFrame({"id": right_ids, "label": label}),
+                    on="id", how="inner")
+    got = out.to_pandas()
+    if list(got.columns) != ["id", "v", "label"] or not all(
+            np.array_equal(got[c].to_numpy(), want[c].to_numpy()) for c in got.columns):
+        raise AssertionError("join disagrees with pandas.merge")
+    by_id = np.empty(keys)
+    by_id[right_ids] = label
+    if out.nrows != rows or not np.array_equal(got["label"].to_numpy(), by_id[got["id"].to_numpy()]):
+        raise AssertionError("join labels disagree with the key lookup")
+    _emit("relational_sort_join", sort_rows=rows, sort_s=sort_s, sort_d2h_bytes=sort_d2h,
+          join_rows=rows, join_keys=keys, join_s=join_s, join_d2h_bytes=join_d2h,
+          join_out_rows=out.nrows)
+
+
+class _ArrowPartitions:
+    """A Spark DataFrame's surface that the bridge touches (``mapInArrow``
+    per partition over pyarrow record batches, ``collect`` of attribute
+    rows), the way `examples/spark_adapter_demo.py` stands in for one."""
+
+    def __init__(self, parts):
+        self._parts = parts
+
+    def mapInArrow(self, fn, schema):  # noqa: N802
+        return _ArrowPartitions([list(fn(iter(p))) for p in self._parts])
+
+    def collect(self):
+        import types
+
+        return [types.SimpleNamespace(**r) for p in self._parts for b in p for r in b.to_pylist()]
+
+
+def _spark_bridge(tft, partitions: int, part_rows: int, width: int = 8, nkeys: int = 16) -> None:
+    import tempfile
+
+    import pyarrow as pa
+
+    import tensorframes_tpu_torch.spark as tspark
+    from tensorframes_tpu_torch.utils.profiling import reset_stats, stats
+
+    rng = np.random.default_rng(SEED + 300)
+    parts, ks, xs = [], [], []
+    for _ in range(partitions):
+        cols = {"k": rng.integers(0, nkeys, part_rows).astype(np.int64)}
+        for i in range(width):
+            cols[f"x{i}"] = rng.random(part_rows)
+        half = part_rows // 2  # two record batches: Arrow's write granularity
+        parts.append([pa.RecordBatch.from_pydict({n: a[:half] for n, a in cols.items()}),
+                      pa.RecordBatch.from_pydict({n: a[half:] for n, a in cols.items()})])
+        ks.append(cols["k"])
+        xs.append(np.stack([cols[f"x{i}"] for i in range(width)], axis=1))
+    k_all, x_all = np.concatenate(ks), np.concatenate(xs)
+    del ks, xs
+    rows = partitions * part_rows
+    sdf = _ArrowPartitions(parts)
+    probe = tft.TensorFrame.from_dict({f"x{i}": np.zeros(2) for i in range(width)})
+    d = tft.dsl
+
+    # time the bridge's two host steps inside the user's calls
+    ingest_s, collect_s = [], []
+    real_ingest, real_collect = tspark.ingest, tspark._collected_frame
+
+    def timed(real, into):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            into.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    tspark.ingest = timed(real_ingest, ingest_s)
+    tspark._collected_frame = timed(real_collect, collect_s)
+    try:
+        with tempfile.TemporaryDirectory(prefix="tfs-spark-") as ingest_dir:
+            reset_stats()
+            s = d.reduce_sum(tft.block(probe, "x0", tf_name="x0_input"), axes=[0]).named("x0")
+            total, reduce_s = _wall(lambda: tspark.reduce_blocks(s, sdf, ingest_dir=ingest_dir))
+            if stats().get("reduce_blocks_stream.transfer_fallback", 0.0):
+                raise AssertionError("spark.reduce_blocks: transfers fell back to the host")
+            want = x_all[:, 0].sum()
+            sum_err = abs(total.item() - want) / want
+            if total.dtype != torch.float64 or sum_err > 1e-12:
+                raise AssertionError(f"spark.reduce_blocks rel err {sum_err:.3e} > 1e-12")
+
+            zt = (tft.block(probe, "x0") * 2.0 + 1.0).named("z")
+            mapped, map_s = _wall(lambda: tspark.map_blocks(zt, sdf, ingest_dir=ingest_dir))
+            zv = mapped.column("z").values
+            if (mapped.num_blocks != partitions or zv.device.type != "cuda"
+                    or not np.array_equal(zv.cpu().numpy(), x_all[:, 0] * 2.0 + 1.0)):
+                raise AssertionError("spark.map_blocks disagrees with numpy or lost the partitions")
+            del mapped, zv
+
+            fetches = [d.reduce_mean(tft.block(probe, f"x{i}", tf_name=f"m{i}_input"), axes=[0])
+                       .named(f"m{i}") for i in range(width)]
+            feed = {f"m{i}_input": f"x{i}" for i in range(width)}
+            agg, agg_s = _wall(lambda: tspark.aggregate(fetches, sdf, keys=["k"], feed_dict=feed,
+                                                        ingest_dir=ingest_dir))
+            counts = np.bincount(k_all, minlength=nkeys)
+            if not np.array_equal(np.asarray(agg.host_values("k")), np.arange(nkeys)):
+                raise AssertionError("spark.aggregate keys disagree")
+            mean_err = 0.0
+            for i in range(width):
+                want_m = np.bincount(k_all, weights=x_all[:, i], minlength=nkeys) / counts
+                got_m = np.asarray(agg.host_values(f"m{i}"))
+                mean_err = max(mean_err, float(np.max(np.abs(got_m - want_m) / np.abs(want_m))))
+            if mean_err > 1e-12:
+                raise AssertionError(f"spark.aggregate mean rel err {mean_err:.3e} > 1e-12")
+            left = os.listdir(ingest_dir)
+            if left:
+                raise AssertionError(f"ingest files left behind: {left}")
+    finally:
+        tspark.ingest, tspark._collected_frame = real_ingest, real_collect
+    verbs = {"reduce_blocks": reduce_s, "map_blocks": map_s, "aggregate": agg_s}
+    # reduce_blocks streams the files; map_blocks and aggregate collect them
+    collect = {"reduce_blocks": 0.0, "map_blocks": collect_s[0], "aggregate": collect_s[1]}
+    _emit(
+        "spark_bridge", partitions=partitions, rows=rows, columns=width + 1,
+        ipc_bytes_per_ingest=rows * (width + 1) * 8, ingest_s=ingest_s,
+        collect_s=collect_s, call_s=verbs,
+        verb_after_ingest_and_collect_s={
+            v: t - i - collect[v] for (v, t), i in zip(verbs.items(), ingest_s)},
+        rows_per_s={v: rows / t for v, t in verbs.items()},
+        reduce_sum_rel_err=sum_err, aggregate_mean_rel_err=mean_err, ingest_dir_removed=True,
+    )
+
+
+def phase_lazy_and_spark(tft, rows: int = 200_000_000, blocks: int = 8, rel_shards: int = 16,
+                         rel_groups: int = 8, rel_group_rows: int = 500_000,
+                         sort_rows: int = 10_000_000, join_keys: int = 1_000,
+                         spark_partitions: int = 16, spark_part_rows: int = 2_000_000) -> None:
+    """Phase 13: a fused map chain against the eager one, device- and
+    host-resident; a relational plan over a Parquet dataset with the
+    optimizer on and off, a sort and a join; and the Spark bridge."""
+    import pandas
+    import pyarrow
+
+    print(json.dumps({"pyarrow": pyarrow.__version__, "pandas": pandas.__version__}), flush=True)
+    _fused_chain(tft, rows, blocks)
+    _relational(tft, rel_shards, rel_groups, rel_group_rows)
+    _sort_and_join(tft, sort_rows, join_keys)
+    _spark_bridge(tft, spark_partitions, spark_part_rows)
+
+
 def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int) -> float:
     from tensorframes_tpu_torch.models import TransformerLM
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention_reference
@@ -1528,10 +2004,11 @@ def main() -> int:
     del verbs_df
     phase_frame_breadth(tft)
     phase_streaming(tft)
+    phase_lazy_and_spark(tft)
     if flash_attention.launches:
         raise AssertionError(
             f"the verb, aggregate, k-means, Inception, control-flow, freezing, "
-            f"frame-breadth and streaming phases launched flash_attention "
+            f"frame-breadth, streaming and lazy-plan phases launched flash_attention "
             f"{flash_attention.launches} times; none of their graphs holds attention"
         )
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)

@@ -24,6 +24,15 @@ the reduce overlapped; `map_blocks`, `map_rows`, `reduce_blocks` and the
 stream take ``timeout_s=`` (`deadline_scope` for a whole chain), and a
 stream may be made durable with ``checkpoint=``. `config` holds the knobs.
 
+Lazy plans: ``df.lazy()`` or ``with tft.lazy():`` defers graph
+``map_blocks`` calls into one fused callable per block (`LazyFrame`), and
+``tft.scan(dir).filter(tft.col("x") > c)...group_by(...).agg(...)`` builds a
+relational plan (`RelationalFrame`) that the cost-based optimizer rewrites
+(predicate pushdown into Parquet row groups, column pruning, map fusion)
+before it runs. `tensorframes_tpu_torch.spark` runs the verbs over a Spark
+DataFrame through one Arrow IPC file per partition; it imports without
+pyspark and pyarrow.
+
 Float32 matrix products run in full float32: TF32 is turned off here for
 cuBLAS and cuDNN, because the parity bars against the JAX package assume
 it.
@@ -54,10 +63,13 @@ from .api import (  # noqa: E402
     reduce_blocks_stream,
     reduce_rows,
     row,
+    scan,
 )
 from .frame import Column, TensorFrame  # noqa: E402
 from .graph import Graph  # noqa: E402
 from .graph import builder as dsl  # noqa: E402
+from .graph.plan import col  # noqa: E402
+from .lazy import LazyFrame, RelationalFrame, lazy  # noqa: E402
 from .models import InceptionLite  # noqa: E402
 from .io import stream_dataset  # noqa: E402
 from .runtime import Executor  # noqa: E402
@@ -83,7 +95,9 @@ __all__ = [
     "GroupedFrame",
     "Graph",
     "InceptionLite",
+    "LazyFrame",
     "OverloadError",
+    "RelationalFrame",
     "ScalarType",
     "Shape",
     "TensorFrame",
@@ -93,6 +107,7 @@ __all__ = [
     "append_shape",
     "block",
     "block_to_row",
+    "col",
     "config",
     "deadline_scope",
     "dsl",
@@ -101,6 +116,7 @@ __all__ = [
     "group_by",
     "ingest",
     "io",
+    "lazy",
     "map_blocks",
     "map_rows",
     "print_schema",
@@ -108,5 +124,6 @@ __all__ = [
     "reduce_blocks_stream",
     "reduce_rows",
     "row",
+    "scan",
     "stream_dataset",
 ]

@@ -18,8 +18,14 @@ DataFrame out.
 block and before the combine, and a top-level call takes an admission slot.
 `reduce_blocks_stream` (`streaming.py`) folds an iterator of frames.
 
-Not in the port yet: the mesh/scheduler/lazy/global routes, shape
-bucketing (eager PyTorch has no per-shape compile to bound) and the chunked
+On a `LazyFrame` (`lazy.py`), or on a plain frame under ``with
+tft.lazy():`` for graph fetches without ``trim``, ``bindings`` or bytes
+placeholders, `map_blocks` defers; `reduce_blocks` fuses the pending chain
+with the reduce; `map_rows`, `reduce_rows` and `aggregate` force the plan
+first. `scan` opens a dataset as a relational plan (`RelationalFrame`).
+
+Not in the port yet: the mesh/scheduler/global routes, shape bucketing
+(eager PyTorch has no per-shape compile to bound) and the chunked
 aggregate plan.
 """
 
@@ -69,14 +75,11 @@ __all__ = [
     "explain",
     "explain_detailed",
     "block_to_row",
+    "scan",
 ]
 
 Fetches = Union[dsl.Tensor, Sequence[dsl.Tensor], Graph, bytes, str]
 Bindings = Optional[Dict[str, Union[np.ndarray, torch.Tensor]]]
-
-# the ops of `GroupedFrame.agg` specs (`tensorframes_tpu/graph/plan.py:63`)
-AGG_OPS = ("sum", "mean", "min", "max")
-
 
 def _is_pandas(obj) -> bool:
     return type(obj).__module__.startswith("pandas")
@@ -91,6 +94,12 @@ def _pandas_in_out(verb):
         if not _is_pandas(frame):
             return verb(fetches, frame, *args, **kwargs)
         out = verb(fetches, TensorFrame.from_pandas(frame), *args, **kwargs)
+        from .lazy import LazyFrame
+
+        if isinstance(out, LazyFrame):
+            # pandas in -> pandas out is the eager path: a lazy() mode
+            # around it must not hand a deferred plan to a pandas caller
+            out = out.force()
         return out.to_pandas() if isinstance(out, TensorFrame) else out
 
     return wrapper
@@ -474,7 +483,35 @@ def map_blocks(
     placeholders (or function parameters) one array for every block; new
     values on a later call reuse the same lowering. A fetch that is the
     identity of a bytes column copies that column on the host.
+
+    On a `LazyFrame` — or on a plain frame under ``with tft.lazy():`` with
+    graph fetches (function, ``trim`` and ``bindings`` calls and bytes
+    placeholders stay eager: they cannot be spliced) — the verb DEFERS: it
+    returns a `LazyFrame` carrying the chain as one pending fused graph.
     """
+    from .lazy import LazyFrame, lazy_active
+
+    if isinstance(frame, LazyFrame):
+        return frame.map_blocks(
+            fetches, feed_dict=feed_dict, trim=trim, fetch_names=fetch_names,
+            executor=executor, bindings=bindings, device=device,
+        )
+    if (
+        lazy_active()
+        and isinstance(frame, TensorFrame)
+        and not trim
+        and not bindings
+        and not (callable(fetches) and not isinstance(fetches, dsl.Tensor))
+    ):
+        lazy_graph, lazy_fetches = _as_graph(fetches, fetch_names)
+        if not any(
+            ph.dtype_attr is ScalarType.string for ph in lazy_graph.placeholders()
+        ):
+            # _fuse_stage directly: the graph is already normalized
+            return LazyFrame(frame, executor=executor, device=device)._fuse_stage(
+                "map_blocks", lazy_graph, lazy_fetches, feed_dict
+            )
+        # bytes pass-through cannot splice: stays eager under the mode
     dev = resolve_device(device)
     bindings = _normalize_bindings(bindings)
     if callable(fetches) and not isinstance(fetches, dsl.Tensor):
@@ -617,7 +654,12 @@ def map_rows(
     blocks (``map_rows.plan.ragged``, ``map_rows.ragged.buckets``); an
     output whose groups agree on its cell shape is dense on ``device``,
     any other is ragged on the host. A fetch that is the identity of a
-    bytes column copies that column on the host."""
+    bytes column copies that column on the host. A `LazyFrame` is forced
+    first (one fused callable per block)."""
+    from .lazy import LazyFrame
+
+    if isinstance(frame, LazyFrame):
+        frame = frame.force(device=device)
     dev = resolve_device(device)
     bindings = _normalize_bindings(bindings)
     if callable(fetches) and not isinstance(fetches, dsl.Tensor):
@@ -759,7 +801,15 @@ def reduce_blocks(
 ):
     """Per-block reduce, then one combine over the stacked partials.
     Returns one tensor for one fetch, a dict of tensors for several; the
-    results stay on ``device``."""
+    results stay on ``device``. On a `LazyFrame` this is a terminal action:
+    the reduce's per-block stage fuses into the pending chain, and the
+    whole pipeline runs as ONE callable per block."""
+    from .lazy import LazyFrame
+
+    if isinstance(frame, LazyFrame):
+        return frame.reduce_blocks(
+            fetches, feed_dict, fetch_names, executor, device=device
+        )
     dev = resolve_device(device)
     graph, fetch_list = _as_graph(fetches, fetch_names)
     summary, mapping = _prepare(
@@ -878,7 +928,13 @@ def reduce_rows(
       float sums and products differ by summation order only;
     - the general plan, for any other pair graph: the lowered pair
       callable once per row, the carry kept on ``device``.
+
+    A `LazyFrame` is forced first (one fused callable per block).
     """
+    from .lazy import LazyFrame
+
+    if isinstance(frame, LazyFrame):
+        frame = frame.force(device=device)
     dev = resolve_device(device)
     graph, fetch_list = _as_graph(fetches, fetch_names)
     summary, mapping = _prepare(
@@ -937,7 +993,8 @@ class GroupedFrame:
     """`group_by(frame, *keys)`: the RelationalGroupedDataset analogue. Any
     scalar column is a key: numbers factorize on the verb's device, strings
     and other objects on the host (the reference grouped by any Catalyst
-    column type)."""
+    column type). Over a `LazyFrame`, `aggregate` forces the plan on its
+    device first: aggregation needs concrete key columns."""
 
     def __init__(self, frame: TensorFrame, keys: Sequence[str]):
         self.frame = frame
@@ -951,7 +1008,8 @@ class GroupedFrame:
 
     def agg(self, device: DeviceLike = None, **specs) -> TensorFrame:
         """Keyed aggregation from ``out=('op', column)`` specs, ops among
-        `AGG_OPS`: each lowers to a reduce over axis 0 of its column."""
+        `graph.plan.AGG_OPS`: each lowers to a reduce over axis 0 of its
+        column."""
         fetches, feed = _agg_spec_exprs(self.frame, specs)
         return aggregate(fetches, self, feed_dict=feed, device=device)
 
@@ -962,7 +1020,10 @@ def group_by(frame: TensorFrame, *keys: str) -> GroupedFrame:
 
 def _agg_spec_exprs(frame: TensorFrame, specs: Dict[str, Tuple[str, str]]):
     """``out=(op, column)`` specs as the DSL reduce fetches and the
-    feed_dict `aggregate` takes."""
+    feed_dict `aggregate` takes (the eager `GroupedFrame.agg` and the
+    relational groupby plan node share it)."""
+    from .graph import plan as _plan
+
     fetches = []
     feed: Dict[str, str] = {}
     for out, spec in sorted(specs.items()):
@@ -972,8 +1033,8 @@ def _agg_spec_exprs(frame: TensorFrame, specs: Dict[str, Tuple[str, str]]):
         ):
             raise TypeError(f"agg spec {out}={spec!r}: want a ('op', 'column') pair")
         op, colname = spec
-        if op not in AGG_OPS:
-            raise ValueError(f"agg op {op!r} is not one of {list(AGG_OPS)}")
+        if op not in _plan.AGG_OPS:
+            raise ValueError(f"agg op {op!r} is not one of {list(_plan.AGG_OPS)}")
         ph = dsl.block(frame, colname, tf_name=f"{out}_input")
         fetches.append(getattr(dsl, f"reduce_{op}")(ph, axes=[0]).named(out))
         feed[f"{out}_input"] = colname
@@ -999,6 +1060,10 @@ def aggregate(
     graph (`DebugRowOps.aggregate`, `DebugRowOps.scala:554-599`). A string
     key's column comes back as host strings.
     """
+    from .lazy import LazyFrame
+
+    if isinstance(grouped.frame, LazyFrame):
+        grouped = GroupedFrame(grouped.frame.force(device=device), grouped.keys)
     dev = resolve_device(device)
     frame = grouped.frame
     graph, fetch_list = _as_graph(fetches, fetch_names)
@@ -1055,14 +1120,61 @@ def append_shape(frame: TensorFrame, col: str, shape) -> TensorFrame:
     return frame.append_shape(col, shape if isinstance(shape, Shape) else Shape(shape))
 
 
+def scan(source, format: str = "auto", columns=None, chunk_groups: int = 1,
+         device: DeviceLike = None):
+    """Lazily scan an on-disk dataset (Parquet / Arrow IPC) as a
+    `RelationalFrame` — the relational plan's ingest leaf. Composes with
+    `filter` / `select` / `map_blocks` / `group_by(...).agg(...)`; the plan
+    optimizer pushes predicates and the pruned column set INTO the decode
+    (skipping whole Parquet row groups from footer stats), so a selective
+    plan decodes the rows that survive, not the whole dataset. ``source``
+    is a path / path list / `ingest.Dataset`; ``device`` is where the
+    plan's maps and aggregations run (default: the CUDA card)."""
+    from .graph import plan as _plan
+    from .ingest import Dataset
+    from .lazy import RelationalFrame
+
+    ds = (
+        source
+        if isinstance(source, Dataset)
+        else Dataset(source, format=format, chunk_groups=chunk_groups)
+    )
+    payload: Dict[str, object] = {"dataset": ds}
+    if columns is not None:
+        payload["columns"] = tuple(columns)
+    return RelationalFrame(_plan.PlanNode("scan", (), payload), device=device)
+
+
 def explain(frame: TensorFrame) -> str:
-    """The frame's schema as text (`DebugRowOps.scala:535-552`)."""
+    """The frame's schema as text (`DebugRowOps.scala:535-552`).
+
+    For a `LazyFrame`, renders the fused plan with per-stage provenance
+    (deferred verbs, feeds, pending outputs) above the schema. For a
+    `RelationalFrame` (or its `LazyPlan`), renders the pre- AND
+    post-optimization DAG with per-node costed estimates and every rewrite
+    decision (accepted and rejected) — WITHOUT executing."""
+    from .lazy import LazyFrame, LazyPlan, RelationalFrame
+
+    if isinstance(frame, RelationalFrame):
+        return frame.explain_plan()
+    if isinstance(frame, LazyPlan):
+        if frame.relational is not None:
+            return RelationalFrame(frame.relational).explain_plan()
+        return repr(frame)
+    if isinstance(frame, LazyFrame):
+        return frame.explain_plan()
     return frame.info.explain()
 
 
 def explain_detailed(frame: TensorFrame):
     """The frame's per-column metadata, the `FrameInfo` itself
-    (`ExperimentalOperations.scala:27`)."""
+    (`ExperimentalOperations.scala:27`). For a `LazyFrame`, the structured
+    `LazyPlan` (stages, fused graph, column sources, feeds, virtual
+    schema)."""
+    from .lazy import LazyFrame
+
+    if isinstance(frame, LazyFrame):
+        return frame.plan()
     return frame.info
 
 
@@ -1103,6 +1215,17 @@ def _install_fluent_methods() -> None:
     TensorFrame.group_by = lambda self, *keys: GroupedFrame(self, keys)
     TensorFrame.block = _block
     TensorFrame.row = lambda self, col, tf_name=None: dsl.row(self, col, tf_name)
+    # relational verbs: compose lazily as plan-DAG nodes (graph.plan);
+    # force() runs them through the cost-based optimizer
+    TensorFrame.filter = lambda self, pred, selectivity=None: self.lazy().filter(
+        pred, selectivity=selectivity
+    )
+    TensorFrame.sort_by = lambda self, *keys, descending=False: self.lazy().sort_by(
+        *keys, descending=descending
+    )
+    TensorFrame.join = lambda self, other, on, how="inner": self.lazy().join(
+        other, on, how=how
+    )
 
 
 _install_fluent_methods()

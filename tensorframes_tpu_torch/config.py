@@ -9,8 +9,8 @@ the JAX package's: `get`, `update`, `override`, pin tracking
 (`explicit_keys` / `is_explicit`), `default_value`, and env seeding through
 the ``_env_*`` helpers. The port carries only the knobs its own code reads
 (the streaming reduce, the ingest pipeline, durable checkpoints, the fault
-layer, deadlines and admission, telemetry and the numerics flag), each
-with the JAX package's name, ``TFS_*`` env var and default.
+layer, deadlines and admission, telemetry, the numerics flag and the lazy
+plans), each with the JAX package's name, ``TFS_*`` env var and default.
 
 Pin tracking: every knob set EXPLICITLY — through `update()`, inside an
 `override()` scope, or seeded from a well-formed ``TFS_*`` env var at
@@ -193,6 +193,41 @@ class Config:
     check_numerics: bool = dataclasses.field(
         default_factory=lambda: _env_bool(
             "TFS_CHECK_NUMERICS", False, "check_numerics"
+        )
+    )
+    # Pipelined plan execution (`lazy.LazyFrame.force`): the feed prep of
+    # block k+1 (slice, and the H2D copy through pinned staging on its own
+    # CUDA stream) runs on a pipeline stage while the consumer thread
+    # dispatches block k. Off = prep and dispatch interleaved on one
+    # thread.
+    plan_pipeline: bool = dataclasses.field(
+        default_factory=lambda: _env_bool(
+            "TFS_PLAN_PIPELINE", True, "plan_pipeline"
+        )
+    )
+    # Delivery-queue bound of the plan pipeline: prepared blocks that may
+    # sit ready ahead of the dispatching consumer.
+    plan_pipeline_depth: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_PLAN_PIPELINE_DEPTH", 2, "plan_pipeline_depth",
+            minimum=1,
+        )
+    )
+    # Relational plan optimizer (`graph.optimizer`): dedup, filter below
+    # map, predicate pushdown into the scan, column pruning and map fusion,
+    # each kept only when the modeled plan cost strictly drops. Off = the
+    # verbs run exactly as written.
+    plan_optimizer: bool = dataclasses.field(
+        default_factory=lambda: _env_bool(
+            "TFS_PLAN_OPTIMIZER", True, "plan_optimizer"
+        )
+    )
+    # Filter selectivity the optimizer assumes when a filter carries no
+    # selectivity= hint. Changes plan choice, never results.
+    plan_selectivity_default: float = dataclasses.field(
+        default_factory=lambda: _env_float(
+            "TFS_PLAN_SELECTIVITY_DEFAULT", 0.5,
+            "plan_selectivity_default", minimum=0.0,
         )
     )
 

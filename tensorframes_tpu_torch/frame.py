@@ -453,6 +453,17 @@ class TensorFrame:
                 cols.append(c)
         return TensorFrame(cols, self.offsets)
 
+    # ---- lazy plans ----------------------------------------------------
+    def lazy(self, device: DeviceLike = None) -> "LazyFrame":  # noqa: F821
+        """Wrap this frame into a `LazyFrame`: later graph-based
+        ``map_blocks`` calls defer and fuse into one callable per block,
+        run at the first terminal action (`collect` / `host_values` / any
+        reduce or aggregate / `.force()`) on ``device`` (default: the CUDA
+        card). See `tensorframes_tpu_torch.lazy`."""
+        from .lazy import LazyFrame
+
+        return LazyFrame(self, device=device)
+
     # ---- export --------------------------------------------------------
     def host_values(self, name: str) -> np.ndarray:
         """Host numpy array of one column (`Column.host_values`)."""

@@ -1,8 +1,8 @@
 """Multi-file shard discovery + parallel decode for the ingest engine.
 
-A copy of `tensorframes_tpu/ingest/dataset.py` without row-group
-predicate pushdown, which needs the lazy plans (ROADMAP Queue 1 item 7):
-`Dataset.decode` refuses a predicate.
+A copy of `tensorframes_tpu/ingest/dataset.py`, row-group predicate
+pushdown included: `Dataset.decode` takes the relational plan's pushed-down
+column set and predicate (`graph.plan.Pred`).
 
 A dataset is an ordered list of SHARDS (Parquet or Arrow IPC files —
 a directory, a glob, an explicit list, or any mix), each shard an
@@ -126,6 +126,30 @@ class ChunkTask:
     groups: Tuple[int, ...]
     shard_index: int
     rows: int = field(default=-1)  # from metadata; -1 = unknown
+
+
+def _group_stats(md, group: int, cols: Sequence[str]):
+    """(min, max) per predicate column from one parquet row group's
+    footer statistics, or None when any needed column lacks stats (the
+    group must then be decoded — pruning is strictly conservative)."""
+    try:
+        rg = md.row_group(group)
+        by_name = {}
+        for ci in range(rg.num_columns):
+            c = rg.column(ci)
+            by_name[c.path_in_schema] = c
+        stats = {}
+        for name in cols:
+            c = by_name.get(name)
+            if c is None or c.statistics is None:
+                return None
+            st = c.statistics
+            if not st.has_min_max:
+                return None
+            stats[name] = (st.min, st.max)
+        return stats
+    except Exception:
+        return None
 
 
 def _chunk_context(task) -> dict:
@@ -262,30 +286,47 @@ class Dataset:
         (try/finally) so a pool of decode workers never accumulates
         handles, and an abandoned stream leaks nothing.
 
-        ``columns`` narrows the read to those columns (unknown names are
-        dropped here; the verb raises the precise schema error). A
-        ``predicate`` (row-group pushdown) needs the lazy plans and
-        raises `NotImplementedError` (ROADMAP Queue 1 item 7). Every
-        decoded row counts into ``ingest_rows_decoded``."""
+        ``columns`` / ``predicate`` are the plan optimizer's pushdown
+        surface (`graph.optimizer`): the column set narrows the read to
+        the selected + predicate columns, and the predicate prunes whole
+        parquet row groups from footer (min, max) stats BEFORE decode —
+        skipped rows count into ``plan_pushdown_rows_skipped`` — then
+        masks the survivors at the arrow boundary, so fewer rows are
+        decoded, not more rows masked. Unknown requested columns are
+        dropped here (the plan's select/map stages raise the precise
+        schema error); every decoded row counts into
+        ``ingest_rows_decoded``."""
         from ..frame import TensorFrame
         from ..utils import telemetry as _tele
 
-        if predicate is not None:
-            raise NotImplementedError(
-                "row-group predicate pushdown needs the lazy plans, which "
-                "the PyTorch port does not have yet (ROADMAP Queue 1 item 7)"
-            )
+        pred_cols = sorted(predicate.columns()) if predicate is not None else []
         if task.format == "parquet":
             import pyarrow.parquet as pq
 
             pf = pq.ParquetFile(task.shard)
             try:
+                md = pf.metadata
                 groups = list(task.groups)
+                if predicate is not None:
+                    kept, skipped_rows = [], 0
+                    for g in groups:
+                        stats = _group_stats(md, g, pred_cols)
+                        if stats is not None and not predicate.may_match(stats):
+                            skipped_rows += md.row_group(g).num_rows
+                        else:
+                            kept.append(g)
+                    if skipped_rows:
+                        from ..graph import plan as _plan
+
+                        _plan.note_pushdown_rows(skipped_rows)
+                    groups = kept
+                schema_names = pf.schema_arrow.names
                 read_cols = None
                 if columns is not None:
-                    schema_names = pf.schema_arrow.names
                     read_cols = [
-                        c for c in dict.fromkeys(columns) if c in schema_names
+                        c
+                        for c in dict.fromkeys(list(columns) + pred_cols)
+                        if c in schema_names
                     ]
                 if not groups:
                     table = pf.schema_arrow.empty_table()
@@ -306,9 +347,20 @@ class Dataset:
             finally:
                 source.close()
             if columns is not None:
-                table = table.select(
-                    [c for c in dict.fromkeys(columns) if c in table.column_names]
-                )
+                table = table.select([
+                    c
+                    for c in dict.fromkeys(list(columns) + pred_cols)
+                    if c in table.column_names
+                ])
+        if predicate is not None and table.num_rows:
+            import pyarrow as pa
+
+            mask = predicate.mask(
+                lambda n: table.column(n).to_numpy(zero_copy_only=False)
+            )
+            table = table.filter(pa.array(np.asarray(mask, dtype=bool)))
+        if columns is not None:
+            table = table.select([c for c in columns if c in table.column_names])
         _tele.counter_inc("ingest_rows_decoded", float(table.num_rows))
         return TensorFrame.from_arrow(table)
 

@@ -582,6 +582,7 @@ def pipelined(
     stages: Sequence[PipeStage] = (),
     depth: Optional[int] = None,
     ordinal_base: int = 0,
+    inline: Optional[bool] = None,
 ):
     """Run ``source`` through ``stages`` as a concurrently-executing
     stage graph and yield the results in order.
@@ -590,7 +591,10 @@ def pipelined(
     ``config.stream_prefetch_depth``); the full chunk-memory bound is
     documented in the module docstring. With ``config.ingest_pipeline``
     off, runs the same stages inline on the consumer thread
-    (stage-serial).
+    (stage-serial). ``inline`` overrides that gate for a caller whose
+    on/off switch is another knob (`lazy.LazyFrame.force` gates on
+    ``config.plan_pipeline``): ``True`` forces the inline path, ``False``
+    the threaded graph, ``None`` follows ``config.ingest_pipeline``.
     ``ordinal_base`` offsets every chunk ordinal (span
     labels, ``tfs_chunk_index`` stamps): a RESUMED durable stream
     re-enters the pipeline at its committed watermark, and a failure at
@@ -610,7 +614,9 @@ def pipelined(
     depth = max(1, int(depth))
     ordinal_base = max(0, int(ordinal_base))
     stages = list(stages)
-    if not cfg.ingest_pipeline:
+    if inline is None:
+        inline = not cfg.ingest_pipeline
+    if inline:
         yield from _serial_pipeline(source, stages, ordinal_base)
         return
 

@@ -17,10 +17,13 @@ consumer's stream waits on that event before the reduce reads the chunk,
 and `Tensor.record_stream` keeps the caching allocator from handing the
 chunk's memory out again while the consumer's stream still reads it.
 
+Chunks may be `LazyFrame`s (a pending map chain over each chunk): the
+transfer stage stages the chunk's BASE frame, and the per-chunk reduce
+fuses the pending chain with the reduce (`LazyFrame.reduce_blocks`).
+
 Not in the port yet: the global-frame (sharded) path, the double-buffered
 accumulator and device rotation (ROADMAP Queue 1 item 12: ``mesh=`` and
-``devices=`` are not parameters; ``device=`` picks the one device), and
-`LazyFrame` chunks (item 7).
+``devices=`` are not parameters; ``device=`` picks the one device).
 """
 
 from __future__ import annotations
@@ -78,14 +81,16 @@ def _spill_partial_to_host(part: Dict, chunk: int) -> Dict:
 
 
 class _Staged:
-    """A chunk whose columns the transfer stage copied to the card, and
-    the event recorded on the copy stream after the copies."""
+    """A chunk whose columns the transfer stage copied to the card, the
+    event recorded on the copy stream after the copies, and the
+    `LazyFrame` whose base it is, if any."""
 
-    __slots__ = ("frame", "event")
+    __slots__ = ("frame", "event", "lazy")
 
-    def __init__(self, frame: TensorFrame, event):
+    def __init__(self, frame: TensorFrame, event, lazy=None):
         self.frame = frame
         self.event = event
+        self.lazy = lazy
 
 
 class _PinnedSlot:
@@ -120,9 +125,18 @@ class _TransferStage:
 
     A chunk whose transfer raises stays on the host (the reduce then
     copies it synchronously), as in the JAX package: logged once, counted
-    per chunk as ``reduce_blocks_stream.transfer_fallback``."""
+    per chunk as ``fallback_counter`` (`LazyFrame.force`'s plan-prep stage
+    passes its own name).
 
-    def __init__(self, device: torch.device):
+    A `LazyFrame` chunk stages its base frame; `receive` hands back the
+    same pending plan over the staged base."""
+
+    def __init__(
+        self,
+        device: torch.device,
+        fallback_counter: str = "reduce_blocks_stream.transfer_fallback",
+    ):
+        self.fallback_counter = fallback_counter
         self.cuda = device.type == "cuda"
         if self.cuda and device.index is None:
             # tensors report "cuda:<index>": compare against the same
@@ -134,6 +148,13 @@ class _TransferStage:
         self._warned = False
 
     def __call__(self, f):
+        from .lazy import LazyFrame
+
+        if isinstance(f, LazyFrame):
+            staged = self(f._base)
+            if isinstance(staged, _Staged):
+                return _Staged(staged.frame, staged.event, f)
+            return f._with_base(staged)
         if not isinstance(f, TensorFrame) or f.nrows == 0:
             return f  # pandas chunks convert in the reduce; empty ones skip
         try:
@@ -149,7 +170,7 @@ class _TransferStage:
                     "reduce dispatch",
                     type(e).__name__, e,
                 )
-            record_count("reduce_blocks_stream.transfer_fallback")
+            record_count(self.fallback_counter)
             return f
 
     def _stage(self, f: TensorFrame):
@@ -205,6 +226,8 @@ class _TransferStage:
             values = item.frame.column(name).values
             if isinstance(values, torch.Tensor) and values.device == self.device:
                 values.record_stream(cur)
+        if item.lazy is not None:
+            return item.lazy._with_base(item.frame)
         return item.frame
 
     def close(self) -> None:

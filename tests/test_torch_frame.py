@@ -197,6 +197,11 @@ def test_import_guard_no_pandas_or_pyarrow():
         import tensorframes_tpu_torch.ingest
         import tensorframes_tpu_torch.runtime.checkpoint
         import tensorframes_tpu_torch.streaming
+        import tensorframes_tpu_torch.lazy
+        import tensorframes_tpu_torch.graph.plan
+        import tensorframes_tpu_torch.graph.optimizer
+        import tensorframes_tpu_torch.graph.fuse
+        import tensorframes_tpu_torch.spark
         bad = sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("pandas", "pyarrow")
@@ -246,6 +251,11 @@ def test_import_guard_no_jax():
         import tensorframes_tpu_torch.testing.faults
         import tensorframes_tpu_torch.utils.log
         import tensorframes_tpu_torch.utils.telemetry
+        import tensorframes_tpu_torch.lazy
+        import tensorframes_tpu_torch.graph.plan
+        import tensorframes_tpu_torch.graph.optimizer
+        import tensorframes_tpu_torch.graph.fuse
+        import tensorframes_tpu_torch.spark
         df = tft.TensorFrame.from_dict(
             {"x": np.arange(6.0), "k": np.array([0, 1, 0, 1, 2, 2])}, num_blocks=2
         )
@@ -275,6 +285,10 @@ def test_import_guard_no_jax():
         chunks = [tft.TensorFrame.from_dict({"x": np.arange(4.0) + i}) for i in range(3)]
         sx = tft.dsl.reduce_sum(tft.block(chunks[0], "x", tf_name="x_input"), axes=[0])
         tft.reduce_blocks_stream(sx.named("x"), iter(chunks), device="cpu", timeout_s=60)
+        lf = df.lazy(device="cpu")
+        lf = tft.map_blocks((tft.block(lf, "x") * 2.0).named("y"), lf)
+        tft.reduce_blocks(tft.dsl.reduce_sum(tft.block(lf, "y", tf_name="y_input")).named("y"), lf)
+        df.filter(tft.col("x") > 1.0).group_by("k").agg(s=("sum", "x")).force(device="cpu")
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"

@@ -306,17 +306,39 @@ class TestDiscovery:
         assert len(tasks) == 3 and all(t.rows == -1 for t in tasks)
 
     def test_columns_projection_and_predicate_refused(self, tmp_path):
+        """Column projection, and the predicate pushdown that once was
+        refused here: footer stats prune whole parquet row groups, the
+        rest is masked at the arrow boundary, and the decoded rows, the
+        skipped rows and the frame equal the JAX package's."""
+        from tensorframes_tpu.graph import plan as jplan
+        from tensorframes_tpu.utils import telemetry as jtele
+        from tensorframes_tpu_torch.graph import plan as tplan
+
         df = tft.TensorFrame.from_dict(
-            {"x": np.arange(4.0, dtype=np.float32), "y": np.arange(4, dtype=np.int64)}
+            {"x": np.arange(40.0, dtype=np.float32), "y": np.arange(40, dtype=np.int64)},
+            num_blocks=4,
         )
         for ext, write in (("parquet", tio.write_parquet), ("arrow", tio.write_arrow_ipc)):
             p = str(tmp_path / f"c.{ext}")
             write(df, p)
-            ds = Dataset(p)
+            ds, jds = Dataset(p, chunk_groups=4), JDataset(p, chunk_groups=4)
             (task,) = ds.task_list()
+            (jtask,) = jds.task_list()
             assert ds.decode(task, columns=["y", "nope"]).columns == ["y"]
-            with pytest.raises(NotImplementedError, match="item 7"):
-                ds.decode(task, predicate=object())
+            ttele.reset()
+            jtele.reset()
+            tplan.reset_state()
+            jplan.reset_state()
+            got = ds.decode(task, columns=["y"], predicate=tplan.col("x") > 24.5)
+            want = jds.decode(jtask, columns=["y"], predicate=jplan.col("x") > 24.5)
+            assert got.columns == want.columns == ["y"]
+            np.testing.assert_array_equal(got.host_values("y"), want.host_values("y"))
+            np.testing.assert_array_equal(got.host_values("y"), np.arange(25, 40))
+            skipped = 20 if ext == "parquet" else 0  # footer stats: parquet only
+            assert tplan.state()["pushdown_rows_skipped"] == skipped
+            assert jplan.state()["pushdown_rows_skipped"] == skipped
+            assert ttele.flat_counters()["ingest_rows_decoded"] == 15.0
+            assert jtele.metrics_snapshot()[0]["ingest_rows_decoded"] == 15.0
 
 
 # ---------------------------------------------------------------------------
