@@ -37,7 +37,11 @@ main path through the entry points a user calls:
    v2 ``If``/``While`` and the cond + product loop through `map_rows`'
    lifted plan over 10,000,000 rows in 8 blocks, exact against numpy; then
    a block-level graph with a scalar cond and a scalar loop through
-   `map_blocks`, with the host syncs counted;
+   `map_blocks`, with the host syncs counted; then two per-row v1 conds
+   that do not lift (a `Sum` predicate over a float32[3] cell, and branches
+   that call `Fill`), each with a bound placeholder, through `map_rows`'
+   vmap plan (one call per block) over 10,000,000 rows, exact against
+   numpy, and the first through the per-row plan over 2,000 rows;
 10. variable freezing: a ``VariableV2`` and a ``VarHandleOp`` graph as TF
     wrote them, through `map_blocks` over phase 3's column, exact;
 11. frame breadth: ragged `map_rows` over 1,000,000 float32 rows of 1-64
@@ -70,15 +74,26 @@ main path through the entry points a user calls:
     `spark.reduce_blocks` / `map_blocks` / `aggregate` over a duck-typed
     Spark DataFrame of 16 partitions x 2,000,000 rows (``k`` int64 of 16
     keys, ``x0``..``x7`` float64);
-14. one JSON line listing every kernel with its launches on the main path
-    (phases 3-13), its error and its times;
-15. as the last line, ``{"ok": true, "device": {...}}``.
+14. training and the expert FFN: `TransformerLM` at phase 7's widths
+    trained by SGD (lr 0.1, `benchmarks/train_bench.py`'s) on 8 x 2,048
+    tokens through the plain attention `full_attention`, one warm-up step
+    and 5 timed, step 1's loss and four gradients held against float64 on
+    the card, the loss falling; `flash_attention` refusing a gradient; a
+    `save_params` / `load_params` round trip that scores the same; the MLP
+    (512-512-512-10) trained by Adam through `make_train_step` on 65,536
+    rows of a column `map_blocks` produced, 10 timed steps, step 1 against
+    float64; `MoEFFN.apply` at Mixtral-8x7B's published widths (hidden
+    4096, intermediate 14336, 8 experts, top 2) over 4,096 float32 tokens,
+    its first 256 tokens against float64 with the same routing;
+15. one JSON line listing every kernel with its launches on the main path
+    (phases 3-14), its error and its times;
+16. as the last line, ``{"ok": true, "device": {...}}``.
 
-Phases 8-13 run after phase 6 and before phase 7. Phases 3-6 and 8-13 run
+Phases 8-14 run after phase 6 and before phase 7. Phases 3-6 and 8-14 run
 no hand-written kernel (their ops are ATen, cuBLAS and cuDNN calls, host
-numpy and the stream's copies), so the script checks that the attention
-kernel's count is still 0 after them and counts its launches in phase 7
-alone. Phase 12 imports pyarrow for its dataset and durable parts, and
+numpy and the stream's copies; phase 14 trains through the plain
+attention), so the script checks that the attention kernel's count is
+still 0 after them and counts its launches in phase 7 alone. Phase 12 imports pyarrow for its dataset and durable parts, and
 prints them as skipped where pyarrow is missing; phase 13 needs pyarrow and
 pandas and fails without them. The port factorizes string keys with pandas
 where pandas imports, and in one dict pass where it does not; phase 11
@@ -797,8 +812,10 @@ def phase_control_flow(tft, rows: int = 10_000_000, blocks: int = 8) -> None:
         want.append((b * np.float32(2.0) if b.sum(dtype=np.float64) > 0 else -b) * s)
     if not np.array_equal(out.host_values("out"), np.concatenate(want)):
         raise AssertionError("map_blocks block_cond_while: differs from the numpy reference")
+    del out, y, ydf
+    one_call = _one_call_conds(tft, rows, blocks)
     _emit(
-        "control_flow", rows=rows, blocks=blocks, map_rows=result,
+        "control_flow", rows=rows, blocks=blocks, map_rows=result, map_rows_one_call=one_call,
         block_level=dict(
             seconds=block_s, rows_per_s=rows / block_s,
             cond_host_syncs=counts.get("control.cond.host_syncs"),
@@ -806,6 +823,100 @@ def phase_control_flow(tft, rows: int = 10_000_000, blocks: int = 8) -> None:
             while_host_syncs=counts.get("control.while.host_syncs"),
         ),
     )
+
+
+def _v1_cond_graph(tft, kind: str) -> bytes:
+    """The GraphDef bytes of a per-row TF v1 cond diamond, written node by
+    node as TensorFlow writes one (the card's machine has no TensorFlow),
+    with a bound placeholder ``w``:
+
+    - ``sum``: ``x`` float32[3]; ``y = sum(x) > 0 ? x * w : x - w``, ``w``
+      float32[3];
+    - ``fill``: ``x`` float32; ``y = x > 0 ? fill([3], x) * w : fill([3],
+      x - w)``, ``w`` float32.
+
+    Neither lifts to block level (a cell `Sum` reduces the row's axis; a
+    `Fill` is not row-local), so `map_rows` runs them under `vmap`."""
+    from tensorframes_tpu_torch.proto.graphdef import AttrValue
+    from tensorframes_tpu_torch.schema import ScalarType, Shape
+
+    dsl, f32 = tft.dsl, ScalarType.float32
+    t_f32 = {"T": AttrValue.of_type(f32)}
+    cell = (3,) if kind == "sum" else ()
+    x = dsl.placeholder(f32, Shape(cell), name="x")
+    w = dsl.placeholder(f32, Shape(cell), name="w")
+    s = dsl.reduce_sum(x, axes=[0]) if kind == "sum" else x
+    pred = dsl.Tensor("Greater", [s, dsl.constant(np.float32(0.0))], t_f32, ScalarType.bool_)
+
+    def switch(v):
+        sw = dsl.Tensor("Switch", [v, pred], t_f32, f32)
+        return sw, dsl.Tensor("Switch", [], {}, f32, idx=1, source=sw)
+
+    (xf, xt), (wf, wt) = switch(x), switch(w)
+    if kind == "sum":
+        then, other = xt * wt, xf - wf
+    else:
+        def fill(v):
+            dims = dsl.constant(np.asarray([3], np.int32))
+            return dsl._nary("Fill", [dims, v], f32, {"index_type": AttrValue.of_type(ScalarType.int32)})
+
+        then, other = fill(xt) * wt, fill(xf - wf)
+    merge = dsl.Tensor("Merge", [other, then], {**t_f32, "N": AttrValue.of_int(2)}, f32)
+    graph, _ = dsl.build(dsl.identity(merge).named("y"))
+    return graph.to_bytes()
+
+
+def _one_call_conds(tft, rows: int, blocks: int, per_row_rows: int = 2000) -> dict:
+    """The cond-only per-row graphs of `_v1_cond_graph` over ``rows`` rows
+    in ``blocks`` blocks: `map_rows`' vmap plan (one call per block, no
+    host sync), exact against numpy. Values are integers in float32, so
+    every sum and product is exact in any order. The Sum graph also runs
+    through the per-row plan (`row_vectorize` off) over its first
+    ``per_row_rows`` rows, to show what the one-call plan replaces."""
+    from tensorframes_tpu_torch.utils.profiling import reset_stats, stats
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    w3 = np.array([1.5, -2.0, 0.5], np.float32)
+    out = {}
+    for kind, cell, w in (("sum", (3,), w3), ("fill", (), np.float32(3.0))):
+        x = torch.randint(-8, 9, (rows,) + cell, device="cuda", generator=gen).float()
+        df = tft.TensorFrame([tft.Column("x", x)]).repartition(blocks)
+        graph, bound = _v1_cond_graph(tft, kind), {"w": w}
+        tft.map_rows(graph, df, fetch_names=["y"], bindings=bound)  # lowers once
+        reset_stats()
+        res, secs = _wall(lambda: tft.map_rows(graph, df, fetch_names=["y"], bindings=bound))
+        counts = stats()
+        if counts.get("map_rows.plan.vmap") != 1.0 or "map_rows.plan.per_row" in counts:
+            raise AssertionError(f"map_rows {kind} cond: expected the vmap plan, counters say {counts}")
+        syncs = sum(v for k, v in counts.items() if k.endswith("host_syncs")) + counts.get("host_sync", 0)
+        xh = x.cpu().numpy()
+        if kind == "sum":
+            want = np.where((xh.sum(1) > 0)[:, None], xh * w3, xh - w3)
+        else:
+            want = np.repeat(np.where(xh > 0, xh * w, xh - w)[:, None], 3, 1)
+        if not np.array_equal(res.host_values("y"), want.astype(np.float32)):
+            raise AssertionError(f"map_rows {kind} cond: differs from numpy")
+        out[kind] = dict(
+            seconds=secs, rows_per_s=rows / secs, plan="vmap",
+            selects=counts.get("vectorize.lowered.cond"), host_syncs_per_block=syncs / blocks,
+        )
+        if kind == "sum":
+            head = tft.TensorFrame([tft.Column("x", x[:per_row_rows])])
+            with tft.config.override(row_vectorize=False):
+                reset_stats()
+                pr, pr_s = _wall(lambda: tft.map_rows(graph, head, fetch_names=["y"], bindings=bound))
+                pr_counts = stats()
+            if pr_counts.get("map_rows.plan.per_row") != 1.0:
+                raise AssertionError(f"per-row plan did not run: {pr_counts}")
+            if not np.array_equal(pr.host_values("y"), want[:per_row_rows].astype(np.float32)):
+                raise AssertionError("map_rows sum cond, per-row plan: differs from numpy")
+            out[kind].update(
+                per_row_rows=per_row_rows, per_row_seconds=pr_s,
+                per_row_rows_per_s=per_row_rows / pr_s,
+                per_row_host_syncs_per_row=pr_counts.get("control.cond.host_syncs", 0) / per_row_rows,
+            )
+        del x, df, res
+    return out
 
 
 def phase_freezing(tft, df) -> None:
@@ -1946,6 +2057,296 @@ def phase_lazy_and_spark(tft, rows: int = 200_000_000, blocks: int = 8, rel_shar
     _spark_bridge(tft, spark_partitions, spark_part_rows)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training and the expert FFN
+# ---------------------------------------------------------------------------
+
+
+def _attention_f64(q, k, v, *, causal=False, scale=None):
+    """`full_attention` without its float32 cast: the float64 reference's
+    attention."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if causal:
+        n = s.shape[-1]
+        mask = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    return torch.matmul(torch.softmax(s, dim=-1), v)
+
+
+def _grads_vs_f64(what: str, loss_fn, params, batch, names, loss_rtol, grad_rtol):
+    """Step 1 in float32 against the same step in float64 on the card:
+    the loss within ``loss_rtol``, and the gradient of each leaf ``names``
+    (indices into `tree_leaves`) within ``grad_rtol`` of its float64 norm,
+    ``||g - g64|| <= grad_rtol * ||g64||``. Returns (loss, loss64, the
+    largest of those norm ratios)."""
+    from tensorframes_tpu_torch.models.training import tree_leaves, value_and_grad
+
+    leaves = tree_leaves(params)
+    loss, grads = value_and_grad(loss_fn, params, *batch)
+    params64 = [p.detach().double() for p in leaves]
+    loss64, grads64 = value_and_grad(
+        lambda ps, *b: loss_fn(_like(params, iter(ps)), *b, f64=True), params64, *batch
+    )
+    if abs(float(loss) - float(loss64)) > loss_rtol * abs(float(loss64)):
+        raise AssertionError(f"{what}: step-1 loss {float(loss)} vs float64 {float(loss64)}")
+    worst = 0.0
+    for i in names:
+        g, g64 = grads[i].double(), grads64[i]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: non-finite gradient of leaf {i}")
+        ratio = float((g - g64).norm() / g64.norm())
+        if not ratio <= grad_rtol:
+            raise AssertionError(
+                f"{what}: gradient of leaf {i} off its float64 value by {ratio:.3e} of "
+                f"its norm (limit {grad_rtol})"
+            )
+        worst = max(worst, ratio)
+    return float(loss), float(loss64), worst
+
+
+def _like(params, leaves):
+    """``params``' structure over ``leaves`` (dict keys sorted, as
+    `tree_leaves` flattens them)."""
+    if isinstance(params, (dict, torch.nn.ParameterDict)):
+        return {k: _like(params[k], leaves) for k in sorted(params)}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_like(p, leaves) for p in params)
+    return next(leaves)
+
+
+# float32 training step against float64 on the card: the loss within
+# rtol 1e-4, and each checked gradient within 1e-3 of its norm. A gradient
+# sums 16K tokens' or 65K rows' terms that largely cancel (random tokens
+# and labels), so an element near zero carries float32 rounding of the
+# much larger terms: the first MLP layer's is off by ~2e-4 of its norm in
+# a CPU float64 comparison, 1e-6 absolute against a 2e-3 largest element.
+_TRAIN_LOSS_RTOL, _TRAIN_GRAD_RTOL = 1e-4, 1e-3
+# Mixtral-width expert FFN (sums of 4,096 and 14,336 products) against float64
+_MOE_RTOL, _MOE_ATOL = 1e-4, 1e-5
+
+
+def _lm_training(tft, cfg, batch: int, steps: int, lr: float) -> dict:
+    from tensorframes_tpu_torch.models import TransformerLM
+    from tensorframes_tpu_torch.ops.flash_attention import AttentionGradientError, flash_attention
+    from tensorframes_tpu_torch.parallel.ring import full_attention
+    from tensorframes_tpu_torch.utils.checkpoint import load_params, save_params
+
+    model = TransformerLM(**cfg, seed=SEED, device="cuda")
+    seq = cfg["max_seq"]
+    tokens = torch.from_numpy(
+        np.random.default_rng(SEED + 20).integers(0, cfg["vocab"], (batch, seq)).astype(np.int32)
+    ).cuda()
+
+    def lm_loss(params, toks, f64=False):
+        return model.loss(params, toks, attention=_attention_f64 if f64 else full_attention)
+
+    keys = sorted(model.params)
+    checked = [keys.index(k) for k in ("embed", "l0_qkv", f"l{cfg['n_layers'] - 1}_mlp_down", "ln_f_g")]
+    loss1, loss64, grad_err = _grads_vs_f64(
+        "TransformerLM", lm_loss, model.params, (tokens,), checked, _TRAIN_LOSS_RTOL,
+        _TRAIN_GRAD_RTOL,
+    )
+    _, first = model.train_step(model.params, tokens, lr=lr)  # step 1, the warm-up
+    if abs(float(first) - loss1) > _TRAIN_LOSS_RTOL * abs(loss64):
+        raise AssertionError(f"TransformerLM train_step loss {float(first)} vs {loss1}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses = []
+
+    def train():
+        for _ in range(steps):
+            losses.append(model.train_step(model.params, tokens, lr=lr)[1])
+
+    _, secs = _wall(train)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        after = float(model.loss(model.params, tokens))
+    if not after < float(first):
+        raise AssertionError(f"TransformerLM: loss {after} after {steps + 1} steps, first {float(first)}")
+
+    # where a step's time goes: the device's busy time in one more step,
+    # and the attention of one layer forward and backward at the step's
+    # shape, through full_attention and through SDPA (a fused backward the
+    # port does not have)
+    step_s = secs / steps
+    busy_s, step_launches, _ = _device_kernels(lambda: model.train_step(model.params, tokens, lr=lr))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    hd = cfg["d_model"] // cfg["n_heads"]
+    qkv = [
+        torch.randn(batch * cfg["n_heads"], seq - 1, hd, device="cuda", generator=gen,
+                    requires_grad=True)
+        for _ in range(3)
+    ]
+
+    def fwd_bwd(attend):
+        return lambda: torch.autograd.grad(attend(*qkv).sum(), qkv)
+
+    attn_ms = _time_ms(fwd_bwd(lambda q, k, v: full_attention(q, k, v, causal=True)), 5)
+    sdpa_ms = _time_ms(fwd_bwd(lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True)), 5)
+    del qkv
+
+    # the kernel refuses a gradient on the card too, before any launch
+    q = torch.randn(2, 64, 64, device="cuda", requires_grad=True)
+    launches = flash_attention.launches
+    try:
+        flash_attention(q, q, q, causal=True)
+    except AttentionGradientError:
+        pass
+    else:
+        raise AssertionError("flash_attention returned an output autograd cannot differentiate")
+    if flash_attention.launches != launches:
+        raise AssertionError("flash_attention launched while refusing a gradient")
+
+    # parameters round trip: the reloaded model scores as the trained one
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tfs-params-") as tmp:
+        path = os.path.join(tmp, "lm.npz")
+        save_params(path, model.params)
+        fresh = TransformerLM(**cfg, seed=SEED + 1, device="cuda")
+        loaded = load_params(path, like=fresh.params)
+    with torch.no_grad():
+        for k, v in loaded.items():
+            fresh.params[k].copy_(v)
+        probe = tokens[:1]
+        same = torch.equal(
+            fresh(probe, attention=full_attention), model(probe, attention=full_attention)
+        )
+    if not same:
+        raise AssertionError("TransformerLM: the reloaded parameters score differently")
+    tokens_per_step = batch * (seq - 1)
+    return dict(
+        config=cfg, batch=batch, seq=seq, lr=lr, timed_steps=steps, seconds=secs,
+        seconds_per_step=step_s, tokens_per_s=tokens_per_step * steps / secs,
+        peak_memory_bytes=peak, peak_above_start_bytes=peak - base,
+        device_busy_share_of_step=busy_s / step_s, kernel_launches_per_step=step_launches,
+        attention_fwd_bwd_ms_per_layer=attn_ms,
+        attention_share_of_step=cfg["n_layers"] * attn_ms / (step_s * 1e3),
+        sdpa_fwd_bwd_ms_per_layer=sdpa_ms,
+        loss_step1=float(first), loss_step1_f64=loss64, loss_after=after,
+        losses=[float(x) for x in losses], grad_leaves_checked=[keys[i] for i in checked],
+        max_grad_err_over_norm=grad_err, flash_attention_refuses_grad=True,
+        params_round_trip="equal scores",
+    )
+
+
+def _mlp_training(tft, rows: int, steps: int) -> dict:
+    import functools
+
+    from tensorframes_tpu_torch.models import MLP, init_opt_state, make_train_step
+
+    sizes = [512, 512, 512, 10]
+    model = MLP(sizes, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    raw = torch.rand(rows, sizes[0], device="cuda", generator=gen)
+    labels = torch.randint(0, sizes[-1], (rows,), device="cuda", generator=gen)
+    df = tft.TensorFrame([tft.Column("raw", raw)]).repartition(8)
+    # the batch is a column a verb produced: autograd must accept it
+    feats = tft.map_blocks((tft.block(df, "raw") * 2.0 - 1.0).named("x"), df)
+    x = feats.column("x").values
+    tx = functools.partial(torch.optim.Adam, lr=1e-3)
+    step = make_train_step(model.loss, tx)
+    state = init_opt_state(tx, model.params)
+
+    def mlp_loss(params, xb, yb, f64=False):
+        if not f64:
+            return model.loss(params, xb, yb)
+        logp = torch.log_softmax(model.apply(params, xb.double()), dim=-1)
+        return -logp.gather(1, yb.long()[:, None]).mean()
+
+    loss1, loss64, grad_err = _grads_vs_f64(
+        "MLP", mlp_loss, model.params, (x, labels), list(range(6)), _TRAIN_LOSS_RTOL,
+        _TRAIN_GRAD_RTOL,
+    )
+    _, state, first = step(model.params, state, x, labels)
+    if abs(float(first) - loss1) > _TRAIN_LOSS_RTOL * abs(loss64):
+        raise AssertionError(f"MLP step loss {float(first)} vs {loss1}")
+    losses = []
+
+    def train():
+        nonlocal state
+        for _ in range(steps):
+            _, state, loss = step(model.params, state, x, labels)
+            losses.append(loss)
+
+    _, secs = _wall(train)
+    with torch.no_grad():
+        after = float(model.loss(model.params, x, labels))
+    if not after < float(first):
+        raise AssertionError(f"MLP: loss {after} after {steps + 1} steps, first {float(first)}")
+    return dict(
+        sizes=sizes, rows=rows, optimizer="Adam lr 1e-3", timed_steps=steps, seconds=secs,
+        seconds_per_step=secs / steps, rows_per_s=rows * steps / secs,
+        batch_from="map_blocks output column", loss_step1=float(first), loss_step1_f64=loss64,
+        loss_after=after, max_grad_err_over_norm=grad_err,
+    )
+
+
+def _moe_forward(tokens: int, checked: int, iters: int = 3) -> dict:
+    """`MoEFFN.apply` at Mixtral-8x7B's published widths (hidden_size 4096,
+    intermediate_size 14336, num_local_experts 8, num_experts_per_tok 2),
+    the JAX package's gelu FFN, float32."""
+    from tensorframes_tpu_torch.models import MoEFFN
+
+    d, h, e, k = 4096, 14336, 8, 2
+    model = MoEFFN(d, h, e, k, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    x = torch.randn(tokens, d, device="cuda", generator=gen)
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    with torch.no_grad():
+        model(x)  # warm-up: cuBLAS picks its kernels
+        out, secs = _wall(lambda: [model(x) for _ in range(iters)][-1])
+    secs /= iters
+    if tuple(out.shape) != (tokens, d) or not torch.isfinite(out).all():
+        raise AssertionError(f"MoEFFN: bad output {tuple(out.shape)}")
+    flop = 2 * tokens * d * e + e * 2 * (2 * tokens * d * h) + 2 * tokens * e * d
+    # float64 on the first rows with the float32 run's routing
+    p = model.params
+    with torch.no_grad():
+        xs = x[:checked]
+        topi = torch.topk(xs @ p["gate"], k, dim=-1).indices
+        x64 = xs.double()
+        logits64 = x64 @ p["gate"].double()
+        w64 = torch.zeros_like(logits64).scatter_add(
+            -1, topi, torch.softmax(logits64.gather(-1, topi), dim=-1)
+        )
+        ref = torch.zeros(checked, d, dtype=torch.float64, device="cuda")
+        for i in range(e):
+            hid = torch.nn.functional.gelu(x64 @ p["w1"][i].double(), approximate="tanh")
+            ref += w64[:, i:i + 1] * (hid @ p["w2"][i].double())
+    err = _check_close("MoEFFN vs float64", out[:checked].double(), ref, _MOE_RTOL, _MOE_ATOL)
+    return dict(
+        widths=dict(hidden_size=d, intermediate_size=h, num_local_experts=e, num_experts_per_tok=k),
+        tokens=tokens, weight_bytes=weight_bytes, seconds=secs, tflop=flop / 1e12,
+        achieved_tflop_s=flop / secs / 1e12, float32_bound_s=flop / _PEAK_F32_FLOPS,
+        share_of_float32_bound=flop / _PEAK_F32_FLOPS / secs, checked_tokens=checked,
+        max_abs_err=err, tolerance={"rtol": _MOE_RTOL, "atol": _MOE_ATOL},
+    )
+
+
+def phase_training_and_moe(tft, cfg, lm_batch: int = 8, lm_steps: int = 5, lm_lr: float = 0.1,
+                           mlp_rows: int = 65_536, mlp_steps: int = 10, moe_tokens: int = 4096,
+                           moe_checked: int = 256) -> None:
+    """Phase 14: `TransformerLM` SGD steps at phase 7's widths through the
+    plain attention (`full_attention`), the MLP trained by Adam through
+    `make_train_step` on a column `map_blocks` produced, the expert FFN at
+    Mixtral's widths, and a parameter checkpoint round trip. Every step 1
+    is held against float64 on the card."""
+    torch.cuda.empty_cache()
+    lm = _lm_training(tft, cfg, lm_batch, lm_steps, lm_lr)
+    torch.cuda.empty_cache()
+    mlp = _mlp_training(tft, mlp_rows, mlp_steps)
+    torch.cuda.empty_cache()
+    moe = _moe_forward(moe_tokens, moe_checked)
+    torch.cuda.empty_cache()
+    _emit(
+        "training_and_moe", lm_training=lm, mlp_training=mlp, moe_forward=moe,
+        tolerance={"loss_rtol": _TRAIN_LOSS_RTOL, "grad_rtol_of_norm": _TRAIN_GRAD_RTOL},
+    )
+
+
 def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int) -> float:
     from tensorframes_tpu_torch.models import TransformerLM
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention_reference
@@ -2005,10 +2406,11 @@ def main() -> int:
     phase_frame_breadth(tft)
     phase_streaming(tft)
     phase_lazy_and_spark(tft)
+    phase_training_and_moe(tft, cfg)
     if flash_attention.launches:
         raise AssertionError(
             f"the verb, aggregate, k-means, Inception, control-flow, freezing, "
-            f"frame-breadth, streaming and lazy-plan phases launched flash_attention "
+            f"frame-breadth, streaming, lazy-plan and training phases launched flash_attention "
             f"{flash_attention.launches} times; none of their graphs holds attention"
         )
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)

@@ -33,6 +33,12 @@ before it runs. `tensorframes_tpu_torch.spark` runs the verbs over a Spark
 DataFrame through one Arrow IPC file per partition; it imports without
 pyspark and pyarrow.
 
+Models (`models`) score and train: `MLP` and `TransformerLM` take SGD
+steps (`train_step`) or any `torch.optim` optimizer (`make_train_step`),
+`MoEFFN` is the expert FFN, and `utils.checkpoint` saves frames and
+parameters in the JAX package's npz layouts. The verbs run under
+`torch.no_grad()`, so their outputs can feed training.
+
 Float32 matrix products run in full float32: TF32 is turned off here for
 cuBLAS and cuDNN, because the parity bars against the JAX package assume
 it.

@@ -463,7 +463,7 @@ def _block_rows(outs: Dict[str, torch.Tensor], rows: int, trim: bool) -> int:
 
 @_pandas_in_out
 @_deadline_entry("map_blocks")
-@torch.inference_mode()
+@torch.no_grad()
 def map_blocks(
     fetches,
     frame: TensorFrame,
@@ -575,18 +575,13 @@ def _map_blocks_graph(graph, fetch_list, frame, feed_dict, trim, executor, bindi
 def _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev):
     """`map_rows`' plan for this graph, counted: ``run(feeds, rows)`` gives
     one block's outputs, each with the row axis (see `map_rows`)."""
-    if not any(n.op in _vec.CONTROL_OPS for n in graph.toposort(fetch_list)):
-        _count("map_rows.plan.vmap")
-        in_dims = tuple(None if n in bindings else 0 for n in feed_names)
-        vfn = ex.cached(
-            f"vmap-rows-[{','.join(sorted(bindings))}]" if bindings else "vmap-rows",
-            graph, fetch_list, feed_names, dev,
-            lambda: torch.func.vmap(
-                build_callable(graph, fetch_list, feed_names, dev), in_dims=in_dims
-            ),
-        )
-        return lambda feeds, rows: vfn(*feeds)
+    control = any(n.op in _vec.CONTROL_OPS for n in graph.toposort(fetch_list))
+    if not control:
+        return _vmap_plan(ex, graph, fetch_list, feed_names, bindings, dev)
 
+    if not _vec.enabled():
+        _vec.note_fallback("disabled")
+        return _per_row_plan(ex, graph, fetch_list, feed_names, bindings, dev)
     block_rank = {n: summary.inputs[n].shape.rank + 1 for n in feed_names}
     if not bindings and _rowwise_transform(graph, fetch_list, block_rank.get):
         _count("map_rows.plan.lifted")
@@ -609,6 +604,28 @@ def _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev):
 
         return lifted
 
+    if _vec.vmap_eligible(graph):
+        return _vmap_plan(ex, graph, fetch_list, feed_names, bindings, dev)
+    return _per_row_plan(ex, graph, fetch_list, feed_names, bindings, dev)
+
+
+def _vmap_plan(ex, graph, fetch_list, feed_names, bindings, dev):
+    """The per-row callable under `torch.func.vmap` over the block's
+    rows, bound placeholders whole (``in_dims`` None)."""
+    _count("map_rows.plan.vmap")
+    in_dims = tuple(None if n in bindings else 0 for n in feed_names)
+    vfn = ex.cached(
+        f"vmap-rows-[{','.join(sorted(bindings))}]" if bindings else "vmap-rows",
+        graph, fetch_list, feed_names, dev,
+        lambda: torch.func.vmap(
+            build_callable(graph, fetch_list, feed_names, dev), in_dims=in_dims
+        ),
+    )
+    return lambda feeds, rows: vfn(*feeds)
+
+
+def _per_row_plan(ex, graph, fetch_list, feed_names, bindings, dev):
+    """The callable once per row, bound placeholders whole."""
     _count("map_rows.plan.per_row")
     fn = ex.callable_for(graph, fetch_list, feed_names, dev)
     per_row = [n not in bindings for n in feed_names]
@@ -624,7 +641,7 @@ def _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev):
 
 @_pandas_in_out
 @_deadline_entry("map_rows")
-@torch.inference_mode()
+@torch.no_grad()
 def map_rows(
     fetches,
     frame: TensorFrame,
@@ -638,15 +655,20 @@ def map_rows(
     a dict of named outputs, to every row, one call per block where the
     graph allows it (the reference ran one session per row). Three plans:
 
-    - ``vmap``, for a graph without control flow: the per-row callable
-      vectorized over the block's rows with `torch.func.vmap`;
     - ``lifted``, for a graph with `_Cond`/`_While` that is row-local
       (`aggregate._rowwise_transform`) and has no bindings: the graph
       lifted to block level, so its predicates carry the row axis and
       `graph.vectorize` selects per row and loops under a per-row mask,
       as JAX's batching rules do under `vmap`;
-    - ``per_row``, for any other graph with control flow: the callable
-      once per row (`torch.func.vmap` cannot read a batched predicate).
+    - ``vmap``, for any other graph whose control flow is only `_Cond`
+      (and for a graph without control flow): the per-row callable
+      vectorized over the block's rows with `torch.func.vmap`, a cond
+      evaluating both branches and selecting per row;
+    - ``per_row``, for a graph with a `_While` it cannot lift, or any
+      graph with control flow when ``config.row_vectorize`` is off: the
+      callable once per row (`torch.func.vmap` cannot read a batched loop
+      predicate on the host). The reason is counted
+      (``vectorize.fallback.<reason>``).
 
     Bound placeholders are the same for every row. The plan taken is
     counted (``map_rows.plan.<plan>``). Over ragged columns the rows are
@@ -790,7 +812,7 @@ def _results(bases: List[str], values):
 
 @_pandas_in_out
 @_deadline_entry("reduce_blocks")
-@torch.inference_mode()
+@torch.no_grad()
 def reduce_blocks(
     fetches,
     frame: TensorFrame,
@@ -906,7 +928,7 @@ def _monoid_reductions(graph: Graph, bases: List[str], summary: GraphSummary):
 
 
 @_pandas_in_out
-@torch.inference_mode()
+@torch.no_grad()
 def reduce_rows(
     fetches,
     frame: TensorFrame,
@@ -1041,7 +1063,7 @@ def _agg_spec_exprs(frame: TensorFrame, specs: Dict[str, Tuple[str, str]]):
     return fetches, feed
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def aggregate(
     fetches,
     grouped: GroupedFrame,

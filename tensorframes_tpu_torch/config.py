@@ -9,8 +9,9 @@ the JAX package's: `get`, `update`, `override`, pin tracking
 (`explicit_keys` / `is_explicit`), `default_value`, and env seeding through
 the ``_env_*`` helpers. The port carries only the knobs its own code reads
 (the streaming reduce, the ingest pipeline, durable checkpoints, the fault
-layer, deadlines and admission, telemetry, the numerics flag and the lazy
-plans), each with the JAX package's name, ``TFS_*`` env var and default.
+layer, deadlines and admission, telemetry, the numerics flag, the lazy
+plans and per-row vectorization), each with the JAX package's name,
+``TFS_*`` env var and default.
 
 Pin tracking: every knob set EXPLICITLY — through `update()`, inside an
 `override()` scope, or seeded from a well-formed ``TFS_*`` env var at
@@ -211,6 +212,15 @@ class Config:
         default_factory=lambda: _env_int(
             "TFS_PLAN_PIPELINE_DEPTH", 2, "plan_pipeline_depth",
             minimum=1,
+        )
+    )
+    # Per-row control flow at block level (`graph.vectorize`): `map_rows`
+    # runs a per-row graph with `_Cond`/`_While` once per block (lifted,
+    # or under `torch.func.vmap` with a cond selecting per row). Off = every
+    # such graph runs once per row, and a batched predicate raises.
+    row_vectorize: bool = dataclasses.field(
+        default_factory=lambda: _env_bool(
+            "TFS_ROW_VECTORIZE", True, "row_vectorize"
         )
     )
     # Relational plan optimizer (`graph.optimizer`): dedup, filter below

@@ -14,6 +14,13 @@ pseudo-nodes (`graph.control_flow`). Run at block level (the graph lifted by
   max-trips-over-rows dense trips. Eager PyTorch has no device-side loop,
   so each trip reads ``active.any()`` on the host once.
 
+* `vmap_select_cond`: a `_Cond` whose predicate is batched under
+  `torch.func.vmap` (a per-row graph vectorized over the block's rows):
+  both branches evaluated, then `torch.where` per row. That is JAX's
+  batching rule for `lax.cond`, and it lets `api.map_rows` run any per-row
+  graph whose control flow is only `_Cond` in one call per block, bound
+  placeholders included (`vmap_eligible`).
+
 `subgraphs_row_local` is the classification hook `aggregate._rowwise_transform`
 calls for control-flow nodes: a `_Cond`/`_While` is row-local exactly when
 every branch/cond/body subgraph passes the same row-local walk at the
@@ -23,10 +30,14 @@ enclosing graph's lead rank. `api.map_rows` uses it to pick the lifted plan.
 device (where the JAX package uses `jax.eval_shape`) and name the offending
 branch output or carry.
 
-Vectorization is always on, as in the JAX package by default; the JAX
-``config.row_vectorize`` knob is not ported. Decisions are counted in
-`utils.profiling` (``vectorize.lowered.<kind>``, ``vectorize.fallback.<reason>``,
-``vectorize.while.trips``, ``vectorize.while.host_syncs``).
+Everything is gated behind ``config.row_vectorize`` (env
+``TFS_ROW_VECTORIZE``, default on), as in the JAX package: off, `map_rows`
+runs every per-row graph with control flow once per row, and a batched
+predicate raises. Decisions are counted in `utils.profiling`
+(``vectorize.lowered.<kind>``, ``vectorize.fallback.<reason>``,
+``vectorize.while.trips``, ``vectorize.while.host_syncs``) and in the
+telemetry registry as the JAX package's ``row_vectorize_lowered{kind=}`` /
+``row_vectorize_fallbacks{reason=}``.
 """
 
 from __future__ import annotations
@@ -44,6 +55,11 @@ from ..utils.profiling import count as _count
 
 __all__ = [
     "CONTROL_OPS",
+    "enabled",
+    "note_fallback",
+    "note_lowered",
+    "vmap_eligible",
+    "vmap_select_cond",
     "lift_to_block_level",
     "subgraphs_row_local",
     "select_cond",
@@ -67,8 +83,26 @@ CONTROL_OPS = frozenset(_SUB_ATTRS)
 _META = torch.device("meta")
 
 
-def _note_fallback(reason: str) -> None:
+def enabled() -> bool:
+    from .. import config
+
+    return bool(config.get().row_vectorize)
+
+
+def note_lowered(kind: str) -> None:
+    """One masked dense lowering run (kind: ``cond`` | ``while``)."""
+    from ..utils import telemetry as _tele
+
+    _count(f"vectorize.lowered.{kind}")
+    _tele.counter_inc("row_vectorize_lowered", 1.0, kind=kind)
+
+
+def note_fallback(reason: str) -> None:
+    """One graph kept off a one-call-per-block plan, by reason."""
+    from ..utils import telemetry as _tele
+
     _count(f"vectorize.fallback.{reason}")
+    _tele.counter_inc("row_vectorize_fallbacks", 1.0, reason=reason)
 
 
 def lift_to_block_level(graph):
@@ -101,6 +135,9 @@ def subgraphs_row_local(graph, node, lead_rank: int) -> bool:
     slices of the outer graph's row axis, so each one is checked at the
     OUTER lead rank; nested control flow recurses through the same walk.
     Counts a fallback reason on every rejection."""
+    if not enabled():
+        note_fallback("disabled")
+        return False
     from ..aggregate import _rowwise_transform
 
     for attr_key, label in _SUB_ATTRS[node.op]:
@@ -108,11 +145,37 @@ def subgraphs_row_local(graph, node, lead_rank: int) -> bool:
         key = key.decode() if isinstance(key, bytes) else key
         sub = getattr(graph, "subgraphs", {}).get(key)
         if sub is None:
-            _note_fallback(f"{label}-missing")
+            note_fallback(f"{label}-missing")
             return False
         if not _rowwise_transform(sub.graph, list(sub.fetches), lambda _name: lead_rank):
-            _note_fallback(f"{label}-not-row-local")
+            note_fallback(f"{label}-not-row-local")
             return False
+    return True
+
+
+def _control_ops(graph, seen=None):
+    """Ops of every control-flow node in ``graph`` and, recursively, in
+    its subgraphs (a branch may hold a loop)."""
+    seen = set() if seen is None else seen
+    if id(graph) in seen:
+        return set()
+    seen.add(id(graph))
+    ops = {n.op for n in graph.nodes if n.op in CONTROL_OPS}
+    for sub in getattr(graph, "subgraphs", {}).values():
+        ops |= _control_ops(sub.graph, seen)
+    return ops
+
+
+def vmap_eligible(graph) -> bool:
+    """True when `torch.func.vmap` can run this per-row graph: its only
+    control flow, nested bodies included, is `_Cond`, which selects per
+    row under `vmap` (`vmap_select_cond`). A `_While` reads its predicate
+    on the host every trip, which `vmap` cannot do for a batched
+    predicate. Counts ``while-under-vmap`` when a loop keeps the graph
+    out."""
+    if "_While" in _control_ops(graph):
+        note_fallback("while-under-vmap")
+        return False
     return True
 
 
@@ -276,8 +339,27 @@ def select_cond(ctx, node, pred, then_outs, else_outs) -> Tuple:
             ) from None
         outs.append(torch.where(m, t, e))
     if not ctx.is_meta:
-        _count("vectorize.lowered.cond")
+        note_lowered("cond")
     return tuple(outs)
+
+
+def is_vmapped(pred: Any) -> bool:
+    """A predicate batched by `torch.func.vmap`: its per-row values
+    cannot be read on the host."""
+    return isinstance(pred, torch.Tensor) and torch._C._functorch.is_batchedtensor(pred)
+
+
+def vmap_select_cond(ctx, pred, then_outs, else_outs) -> Tuple:
+    """`_Cond` under `torch.func.vmap` with a batched predicate: both
+    (pure) branches evaluated, then `torch.where` per row, as JAX batches
+    `lax.cond` into a select. The branches have the same per-row shapes
+    and dtypes (`check_branch_avals`)."""
+    p = pred.reshape(()).to(torch.bool)
+    outs = tuple(
+        torch.where(p, ctx.tensor(t), ctx.tensor(e)) for t, e in zip(then_outs, else_outs)
+    )
+    note_lowered("cond")
+    return outs
 
 
 def _broadcast_lead(ctx, c, n: int) -> torch.Tensor:
@@ -337,7 +419,7 @@ def masked_while(
         )
         active = torch.logical_and(active, pred(carry))
         trips += 1
-    _count("vectorize.lowered.while")
+    note_lowered("while")
     _count("vectorize.while.trips", trips)
     _count("vectorize.while.host_syncs", trips + 1)
     return carry[:n_vars]

@@ -407,7 +407,7 @@ class LazyFrame:
         return _api.map_rows(fetches, self.force(device=kw.get("device")), **kw)
 
     @_deadline_entry("reduce_blocks")
-    @torch.inference_mode()
+    @torch.no_grad()
     def reduce_blocks(
         self,
         fetches,
@@ -517,7 +517,7 @@ class LazyFrame:
 
     # -- terminal actions ----------------------------------------------
     @_deadline_entry("lazy.force")
-    @torch.inference_mode()
+    @torch.no_grad()
     def force(self, executor=None, device: DeviceLike = None) -> TensorFrame:
         """Lower the whole fused plan as ONE callable per block on
         ``device`` (default: the frame's device) and return the concrete

@@ -1,19 +1,24 @@
-"""Dense MLP classifier, forward only, as an `nn.Module`.
+"""Dense MLP classifier as an `nn.Module`: scoring and training.
 
-The PyTorch counterpart of `tensorframes_tpu/models/mlp.py` (`MLP.apply`
-and `MLP.scoring_graph`): ``sizes[0] -> ... -> sizes[-1]`` with ReLU
-hiddens. The model scores a batch directly (``model(x)`` gives logits) or
-freezes its weights into a builder-DSL scoring graph for
+The PyTorch counterpart of `tensorframes_tpu/models/mlp.py` (`MLP.apply`,
+`loss`, `train_step` and `scoring_graph`): ``sizes[0] -> ... -> sizes[-1]``
+with ReLU hiddens. The model scores a batch directly (``model(x)`` gives
+logits) or freezes its weights into a builder-DSL scoring graph for
 `map_rows`/`map_blocks` (BASELINE config 3). `from_jax_params` loads the
 JAX model's ``params`` (a list of ``(w, b)`` as numpy), so the two models
-can be held against each other. Training and the sharded step wait for a
-later slice.
+can be held against each other.
+
+``params`` in `apply`, `loss` and `train_step` has the JAX layout, a list
+of ``(w, b)``; `MLP.params` is the module's own. `train_step` is the JAX
+package's plain SGD step, applied in place (see `models.training`).
+`sharded_train_step`, `param_specs` and `shard_params` wait for the
+multi-GPU slice.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +27,7 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..graph import builder as dsl
 from ..schema import ScalarType, Shape
+from .training import sgd_, value_and_grad
 
 __all__ = ["MLP"]
 
@@ -73,15 +79,38 @@ class MLP(nn.Module):
                 )
         return model
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits of a batch ``(n, sizes[0])`` (`MLP.apply`)."""
+    @property
+    def params(self) -> List[Tuple[nn.Parameter, nn.Parameter]]:
+        """The module's parameters in the JAX layout, ``[(w, b), ...]``."""
+        return list(zip(self.weights, self.biases))
+
+    def apply(self, params: Sequence[Tuple[torch.Tensor, torch.Tensor]], x: torch.Tensor) -> torch.Tensor:
+        """Logits of a batch ``(n, sizes[0])`` under ``params``."""
         h = x
-        n = len(self.weights)
-        for i, (w, b) in enumerate(zip(self.weights, self.biases)):
+        n = len(params)
+        for i, (w, b) in enumerate(params):
             h = h @ w + b
             if i < n - 1:
                 h = torch.relu(h)
         return h
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits of a batch ``(n, sizes[0])`` (`MLP.apply`)."""
+        return self.apply(self.params, x)
+
+    def loss(self, params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Mean cross-entropy of the integer labels ``y`` under a float32
+        log-softmax of the logits."""
+        logp = torch.log_softmax(self.apply(params, x).float(), dim=-1)
+        return -logp.gather(1, y.long()[:, None]).mean()
+
+    def train_step(self, params, x: torch.Tensor, y: torch.Tensor, lr: float = 1e-2):
+        """One SGD step, ``p <- p - lr * grad``, in place on ``params``
+        (pass `MLP.params` to train the module). Returns ``(params,
+        loss)``, the loss before the step."""
+        loss, grads = value_and_grad(self.loss, params, x, y)
+        sgd_(params, grads, lr)
+        return params, loss
 
     def scoring_graph(self, input_name: str = "features", block: bool = True) -> dsl.Tensor:
         """The weights frozen into a builder-DSL graph: Placeholder ->

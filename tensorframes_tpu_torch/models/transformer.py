@@ -1,16 +1,26 @@
-"""Transformer LM, forward only, as an `nn.Module`.
+"""Transformer LM as an `nn.Module`: scoring and training.
 
 The PyTorch counterpart of `tensorframes_tpu/models/transformer.py`
-(`TransformerLM.apply`): pre-LN blocks, learned positions, the output
-projection tied to the embedding. The port scores a batch at once,
-(B, S) int tokens -> (B, S, vocab) logits, and sends the attention of all
-heads and the whole batch through one flash-attention launch per layer.
+(`TransformerLM.apply`, `loss`, `train_step`): pre-LN blocks, learned
+positions, the output projection tied to the embedding. The port scores a
+batch at once, (B, S) int tokens -> (B, S, vocab) logits, and sends the
+attention of all heads and the whole batch through one flash-attention
+launch per layer.
+
+Training differentiates the plain attention, `parallel.ring.full_attention`,
+as the JAX package does off the TPU: the kernel has no backward (neither
+has the TPU kernel, which JAX cannot differentiate), and `flash_attention`
+raises when asked for a gradient. `loss` and `train_step` take the
+parameter dict in the JAX layout; `TransformerLM.params` is the module's
+own, and `train_step` updates it in place (see `models.training`). The
+mesh paths (`loss(mesh=)`, `sharded_train_step_3d`) wait for the
+multi-GPU slice.
 
 `from_jax_params` loads the JAX package's parameter dict (as numpy), so the
 two models can be held against each other. Matching the JAX model: `gelu`
 is its tanh approximation, layer-norm variance is the population variance,
 ``l{i}_ln1`` / ``l{i}_ln2`` are stacked (2, D) [gain; bias], positions are
-``pos[:S]``. Training waits for a later slice.
+``pos[:S]``.
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..ops.flash_attention import flash_attention
+from ..parallel.ring import full_attention
+from .training import sgd_, value_and_grad
 
 __all__ = ["TransformerLM"]
 
@@ -109,7 +121,41 @@ class TransformerLM(nn.Module):
     ) -> torch.Tensor:
         """tokens: (B, S) int -> logits (B, S, vocab). ``attention`` takes
         (B*H, S, hd) q, k, v and ``causal=True`` (default: the kernel)."""
-        p = self.params
+        return self.apply(self.params, tokens, attention)
+
+    def loss(
+        self,
+        params: Dict[str, torch.Tensor],
+        tokens: torch.Tensor,
+        attention: Callable[..., torch.Tensor] = full_attention,
+    ) -> torch.Tensor:
+        """Next-token cross-entropy: position t predicts token t+1. Over a
+        (S,) sequence as in JAX; over (B, S) the mean of the B sequences'
+        losses (each has S - 1 targets, so it is the mean over all)."""
+        t = tokens.long()
+        if t.dim() == 1:
+            t = t[None]
+        logp = torch.log_softmax(self.apply(params, t[:, :-1], attention), dim=-1)
+        return -logp.gather(-1, t[:, 1:, None]).mean()
+
+    def train_step(
+        self, params: Dict[str, torch.Tensor], tokens: torch.Tensor, lr: float = 1e-2
+    ):
+        """One SGD step, ``p <- p - lr * grad``, in place on ``params``
+        (pass `TransformerLM.params` to train the module). Returns
+        ``(params, loss)``, the loss before the step."""
+        loss, grads = value_and_grad(self.loss, params, tokens)
+        sgd_(params, grads, lr)
+        return params, loss
+
+    def apply(
+        self,
+        params: Dict[str, torch.Tensor],
+        tokens: torch.Tensor,
+        attention: Callable[..., torch.Tensor] = flash_attention,
+    ) -> torch.Tensor:
+        """`forward` under ``params`` (a dict of the module's keys)."""
+        p = params
         B, S = tokens.shape
         H, hd = self.n_heads, self.head_dim
         h = p["embed"][tokens.long()] + p["pos"][:S]

@@ -17,7 +17,9 @@ Eager PyTorch runs control flow on the host, where the JAX package compiles
   (one sync a trip);
 - a predicate with one value per row (a per-row graph run at block level)
   goes to `graph.vectorize`: both branches and a select, or one masked
-  dense loop.
+  dense loop;
+- a cond predicate batched by `torch.func.vmap` (`map_rows`' ``vmap``
+  plan) also selects per row after both branches.
 
 On the ``meta`` device (the shape probes of `graph.analysis`) nothing can be
 read back: `_Cond` runs both branches and checks that their shapes and
@@ -91,7 +93,14 @@ def _cond(ctx, node, inputs):
     pred, *operands = inputs
     tfn = _body(ctx, node, "cond_then")
     efn = _body(ctx, node, "cond_else")
-    if _vec.is_batched(pred):
+    lifted, vmapped = _vec.is_batched(pred), _vec.is_vmapped(pred)
+    if (lifted or vmapped) and not _vec.enabled():
+        raise GraphLoweringError(
+            f"_Cond (node {node.name!r}) has a batched predicate of shape "
+            f"{tuple(pred.shape)} but row vectorization is disabled "
+            "(config.row_vectorize / TFS_ROW_VECTORIZE)"
+        )
+    if lifted:
         # a per-row graph run at block level: the cond selects per row,
         # evaluating both (pure) branches
         return _vec.select_cond(ctx, node, pred, tfn(*operands), efn(*operands))
@@ -102,6 +111,10 @@ def _cond(ctx, node, inputs):
             node, _meta_body(ctx, node, "cond_then"), _meta_body(ctx, node, "cond_else"),
             operands, ctx.row_axis,
         )
+    if vmapped:
+        # a per-row graph under torch.func.vmap: the same select, row by
+        # row inside the batched call
+        return _vec.vmap_select_cond(ctx, pred, tfn(*operands), efn(*operands))
     if isinstance(pred, torch.Tensor):
         _count("control.cond.host_syncs")
     taken = tfn if _host_bool(pred) else efn
@@ -119,6 +132,12 @@ def _while(ctx, node, inputs):
         carry = _vec.grow_row_axis(ctx, node, meta_body_fn, carry, n_vars)
     pred = cond_fn(*carry)[0]
     if _vec.is_batched(pred):
+        if not _vec.enabled():
+            raise GraphLoweringError(
+                f"_While (node {node.name!r}) has a batched predicate of shape "
+                f"{tuple(_vec._aval(pred)[0])} but row vectorization is disabled "
+                "(config.row_vectorize / TFS_ROW_VECTORIZE)"
+            )
         # a per-row loop run at block level: one convergence-masked
         # dense loop over the block
         return _vec.masked_while(

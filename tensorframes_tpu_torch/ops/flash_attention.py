@@ -13,6 +13,12 @@ a multiple of 8 up to 128, contiguous 16-byte aligned inputs) and raises on
 anything else; on a CPU tensor it runs `flash_attention_reference`. There is
 no fallback from the kernel to the plain version.
 ``flash_attention.launches`` counts kernel launches.
+
+The kernel has no backward (nor has the TPU kernel: JAX cannot
+differentiate it). Asked for a gradient, with grad mode on and an input
+that requires grad, `flash_attention` raises `AttentionGradientError` on
+either device instead of returning an output autograd cannot trace;
+training uses `parallel.ring.full_attention`.
 """
 
 from __future__ import annotations
@@ -23,11 +29,15 @@ from typing import Optional
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_reference"]
+__all__ = ["AttentionGradientError", "flash_attention", "flash_attention_reference"]
 
 _NEG_INF = -1e30  # the TPU kernel's mask value
 _BLOCK_Q = 64  # query rows per block of csrc/flash_attention.cu (kBlockQ)
 _MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, which counts query tiles
+
+
+class AttentionGradientError(RuntimeError):
+    """`flash_attention` was asked for a gradient; the kernel has none."""
 
 
 def flash_attention_reference(
@@ -121,7 +131,16 @@ def flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Attention over ``(BH, S, D)`` tensors: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. Raises
+    `AttentionGradientError` when autograd would need its gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise AttentionGradientError(
+            "flash_attention has no backward: its output would carry no "
+            "gradient to q, k and v. Train through "
+            "tensorframes_tpu_torch.parallel.ring.full_attention (what "
+            "TransformerLM.loss and train_step use), or score under "
+            "torch.no_grad()"
+        )
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":

@@ -238,7 +238,7 @@ class _TransferStage:
 
 
 @_deadline_entry("reduce_blocks_stream")
-@torch.inference_mode()
+@torch.no_grad()
 def reduce_blocks_stream(
     fetches,
     frames,

@@ -6,9 +6,10 @@ The PyTorch counterpart of the counter surface of
 ``aggregate.plan.exact``, and the port's own keys:
 
 - ``reduce_rows.plan.monoid`` / ``reduce_rows.plan.general``;
-- ``map_rows.plan.vmap`` (no control flow), ``map_rows.plan.lifted`` (a
-  row-local graph with control flow, run once per block) and
-  ``map_rows.plan.per_row`` (any other graph with control flow);
+- ``map_rows.plan.vmap`` (no control flow, or only `_Cond`),
+  ``map_rows.plan.lifted`` (a row-local graph with control flow, run once
+  per block) and ``map_rows.plan.per_row`` (a `_While` that cannot be
+  lifted, or ``config.row_vectorize`` off);
 - ``map_rows.plan.ragged``: a `map_rows` over ragged columns, one plan
   run per shape bucket; ``map_rows.ragged.buckets``: those buckets;
 - ``host_sync``: a device column's first copy to the host
@@ -20,7 +21,9 @@ The PyTorch counterpart of the counter surface of
   lowerings run (one per call of the rule, not per compile as in the JAX
   package); ``vectorize.while.trips`` / ``vectorize.while.host_syncs``:
   dense trips of a masked `_While` and its ``active.any()`` reads;
-  ``vectorize.fallback.<reason>``: graphs kept off the row-local path.
+  ``vectorize.fallback.<reason>``: graphs kept off the row-local path
+  (``cond-branch-not-row-local``, ``while-body-not-row-local``, ...) or
+  off any one-call plan (``while-under-vmap``, ``disabled``).
 
 Meta-device probes (`graph.analysis`) count nothing.
 """

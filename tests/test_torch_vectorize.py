@@ -6,8 +6,11 @@ held to the JAX package and to a numpy per-row reference on the CPU.
   the `map_rows.plan.lifted` counter), and the masked lowerings equal the
   per-row reference exactly, across divergent branches and ragged trip
   counts, including rows that converge at once.
-- Non-row-local branches and loop bodies fall back to one call per row,
-  counted by reason (``vectorize.fallback.<reason>``).
+- Non-row-local branches are not lifted (counted by reason,
+  ``vectorize.fallback.<reason>``); a graph whose only control flow is
+  `_Cond` runs under `torch.func.vmap`, the cond a select per row, bound
+  placeholders included. A non-row-local loop body falls back to one call
+  per row.
 - Shape and dtype drift raise a `GraphLoweringError` naming the carry or
   the branch output.
 
@@ -101,12 +104,13 @@ def test_non_row_local_cond_branch_falls_back():
     reset_stats()
     assert not _classify(data, fetches=("y",))
     assert stats()["vectorize.fallback.cond-branch-not-row-local"] == 1.0
-    # ... so map_rows runs it once per row, with the JAX package's result
+    # ... so map_rows cannot lift it, and runs it under vmap (the cond a
+    # select per row), one call per block, with the JAX package's result
     x = np.array([1.5, -2.0, 3.0], np.float32)
     reset_stats()
     got = tft.map_rows(data, tft.TensorFrame.from_dict({"x": x}), fetch_names=["y"], device=CPU)
     ref = tfs.map_rows(data, tfs.TensorFrame.from_dict({"x": x}), fetch_names=["y"])
-    assert stats()["map_rows.plan.per_row"] == 1.0
+    assert stats()["map_rows.plan.vmap"] == 1.0 and "map_rows.plan.per_row" not in stats()
     np.testing.assert_array_equal(got.host_values("y"), np.asarray(ref["y"].values))
     np.testing.assert_array_equal(got.host_values("y"), [3.0, -2.0, 6.0])
 
@@ -130,7 +134,8 @@ def test_non_row_local_while_body_falls_back():
 
 def test_bindings_keep_control_flow_off_the_lifted_plan():
     """A bound placeholder is the same for every row, so it has no row
-    axis to lift: the graph runs once per row."""
+    axis to lift: the graph runs under vmap with the binding whole, one
+    call per block."""
 
     def build(tf, tf1):
         x = tf1.placeholder(tf.float32, shape=(), name="x")
@@ -144,7 +149,7 @@ def test_bindings_keep_control_flow_off_the_lifted_plan():
         data, tft.TensorFrame.from_dict({"x": x}), fetch_names=["y"], device=CPU,
         bindings={"w": np.float32(3.0)},
     )
-    assert stats()["map_rows.plan.per_row"] == 1.0
+    assert stats()["map_rows.plan.vmap"] == 1.0 and "map_rows.plan.per_row" not in stats()
     np.testing.assert_array_equal(got.host_values("y"), [3.0, -5.0, 12.0])
 
 
@@ -286,3 +291,120 @@ def test_masked_while_spreads_a_shared_carry_over_rows():
     )
     np.testing.assert_array_equal(k.numpy(), [0, 1, 4])
     assert stats()["vectorize.while.trips"] == 4
+
+
+# ---------------------------------------------------------------------------
+# one call per block for cond-only graphs (torch.func.vmap, the cond a
+# select per row), bindings included; the row_vectorize knob
+# ---------------------------------------------------------------------------
+
+_W3 = np.array([1.5, -2.0, 0.5], np.float32)
+
+
+def _cell_cond_bytes(pred: str, bound: bool) -> bytes:
+    """``y = (P(x) ? x * w : x - w)`` over a float32 ``[3]`` cell, ``P`` a
+    `Sum`, a `Max` or a `StridedSlice` of the cell; ``w`` a bound ``[3]``
+    placeholder or a constant."""
+
+    def build(tf, tf1):
+        x = tf1.placeholder(tf.float32, shape=(3,), name="x")
+        w = tf1.placeholder(tf.float32, shape=(3,), name="w") if bound else tf.constant(_W3)
+        p = {"sum": lambda: tf.reduce_sum(x) > 0.0, "max": lambda: tf.reduce_max(x) > 1.0,
+             "slice": lambda: x[1] > 0.0}[pred]()
+        tf.identity(tf.cond(p, lambda: x * w, lambda: x - w), name="y")
+
+    return _tf_bytes(build)
+
+
+def _fill_cond_bytes(bound: bool) -> bytes:
+    """A scalar cell whose branches call `Fill`: ``y = x > 0 ? fill([3], x)
+    * w : fill([3], x - w)``."""
+
+    def build(tf, tf1):
+        x = tf1.placeholder(tf.float32, shape=(), name="x")
+        w = tf1.placeholder(tf.float32, shape=(), name="w") if bound else tf.constant(3.0)
+        tf.identity(
+            tf.cond(x > 0.0, lambda: tf.fill([3], x) * w, lambda: tf.fill([3], x - w)), name="y"
+        )
+
+    return _tf_bytes(build)
+
+
+def _one_call_case(kind: str, bound: bool):
+    """(bytes, x, bindings, numpy result) of an item-15 graph over 9 rows."""
+    rng = np.random.default_rng(11)
+    if kind == "fill":
+        x = rng.standard_normal(9).astype(np.float32)
+        w = np.float32(3.0)
+        want = np.where(x[:, None] > 0, np.repeat(x[:, None], 3, 1) * w,
+                        np.repeat((x - w)[:, None], 3, 1))
+        return _fill_cond_bytes(bound), x, ({"w": w} if bound else {}), want
+    x = rng.standard_normal((9, 3)).astype(np.float32) * 2.0
+    p = {"sum": x.sum(1) > 0, "max": x.max(1) > 1.0, "slice": x[:, 1] > 0}[kind]
+    want = np.where(p[:, None], x * _W3, x - _W3)
+    return _cell_cond_bytes(kind, bound), x, ({"w": _W3} if bound else {}), want
+
+
+_ONE_CALL = [(k, b) for k in ("sum", "max", "slice", "fill") for b in (False, True)]
+
+
+@pytest.mark.parametrize("kind,bound", _ONE_CALL,
+                         ids=[f"{k}-{'bound' if b else 'const'}" for k, b in _ONE_CALL])
+def test_cond_only_graph_runs_one_call_per_block(kind, bound):
+    data, x, bindings, want = _one_call_case(kind, bound)
+    df = tft.TensorFrame.from_dict({"x": x}, num_blocks=3)
+    reset_stats()
+    got = tft.map_rows(data, df, fetch_names=["y"], device=CPU, bindings=bindings)
+    counts = stats()
+    assert counts["map_rows.plan.vmap"] == 1.0 and "map_rows.plan.per_row" not in counts
+    assert counts["vectorize.lowered.cond"] == 3.0  # one select per block
+    with tft.config.override(row_vectorize=False):
+        reset_stats()
+        per_row = tft.map_rows(data, df, fetch_names=["y"], device=CPU, bindings=bindings)
+        assert stats()["map_rows.plan.per_row"] == 1.0
+        assert stats()["vectorize.fallback.disabled"] == 1.0
+    ref = tfs.map_rows(data, tfs.TensorFrame.from_dict({"x": x}, num_blocks=3),
+                       fetch_names=["y"], bindings=bindings or None)
+    np.testing.assert_array_equal(got.host_values("y"), per_row.host_values("y"))
+    np.testing.assert_array_equal(got.host_values("y"), np.asarray(ref["y"].values))
+    np.testing.assert_array_equal(got.host_values("y"), want.astype(np.float32))
+
+
+def test_a_loop_stays_per_row_under_bindings_counted_by_reason():
+    """A bound placeholder keeps the graph off the lifted plan, and its
+    `_While` keeps it out of vmap: one call per row, with the reason."""
+
+    def build(tf, tf1):
+        x = tf1.placeholder(tf.float32, shape=(), name="x")
+        w = tf1.placeholder(tf.float32, shape=(), name="w")
+        out = tf.while_loop(lambda v: tf.abs(v) > w, lambda v: v * 0.5, [x])
+        tf.identity(out[0], name="y")
+
+    data = _tf_bytes(build)
+    x = np.array([8.0, -0.5, 40.0], np.float32)
+    reset_stats()
+    got = tft.map_rows(data, tft.TensorFrame.from_dict({"x": x}), fetch_names=["y"],
+                       device=CPU, bindings={"w": np.float32(1.0)})
+    assert stats()["map_rows.plan.per_row"] == 1.0
+    assert stats()["vectorize.fallback.while-under-vmap"] == 1.0
+    np.testing.assert_array_equal(got.host_values("y"), [1.0, -0.5, 0.625])
+
+
+def test_row_vectorize_knob_counts_in_telemetry_and_gates_the_lifted_plan():
+    from tensorframes_tpu_torch.utils import telemetry
+
+    telemetry.reset_counters()
+    df = tft.TensorFrame.from_dict({"x": _X})
+    tft.map_rows(_branchy_bytes(), df, fetch_names=["out", "trips"], device=CPU)
+    labeled = telemetry.labeled_counters()
+    assert labeled[("row_vectorize_lowered", (("kind", "cond"),))] == 1.0
+    assert labeled[("row_vectorize_lowered", (("kind", "while"),))] == 1.0
+    with tft.config.override(row_vectorize=False):
+        reset_stats()
+        out = tft.map_rows(_branchy_bytes(), df, fetch_names=["out", "trips"], device=CPU)
+        assert stats()["map_rows.plan.per_row"] == 1.0
+        np.testing.assert_array_equal(out.host_values("out"), _ref(_X)[0])
+        # a graph lifted by hand has batched predicates, which now raise
+        with pytest.raises(GraphLoweringError, match="row vectorization is disabled"):
+            tft.map_blocks(_lifted(), df, fetch_names=["out", "trips"], device=CPU)
+    assert telemetry.labeled_counters()[("row_vectorize_fallbacks", (("reason", "disabled"),))] == 1.0
