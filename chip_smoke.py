@@ -85,15 +85,27 @@ main path through the entry points a user calls:
     float64; `MoEFFN.apply` at Mixtral-8x7B's published widths (hidden
     4096, intermediate 14336, 8 experts, top 2) over 4,096 float32 tokens,
     its first 256 tokens against float64 with the same routing;
-15. one JSON line listing every kernel with its launches on the main path
-    (phases 3-14), its error and its times;
-16. as the last line, ``{"ok": true, "device": {...}}``.
+15. the serving runtime, through `ServingClient` over loopback HTTP:
+    (a) `benchmarks/serving_bench.py`'s elementwise endpoint at its sizes
+    (48 requests of 2,041-2,047 rows, 8 clients, ``max_batch_rows``
+    16,384), serially and concurrently, every response bit-identical to a
+    direct `map_blocks`, the requests coalesced and no new lowering after
+    `warm()`; (b) the 512-512-512-10 MLP endpoint (BASELINE config 3, not
+    batchable, so inline) with 8 clients x 16 requests of 2,048 rows, its
+    rates, latencies and the device's busy share; (c) a 429 with
+    ``Retry-After`` and a 504 under an injected hang, the /metrics,
+    /healthz and /trace scrapes, and `drain()` freeing the port;
+16. one JSON line listing every kernel with its launches on the main path
+    (phases 3-15), its error and its times;
+17. as the last line, ``{"ok": true, "device": {...}}``.
 
-Phases 8-14 run after phase 6 and before phase 7. Phases 3-6 and 8-14 run
+Phases 8-15 run after phase 6 and before phase 7. Phases 3-6 and 8-15 run
 no hand-written kernel (their ops are ATen, cuBLAS and cuDNN calls, host
 numpy and the stream's copies; phase 14 trains through the plain
-attention), so the script checks that the attention kernel's count is
-still 0 after them and counts its launches in phase 7 alone. Phase 12 imports pyarrow for its dataset and durable parts, and
+attention; phase 15 serves graphs of elementwise ops and products), so
+the script checks that the attention kernel's count is still 0 after them
+and counts its launches in phase 7 alone. Phase 15 needs pyarrow (the
+serving wire format is Arrow IPC). Phase 12 imports pyarrow for its dataset and durable parts, and
 prints them as skipped where pyarrow is missing; phase 13 needs pyarrow and
 pandas and fails without them. The port factorizes string keys with pandas
 where pandas imports, and in one dict pass where it does not; phase 11
@@ -2347,6 +2359,341 @@ def phase_training_and_moe(tft, cfg, lm_batch: int = 8, lm_steps: int = 5, lm_lr
     )
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the serving runtime
+# ---------------------------------------------------------------------------
+
+
+#: the slowest a served request may be in phase 15: tens of ms is the norm,
+#: and a dropped connect costs 1 s, then 3, 7, ... s of SYN retransmits
+_SERVE_MAX_REQUEST_S = 5.0
+
+
+def _percentiles_ms(lat):
+    """p50, p99 and the slowest of a latency list, in ms."""
+    a = np.asarray(lat, dtype=np.float64) * 1e3
+    return float(np.percentile(a, 50.0)), float(np.percentile(a, 99.0)), float(a.max())
+
+
+def _check_latencies(what: str, lat) -> None:
+    slowest = max(lat)
+    if slowest > _SERVE_MAX_REQUEST_S:
+        raise AssertionError(
+            f"serving {what}: a request took {slowest:.2f} s (bound {_SERVE_MAX_REQUEST_S} s)"
+        )
+
+
+def _clients_round(n_clients: int, work, what: str):
+    """Run ``work(client_index)`` on ``n_clients`` threads started
+    together; (wall seconds, every returned latency list joined). Raises
+    the first error a client met, and fails when a request outlasts
+    ``_SERVE_MAX_REQUEST_S``."""
+    import threading
+
+    lat, errors = [], []
+    barrier = threading.Barrier(n_clients + 1)
+
+    def run(i):
+        try:
+            barrier.wait(timeout=60)
+            lat.extend(work(i))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n_clients)]
+    for t in threads:
+        t.start()
+    barrier.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=300)
+    secs = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serving: a client thread did not finish within 300 s")
+    if errors:
+        raise errors[0]
+    _check_latencies(what, lat)
+    return secs, lat
+
+
+def _serving_batched(tft, url, clients: int, requests: int, rows: int, max_batch_rows: int):
+    """(a) `benchmarks/serving_bench.py`'s endpoint at its sizes over HTTP."""
+    from tensorframes_tpu_torch.runtime.executor import default_executor
+
+    x = tft.dsl.placeholder(tft.ScalarType.float32, tft.Shape((None,)), name="x")
+    two = tft.dsl.constant(np.float32(2.0))
+    one = tft.dsl.constant(np.float32(1.0))
+    fetch = ((((x * two) + one) * ((x * x) + two)) + one).named("score")
+    ep = tft.serving.register(
+        "bench", fetch, {"x": "float32"}, max_batch_rows=max_batch_rows, device="cuda"
+    )
+    ex = default_executor()
+    compiles0 = ex.compile_count
+    rng = np.random.RandomState(SEED)
+    # off-rung sizes: the batcher's padding path is the one under test
+    reqs = [rng.rand(rows - 1 - (i % 7)).astype(np.float32) for i in range(requests)]
+    direct = [
+        tft.map_blocks(fetch, tft.TensorFrame.from_dict({"x": r}), device="cuda")
+        .column("score").host_values()
+        for r in reqs
+    ]
+    client = tft.serving.ServingClient(url)
+
+    def check(i, out):
+        if not np.array_equal(out.column("score").host_values(), direct[i]):
+            raise AssertionError(f"serving (a): request {i} is not bit-identical to map_blocks")
+
+    # one untimed request first: the client's first call imports pyarrow
+    check(0, client.run("bench", {"x": reqs[0]}, timeout_s=60.0))
+    lat_serial = []
+    t0 = time.perf_counter()
+    for i, r in enumerate(reqs):
+        t1 = time.perf_counter()
+        out = client.run("bench", {"x": r}, timeout_s=60.0, request_id=f"s{i}")
+        lat_serial.append(time.perf_counter() - t1)
+        check(i, out)
+    serial_s = time.perf_counter() - t0
+    _check_latencies("(a) serial", lat_serial)
+
+    b = tft.serving.batcher()
+    before = b.snapshot()
+    per_client = requests // clients
+
+    def work(c):
+        lat = []
+        cl = tft.serving.ServingClient(url)
+        for k in range(per_client):
+            i = c * per_client + k
+            t1 = time.perf_counter()
+            out = cl.run("bench", {"x": reqs[i]}, timeout_s=60.0, request_id=f"c{i}")
+            lat.append(time.perf_counter() - t1)
+            check(i, out)
+        return lat
+
+    conc_s, lat_conc = _clients_round(clients, work, "(a) concurrent")
+    after = b.snapshot()
+    batches = after["batches"] - before["batches"]
+    batched = after["batched_requests"] - before["batched_requests"]
+    if batched != clients * per_client or batches >= batched:
+        raise AssertionError(
+            f"serving (a): {batched} requests in {batches} batches; they did not coalesce"
+        )
+    compile_delta = ex.compile_count - compiles0
+    if compile_delta != 0:
+        raise AssertionError(f"serving (a): {compile_delta} new lowerings after warm()")
+    p50, p99, pmax = _percentiles_ms(lat_conc)
+    s50, s99, smax = _percentiles_ms(lat_serial)
+    return dict(
+        clients=clients, requests=requests, rows_per_request=[rows - 7, rows - 1],
+        max_batch_rows=max_batch_rows, warmed_rungs=len(ep.warmed_rungs),
+        serial_requests_per_s=requests / serial_s, serial_p50_ms=s50, serial_p99_ms=s99,
+        serial_max_ms=smax, concurrent_requests_per_s=batched / conc_s,
+        concurrent_p50_ms=p50, concurrent_p99_ms=p99, concurrent_max_ms=pmax,
+        batches=batches, requests_batched=batched, mean_fill=batched / batches,
+        compile_count_delta_after_warm=compile_delta, bit_identical=True,
+    ), 2 * requests + 1
+
+
+def _serving_mlp(tft, url, clients: int, per_client: int, rows: int):
+    """(b) the MLP scoring endpoint at BASELINE config 3's widths."""
+    from tensorframes_tpu_torch.models import MLP
+    from tensorframes_tpu_torch.utils import telemetry
+
+    sizes = [512, 512, 512, 10]
+    rng = np.random.default_rng(SEED)
+    params = [
+        (
+            (rng.standard_normal((a, b)) * math.sqrt(2.0 / a)).astype(np.float32),
+            (rng.standard_normal(b) * 0.1).astype(np.float32),
+        )
+        for a, b in zip(sizes[:-1], sizes[1:])
+    ]
+    probs = MLP.from_jax_params(params).scoring_graph("features", block=True)
+    ep = tft.serving.register(
+        "mlp", probs, {"features": ("float32", [sizes[0]])}, device="cuda"
+    )
+    if ep.batchable:
+        raise AssertionError("serving (b): the MLP endpoint must not be batchable")
+    feats = [
+        rng.standard_normal((rows, sizes[0])).astype(np.float32) for _ in range(clients * per_client)
+    ]
+    # each client's first request is checked against a direct map_blocks
+    direct = [
+        tft.map_blocks(
+            probs, tft.TensorFrame.from_dict({"features": feats[c * per_client]}), device="cuda"
+        ).column("probs").values
+        for c in range(clients)
+    ]
+    errs, by_request = [], {}
+
+    def work(c):
+        lat = []
+        cl = tft.serving.ServingClient(url)
+        for k in range(per_client):
+            i = c * per_client + k
+            t1 = time.perf_counter()
+            out = cl.run("mlp", {"features": feats[i]}, timeout_s=60.0, request_id=f"m{i}")
+            lat.append(time.perf_counter() - t1)
+            by_request[f"m{i}"] = lat[-1]
+            if k == 0:
+                got = torch.from_numpy(out.column("probs").host_values())
+                errs.append(_check_close(
+                    f"serving (b) request {i}", got, direct[c].cpu(), _MLP_RTOL, _MLP_ATOL
+                ))
+        return lat
+
+    _clients_round(clients, work, "(b) warm-up")  # the cuBLAS handles of every thread
+    inline0 = tft.serving.batcher().snapshot()["inline"]
+    secs, lat = _clients_round(clients, work, "(b)")
+    # the slowest request's server-side verb: compute, or the transport?
+    slowest = max(by_request, key=by_request.get)
+    verb_s = [sp.seconds for sp in telemetry.spans()
+              if sp.kind == "verb" and sp.attrs.get("request") == slowest]
+    n = clients * per_client
+    if tft.serving.batcher().snapshot()["inline"] - inline0 != n:
+        raise AssertionError("serving (b): the MLP requests did not dispatch inline")
+    # the device's busy share over one more round, under the profiler
+    holder = {}
+    busy_s, launches, _ = _device_kernels(
+        lambda: holder.update(r=_clients_round(clients, work, "(b) profiled"))
+    )
+    p50, p99, pmax = _percentiles_ms(lat)
+    return dict(
+        clients=clients, requests=n, rows_per_request=rows, sizes=sizes,
+        request_mib=rows * sizes[0] * 4 / 2**20,
+        requests_per_s=n / secs, rows_per_s=n * rows / secs, p50_ms=p50, p99_ms=p99,
+        max_ms=pmax, slowest_request_verb_ms=verb_s[-1] * 1e3 if verb_s else None,
+        profiled_round_s=holder["r"][0], device_busy_s=busy_s,
+        device_busy_share=busy_s / holder["r"][0], kernel_launches=launches,
+        max_abs_err=max(errs), tolerance={"rtol": _MLP_RTOL, "atol": _MLP_ATOL},
+    ), 3 * n
+
+
+def _http_error(url: str, body: bytes, headers: dict):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST", headers=headers)
+    try:
+        urllib.request.urlopen(req, timeout=30)
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Retry-After"), json.loads(e.read().decode())
+    raise AssertionError(f"serving (c): POST {url} did not fail")
+
+
+def _serving_errors(tft, handle, sent: int):
+    """(c) 429 and 504 under an injected hang, the scrapes, and drain()."""
+    import threading
+    import urllib.request
+
+    from tensorframes_tpu_torch import config
+    from tensorframes_tpu_torch.testing import faults as chaos
+
+    base = f"http://{handle.host}:{handle.port}"
+    client = tft.serving.ServingClient(handle.url)
+    x = {"x": np.ones(2041, np.float32)}
+    body = tft.io.frame_to_ipc_bytes(tft.TensorFrame.from_dict(x))
+    held = []
+
+    def hold():
+        held.append(client.run("bench", x, timeout_s=30.0))
+
+    def wait_for(cond, what):
+        deadline = time.monotonic() + 30.0
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"serving (c): timed out waiting for {what}")
+            time.sleep(0.01)
+
+    with config.override(serve_queue_limit=1):
+        with chaos.inject(rate=1.0, seed=1, fault="hang", delay_s=3.0, max_faults=1) as plan:
+            threads = [threading.Thread(target=hold)]
+            threads[0].start()
+            wait_for(lambda: plan.injected == 1, "the lane's dispatcher to enter the hang")
+            threads.append(threading.Thread(target=hold))
+            threads[1].start()
+            wait_for(lambda: tft.serving.batcher().pending() == 1, "the second request to queue")
+            code, retry_after, payload = _http_error(
+                handle.url + "/bench", body, {"X-TFS-Timeout-S": "30"}
+            )
+            for t in threads:
+                t.join(timeout=60)
+    if code != 429 or payload["error"] != "OverloadError" or int(retry_after) < 1:
+        raise AssertionError(f"serving (c): expected 429 + Retry-After, got {code} {retry_after}")
+    if len(held) != 2:
+        raise AssertionError("serving (c): the held requests did not finish")
+
+    budget = 0.3
+    t0 = time.perf_counter()
+    with chaos.inject(rate=1.0, seed=1, fault="hang", delay_s=30.0):
+        try:
+            client.run("bench", x, timeout_s=budget)
+            raise AssertionError("serving (c): a hung request did not time out")
+        except tft.DeadlineExceeded:
+            pass
+    deadline_s = time.perf_counter() - t0
+    if deadline_s > budget + 3.0:
+        raise AssertionError(f"serving (c): the 504 took {deadline_s:.2f} s for a {budget} s budget")
+    sent += 4
+
+    metrics = urllib.request.urlopen(base + "/metrics", timeout=30).read().decode()
+    served = sum(
+        float(line.rsplit(" ", 1)[1])
+        for line in metrics.splitlines() if line.startswith("tfs_serve_requests{")
+    )
+    if served != sent:
+        raise AssertionError(f"serving (c): /metrics counts {served} requests, {sent} were sent")
+    health = json.loads(urllib.request.urlopen(base + "/healthz", timeout=30).read())
+    rows = health["devices"]
+    name = torch.cuda.get_device_name(0)
+    if health["status"] != "ok" or [r["device"] for r in rows][:1] != ["cuda:0"] \
+            or rows[0]["device_kind"] != name:
+        raise AssertionError(f"serving (c): /healthz says {health}")
+    trace = json.loads(urllib.request.urlopen(base + "/trace", timeout=30).read())
+    traced = sum(1 for e in trace["traceEvents"] if e["cat"] == "verb" and "request" in e["args"])
+    if not traced:
+        raise AssertionError("serving (c): no verb span in /trace carries a request id")
+
+    acct = tft.serving.drain(timeout_s=30.0)
+    try:
+        urllib.request.urlopen(base + "/healthz", timeout=5)
+        raise AssertionError("serving (c): the port still answers after drain()")
+    except OSError:
+        pass
+    return dict(
+        overload_status=code, retry_after=retry_after, deadline_status=504,
+        deadline_budget_s=budget, deadline_seconds=deadline_s, metrics_serve_requests=served,
+        healthz_status=health["status"], healthz_devices=rows, trace_verb_spans_with_request=traced,
+        drained=acct["drained"], stopped_server=acct["stopped_server"],
+    )
+
+
+def phase_serving(tft, clients: int = 8, requests: int = 48, rows: int = 2048,
+                  max_batch_rows: int = 16_384, mlp_per_client: int = 16,
+                  mlp_rows: int = 2048) -> None:
+    """Phase 15: the serving runtime on the card, through `ServingClient`
+    over loopback HTTP: (a) `serving_bench.py`'s batchable endpoint, (b)
+    BASELINE config 3's MLP, which dispatches inline, (c) the error paths,
+    the scrapes and a drain."""
+    from tensorframes_tpu_torch.utils import telemetry
+
+    tft.serving.reset()
+    telemetry.reset()
+    t0 = time.perf_counter()
+    handle = tft.serving.serve(port=0)
+    try:
+        batched, sent_a = _serving_batched(tft, handle.url, clients, requests, rows, max_batch_rows)
+        mlp, sent_b = _serving_mlp(tft, handle.url, clients, mlp_per_client, mlp_rows)
+        errors = _serving_errors(tft, handle, sent_a + sent_b)
+    finally:
+        tft.serving.reset()
+        telemetry.shutdown()
+    _emit(
+        "serving", batched=batched, mlp=mlp, error_paths=errors,
+        seconds=time.perf_counter() - t0,
+    )
+
+
 def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int) -> float:
     from tensorframes_tpu_torch.models import TransformerLM
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention_reference
@@ -2407,11 +2754,13 @@ def main() -> int:
     phase_streaming(tft)
     phase_lazy_and_spark(tft)
     phase_training_and_moe(tft, cfg)
+    phase_serving(tft)
     if flash_attention.launches:
         raise AssertionError(
             f"the verb, aggregate, k-means, Inception, control-flow, freezing, "
-            f"frame-breadth, streaming, lazy-plan and training phases launched flash_attention "
-            f"{flash_attention.launches} times; none of their graphs holds attention"
+            f"frame-breadth, streaming, lazy-plan, training and serving phases launched "
+            f"flash_attention {flash_attention.launches} times; none of their graphs holds "
+            f"attention"
         )
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)
     launches = flash_attention.launches

@@ -39,6 +39,15 @@ steps (`train_step`) or any `torch.optim` optimizer (`make_train_step`),
 parameters in the JAX package's npz layouts. The verbs run under
 `torch.no_grad()`, so their outputs can feed training.
 
+Serving (`serving`): ``tft.serving.register(name, fetches, schema,
+device=...)`` makes a program an endpoint, ``tft.serving.serve(port=0)``
+mounts it on the process HTTP server (which also serves /metrics, /healthz
+and /trace), and ``ServingClient(url).run(...)`` calls it over Arrow IPC;
+concurrent requests to a row-local endpoint coalesce into one dispatch.
+The flight recorder (`runtime.blackbox`, ``tft.incidents()``) keeps a
+bundle per typed fault. Setting ``TFS_TELEMETRY_PORT`` starts the HTTP
+server at import.
+
 Float32 matrix products run in full float32: TF32 is turned off here for
 cuBLAS and cuDNN, because the parity bars against the JAX package assume
 it.
@@ -52,6 +61,7 @@ _torch.backends.cudnn.allow_tf32 = False
 from . import config  # noqa: E402
 from . import ingest  # noqa: E402
 from . import io  # noqa: E402
+from . import serving  # noqa: E402
 from .api import (  # noqa: E402
     GroupedFrame,
     aggregate,
@@ -86,7 +96,13 @@ from .runtime.deadline import (  # noqa: E402
     OverloadError,
     deadline_scope,
 )
+from .runtime.blackbox import incidents  # noqa: E402
 from .schema import ColumnInfo, FrameInfo, ScalarType, Shape, Unknown  # noqa: E402
+from .utils import telemetry  # noqa: E402
+
+# the telemetry HTTP endpoint starts here only when config.telemetry_port
+# (TFS_TELEMETRY_PORT) is set
+telemetry.maybe_serve()
 
 __version__ = "0.1.0"
 
@@ -120,6 +136,7 @@ __all__ = [
     "explain",
     "explain_detailed",
     "group_by",
+    "incidents",
     "ingest",
     "io",
     "lazy",
@@ -131,5 +148,7 @@ __all__ = [
     "reduce_rows",
     "row",
     "scan",
+    "serving",
     "stream_dataset",
+    "telemetry",
 ]

@@ -9,9 +9,11 @@ the JAX package's: `get`, `update`, `override`, pin tracking
 (`explicit_keys` / `is_explicit`), `default_value`, and env seeding through
 the ``_env_*`` helpers. The port carries only the knobs its own code reads
 (the streaming reduce, the ingest pipeline, durable checkpoints, the fault
-layer, deadlines and admission, telemetry, the numerics flag, the lazy
-plans and per-row vectorization), each with the JAX package's name,
-``TFS_*`` env var and default.
+layer, deadlines and admission, telemetry and its HTTP endpoint, the
+numerics flag, the lazy plans, per-row vectorization, the serving
+runtime's bucket ladder and batching lanes, the materialization cache and
+the flight recorder), each with the JAX package's name, ``TFS_*`` env var
+and default.
 
 Pin tracking: every knob set EXPLICITLY — through `update()`, inside an
 `override()` scope, or seeded from a well-formed ``TFS_*`` env var at
@@ -78,6 +80,33 @@ def _env_float(var: str, default: float, field: str,
         return default  # malformed env never breaks the import
     _ENV_SEEDED.add(field)
     return v if minimum is None else max(minimum, v)
+
+
+def _env_str(var: str, default: str, field: str) -> str:
+    raw = os.environ.get(var)
+    if raw is None or raw == "":
+        return default
+    _ENV_SEEDED.add(field)
+    return raw
+
+
+def _env_histogram_buckets():
+    """Seed ``histogram_buckets`` from TFS_HISTOGRAM_BUCKETS (a JSON dict:
+    family or metric name -> ascending boundary list); malformed JSON reads
+    as None (the built-in ladders)."""
+    import json
+
+    raw = os.environ.get("TFS_HISTOGRAM_BUCKETS", "")
+    if not raw:
+        return None
+    try:
+        val = json.loads(raw)
+    except Exception:
+        return None
+    if not isinstance(val, dict):
+        return None
+    _ENV_SEEDED.add("histogram_buckets")
+    return val
 
 
 @dataclasses.dataclass
@@ -238,6 +267,135 @@ class Config:
         default_factory=lambda: _env_float(
             "TFS_PLAN_SELECTIVITY_DEFAULT", 0.5,
             "plan_selectivity_default", minimum=0.0,
+        )
+    )
+    # Bucket-ladder geometry (`shape_policy`): rung k holds
+    # min * growth^k rows. The serving batcher pads every coalesced
+    # dispatch to a rung; the port's verbs do not bucket.
+    shape_bucket_growth: float = dataclasses.field(
+        default_factory=lambda: _env_float(
+            "TFS_SHAPE_BUCKET_GROWTH", 2.0, "shape_bucket_growth",
+            minimum=1.05,
+        )
+    )
+    shape_bucket_min: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_SHAPE_BUCKET_MIN", 8, "shape_bucket_min", minimum=1
+        )
+    )
+    # Materialization cache (`runtime.materialize`): byte budget of the
+    # content-keyed result cache; 0 (the default) turns it off — no
+    # files written.
+    materialize_cache_bytes: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_MATERIALIZE_CACHE_BYTES", 0, "materialize_cache_bytes",
+            minimum=0,
+        )
+    )
+    # Its directory: empty = a process-private temp directory made on
+    # first store.
+    materialize_cache_dir: str = dataclasses.field(
+        default_factory=lambda: _env_str(
+            "TFS_MATERIALIZE_CACHE_DIR", "", "materialize_cache_dir"
+        )
+    )
+    # Telemetry HTTP endpoint (`utils.telemetry_http`): 0 = off; set, the
+    # package import starts the server. No auth: it binds localhost
+    # unless telemetry_host says otherwise.
+    telemetry_port: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_TELEMETRY_PORT", 0, "telemetry_port"
+        )
+    )
+    telemetry_host: str = dataclasses.field(
+        default_factory=lambda: _env_str(
+            "TFS_TELEMETRY_HOST", "127.0.0.1", "telemetry_host"
+        )
+    )
+    # Histogram bucket overrides by family ("seconds" | "rows" | "bytes"
+    # | "fraction") or exact metric name: ascending float lists. Applies
+    # to series created after the change.
+    histogram_buckets: Optional[dict] = dataclasses.field(
+        default_factory=_env_histogram_buckets
+    )
+    # Flight recorder (`runtime.blackbox`): armed by default; a typed
+    # fault escaping the runtime writes an incident bundle.
+    incident_capture: bool = dataclasses.field(
+        default_factory=lambda: _env_bool(
+            "TFS_INCIDENT_CAPTURE", True, "incident_capture"
+        )
+    )
+    # Bundle directory: empty = a process-private temp directory made on
+    # first capture.
+    incident_dir: str = dataclasses.field(
+        default_factory=lambda: _env_str(
+            "TFS_INCIDENT_DIR", "", "incident_dir"
+        )
+    )
+    # Trailing span window a bundle keeps, seconds.
+    incident_window_s: float = dataclasses.field(
+        default_factory=lambda: _env_float(
+            "TFS_INCIDENT_WINDOW_S", 60.0, "incident_window_s",
+            minimum=0.0,
+        )
+    )
+    # Bundle-count budget of the store (0 = no count bound).
+    incident_max_bundles: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_INCIDENT_MAX_BUNDLES", 32, "incident_max_bundles",
+            minimum=0,
+        )
+    )
+    # Byte budget of the store; 0 is a real zero-byte quota (every
+    # capture is suppressed), not "unlimited".
+    incident_max_bytes: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_INCIDENT_MAX_BYTES", 67108864, "incident_max_bytes",
+            minimum=0,
+        )
+    )
+    # A repeat of one incident fingerprint within this window is counted
+    # as suppressed instead of written (0 = no dedup).
+    incident_rate_limit_s: float = dataclasses.field(
+        default_factory=lambda: _env_float(
+            "TFS_INCIDENT_RATE_LIMIT_S", 30.0, "incident_rate_limit_s",
+            minimum=0.0,
+        )
+    )
+    # Serving micro-batcher (`serving.batcher`): how long a lane holds an
+    # open batch, closing early on an exact ladder rung or at
+    # serve_max_batch_rows. 0 = no coalescing (every request inline).
+    serve_batch_window_ms: float = dataclasses.field(
+        default_factory=lambda: _env_float(
+            "TFS_SERVE_BATCH_WINDOW_MS", 5.0, "serve_batch_window_ms"
+        )
+    )
+    # Ceiling of one coalesced dispatch and the top of the ladder
+    # `serving.register(warm=True)` runs.
+    serve_max_batch_rows: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_SERVE_MAX_BATCH_ROWS", 4096, "serve_max_batch_rows"
+        )
+    )
+    # Requests queued per batching lane before arrivals shed with a typed
+    # OverloadError (HTTP 429). 0 = unlimited.
+    serve_queue_limit: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_SERVE_QUEUE_LIMIT", 256, "serve_queue_limit"
+        )
+    )
+    # Budget of a served request that sends no X-TFS-Timeout-S header: a
+    # serving request is never unbounded.
+    serve_default_timeout_s: float = dataclasses.field(
+        default_factory=lambda: _env_float(
+            "TFS_SERVE_DEFAULT_TIMEOUT_S", 30.0, "serve_default_timeout_s"
+        )
+    )
+    # Run every ladder rung up to serve_max_batch_rows at registration
+    # (batchable endpoints only).
+    serve_warm_compile: bool = dataclasses.field(
+        default_factory=lambda: _env_bool(
+            "TFS_SERVE_WARM_COMPILE", True, "serve_warm_compile"
         )
     )
 

@@ -114,6 +114,18 @@ class CheckpointError(RuntimeError):
         self.kind = kind
 
 
+def _record_incident(e: "CheckpointError") -> None:
+    """Hand a commit/load failure to the flight recorder. A failing
+    incident-bundle commit cannot recurse: the recorder holds its
+    reentrancy guard across its own store I/O."""
+    try:
+        from . import blackbox as _blackbox
+
+        _blackbox.capture("checkpoint", e)
+    except Exception:
+        pass  # the recorder must never mask the checkpoint fault
+
+
 # ---------------------------------------------------------------------------
 # process-wide accounting (reports + test surface)
 # ---------------------------------------------------------------------------
@@ -270,11 +282,13 @@ class CheckpointStore:
                 os.unlink(tmp)
             except OSError:
                 pass
-            raise CheckpointError(
+            err = CheckpointError(
                 f"checkpoint commit to {self.path!r} failed: "
                 f"{type(e).__name__}: {e}",
                 path=self.path,
-            ) from e
+            )
+            _record_incident(err)
+            raise err from e
         # best-effort directory fsync so the rename itself is durable
         try:
             dfd = os.open(os.path.dirname(self.path) or ".", os.O_RDONLY)
@@ -300,6 +314,13 @@ class CheckpointStore:
         checksum violation and kind ``drift`` (field
         ``schema_version``) for a manifest written by a different
         schema generation."""
+        try:
+            return self._load_verified()
+        except CheckpointError as e:
+            _record_incident(e)
+            raise
+
+    def _load_verified(self) -> Tuple[Dict, bytes]:
         try:
             with open(self.path, "rb") as f:
                 blob = f.read()

@@ -575,6 +575,17 @@ def _effective_deadline(
     return mine.tightened(inherited)
 
 
+def _blackbox_capture(exc: BaseException, verb: str) -> None:
+    """Hand an escaping fault to the flight recorder; best-effort (even
+    its import must not mask the caller's typed fault)."""
+    try:
+        from . import blackbox as _blackbox
+
+        _blackbox.capture_escape(exc, verb=verb)
+    except Exception:
+        pass  # recorder failures must never replace the escaping fault
+
+
 @contextlib.contextmanager
 def verb_scope(verb: str, timeout_s: Optional[float] = None):
     """One verb call's deadline/cancellation/admission envelope.
@@ -603,11 +614,23 @@ def verb_scope(verb: str, timeout_s: Optional[float] = None):
     release = None
     atok = None
     if not _ADMITTED.get():
-        release = _controller.admit(verb, scope)
+        try:
+            release = _controller.admit(verb, scope)
+        except (OverloadError, DeadlineExceeded, Cancelled) as e:
+            # the shed escapes with the controller lock already released:
+            # the flight recorder does file I/O and must not run under it
+            _blackbox_capture(e, verb)
+            raise
         atok = _ADMITTED.set(True)
     tok = _SCOPE.set(scope)
     try:
         yield scope
+    except BaseException as e:
+        if atok is not None:
+            # the unit-of-load boundary: a typed fault crossing it
+            # escapes the runtime, the flight recorder's moment
+            _blackbox_capture(e, verb)
+        raise
     finally:
         _SCOPE.reset(tok)
         if atok is not None:
@@ -650,7 +673,8 @@ def deadline_entry(verb: str):
     """Decorator threading ``timeout_s=`` into a verb: pops the kwarg,
     enters `verb_scope` around the call. Applied to `api.map_blocks`,
     `api.map_rows`, `api.reduce_blocks` and
-    `streaming.reduce_blocks_stream`. Each call's wall time feeds the
+    `streaming.reduce_blocks_stream`. Each call is one ``verb`` span (which
+    carries the ambient serving request id), and its wall time feeds the
     ``verb_seconds{verb=}`` histogram (when telemetry is on), which the
     admission controller's retry-after hint reads."""
 
@@ -661,8 +685,9 @@ def deadline_entry(verb: str):
 
             t0 = time.perf_counter()
             try:
-                with verb_scope(verb, timeout_s=timeout_s):
-                    return fn(*args, **kwargs)
+                with _tele.span(verb, kind="verb"):
+                    with verb_scope(verb, timeout_s=timeout_s):
+                        return fn(*args, **kwargs)
             finally:
                 if _tele.enabled():
                     _tele.histogram_observe(

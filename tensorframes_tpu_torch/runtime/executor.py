@@ -17,7 +17,18 @@ import torch
 from ..graph.ir import Graph
 from ..ops.lowering import build_callable
 
-__all__ = ["Executor", "default_executor"]
+__all__ = ["Executor", "default_executor", "set_fault_injector"]
+
+# Fault-injection seam (`testing.faults.inject`): when installed,
+# ``hook(fn, key) -> fn`` wraps every callable `Executor.cached` hands out
+# (the one boundary every dispatch crosses), on the way OUT of the cache,
+# so the cached callable itself is never poisoned. None = production path.
+_fault_injector = None
+
+
+def set_fault_injector(hook) -> None:
+    global _fault_injector
+    _fault_injector = hook
 
 
 class Executor:
@@ -45,6 +56,12 @@ class Executor:
         """``kind`` distinguishes execution styles of one graph (a block
         call, a per-row vmap)."""
         key = (kind, graph.fingerprint(), tuple(fetches), tuple(feed_names), str(device))
+        fn = self._lookup(key, make)
+        if _fault_injector is not None:
+            fn = _fault_injector(fn, key)
+        return fn
+
+    def _lookup(self, key: Tuple, make: Callable[[], Callable]) -> Callable:
         with self._lock:
             fn = self._cache.get(key)
             if fn is not None:

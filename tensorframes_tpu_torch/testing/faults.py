@@ -1,7 +1,23 @@
-"""Deterministic fault injection at the ingest pipeline's stage seam.
+"""Deterministic fault injection at the executor and ingest-stage seams.
 
-The PyTorch counterpart of the stage half of
-`tensorframes_tpu/testing/faults.py`: `inject_stage` installs a
+The PyTorch counterpart of `tensorframes_tpu/testing/faults.py`.
+
+`inject` installs a `FaultPlan` on `runtime.executor.set_fault_injector`:
+every callable `Executor.cached` hands out is wrapped, and every call of
+it (one block dispatch, a combine, a per-row call) draws a seeded verdict
+that may raise a classified `InjectedFault` or wedge the dispatch for
+``delay_s`` (``fault="hang"``, the stand-in for a stuck card that the
+deadline and overload tests use). Filters compose: ``rate``/``nth``,
+``kind`` (cache-kind prefix), ``program`` (graph-fingerprint prefix),
+``device`` (the label, ``cuda:0`` / ``cpu:0``, of the first tensor
+argument) and ``max_faults``::
+
+    from tensorframes_tpu_torch.testing import faults as chaos
+
+    with chaos.inject(nth=[0], fault="hang", delay_s=30.0):
+        tft.map_blocks(z, df, timeout_s=0.5)   # DeadlineExceeded
+
+`inject_stage` installs a
 `StageFaultPlan` on `ingest.pipeline.set_stage_fault_injector`, and every
 attempt of the targeted stage draws a seeded verdict that may raise a
 classified `InjectedFault` (``tfs_fault_class`` stamped, so
@@ -16,9 +32,8 @@ for ``delay_s`` (``fault="hang"``). Usage::
 
 Determinism: attempt ``ordinal`` fires when it is in ``nth``, or when
 ``random.Random(seed * PRIME + ordinal)`` draws under ``rate``. A retried
-chunk is a new ordinal, so an ``nth`` fault fires once.
-
-The executor-seam ``inject`` of the JAX module is not in the port yet.
+dispatch or chunk is a new ordinal, so an ``nth`` fault fires once. One
+plan per seam at a time: nesting raises.
 """
 
 from __future__ import annotations
@@ -29,9 +44,13 @@ import threading
 import time
 from typing import Iterable, Optional, Sequence
 
+from ..runtime import executor as _exmod
 from ..runtime import faults as _rt_faults
 
-__all__ = ["InjectedFault", "StageFaultPlan", "inject_stage", "HANG"]
+__all__ = [
+    "InjectedFault", "FaultPlan", "inject",
+    "StageFaultPlan", "inject_stage", "HANG",
+]
 
 _PRIME = 1_000_003
 
@@ -75,6 +94,153 @@ class InjectedFault(RuntimeError):
         self.tfs_fault_class = fault_class
         self.ordinal = ordinal
         self.kind = kind
+
+
+def _args_device_label(args) -> Optional[str]:
+    """``type:index`` of the first tensor argument's device."""
+    import torch
+
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return f"{a.device.type}:{a.device.index or 0}"
+    return None
+
+
+class FaultPlan:
+    """One active executor-seam injection campaign (thread-safe dispatch
+    counter and verdict bookkeeping)."""
+
+    def __init__(
+        self,
+        rate: float = 0.0,
+        seed: int = 0,
+        fault: str = _rt_faults.TRANSIENT,
+        nth: Optional[Iterable[int]] = None,
+        kind: Optional[str] = None,
+        program: Optional[str] = None,
+        device: Optional[str] = None,
+        max_faults: Optional[int] = None,
+        delay_s: float = 0.05,
+    ):
+        if fault not in _FAULT_CLASSES:
+            raise ValueError(f"unknown fault class {fault!r}")
+        self.rate = float(rate)
+        self.seed = int(seed)
+        self.fault = fault
+        self.delay_s = float(delay_s)
+        self.nth = None if nth is None else {int(n) for n in nth}
+        self.kind = kind
+        self.program = program
+        self.device = device
+        self.max_faults = max_faults
+        self._lock = threading.Lock()
+        self._ordinal = 0
+        self._fired: set = set()
+        self.injected = 0
+        self.dispatches = 0
+        self.faulted_ordinals: list = []
+        self.faulted_devices: list = []
+
+    def _next_ordinal(self) -> int:
+        with self._lock:
+            o = self._ordinal
+            self._ordinal += 1
+            self.dispatches += 1
+            return o
+
+    def _ordinal_fires(self, ordinal: int) -> bool:
+        if self.nth is not None:
+            return ordinal in self.nth and ordinal not in self._fired
+        if self.rate <= 0.0:
+            return False
+        return random.Random(self.seed * _PRIME + ordinal).random() < self.rate
+
+    def _should_fire(self, ordinal: int, key, args) -> bool:
+        if self.max_faults is not None and self.injected >= self.max_faults:
+            return False
+        if self.kind is not None and not str(key[0]).startswith(self.kind):
+            return False
+        if self.program is not None and not str(key[1]).startswith(
+            self.program
+        ):
+            return False
+        if not self._ordinal_fires(ordinal):
+            return False
+        if self.device is not None and _args_device_label(args) != self.device:
+            return False
+        return True
+
+    def _hook(self, fn, key):
+        """The `Executor.cached` hook: wraps ``fn`` for this plan."""
+        plan = self
+
+        def wrapper(*args, **kwargs):
+            ordinal = plan._next_ordinal()
+            if plan._should_fire(ordinal, key, args):
+                dev = _args_device_label(args)
+                with plan._lock:
+                    plan._fired.add(ordinal)
+                    plan.injected += 1
+                    plan.faulted_ordinals.append(ordinal)
+                    plan.faulted_devices.append(dev)
+                if plan.fault == HANG:
+                    # a wedge, not an error: sleep cooperatively (the
+                    # verb's deadline raises mid-sleep), then dispatch
+                    _hang_sleep(
+                        plan.delay_s,
+                        f"injected hang (dispatch #{ordinal}, "
+                        f"kind={key[0]!r})",
+                    )
+                    return fn(*args, **kwargs)
+                tag = {
+                    _rt_faults.TRANSIENT: "UNAVAILABLE: injected device loss",
+                    _rt_faults.RESOURCE:
+                        "RESOURCE_EXHAUSTED: injected out of memory",
+                    _rt_faults.DETERMINISTIC: "injected deterministic error",
+                }[plan.fault]
+                raise InjectedFault(
+                    f"{tag} (dispatch #{ordinal}, kind={key[0]!r}"
+                    f"{', device=' + dev if dev else ''})",
+                    plan.fault, ordinal, str(key[0]),
+                )
+            return fn(*args, **kwargs)
+
+        wrapper.__wrapped__ = fn
+        return wrapper
+
+
+@contextlib.contextmanager
+def inject(
+    rate: float = 0.0,
+    seed: int = 0,
+    fault: str = _rt_faults.TRANSIENT,
+    nth: Optional[Sequence[int]] = None,
+    kind: Optional[str] = None,
+    program: Optional[str] = None,
+    device: Optional[str] = None,
+    max_faults: Optional[int] = None,
+    delay_s: float = 0.05,
+):
+    """Install a `FaultPlan` on the executor seam for the enclosed block;
+    yields the plan (``plan.injected`` / ``plan.dispatches`` /
+    ``plan.faulted_ordinals``). One plan at a time: nesting raises, since
+    two plans sharing one ordinal counter would change each other's
+    draws."""
+    if _exmod._fault_injector is not None:
+        raise RuntimeError(
+            "a fault-injection plan is already active; nest-free by "
+            "design (ordinal determinism)"
+        )
+    plan = FaultPlan(
+        rate=rate, seed=seed, fault=fault, nth=nth, kind=kind,
+        program=program, device=device, max_faults=max_faults,
+        delay_s=delay_s,
+    )
+    _exmod.set_fault_injector(plan._hook)
+    try:
+        yield plan
+    finally:
+        _exmod.set_fault_injector(None)
 
 
 class StageFaultPlan:

@@ -219,8 +219,9 @@ def test_import_guard_no_pandas_or_pyarrow():
 
 def test_import_guard_no_jax():
     """Importing the port (and running the verbs, imported graphs with
-    control flow and variables among them) loads neither jax nor any module
-    of the JAX package."""
+    control flow and variables among them, and registering, serving and
+    calling one endpoint) loads neither jax nor any module of the JAX
+    package."""
     code = textwrap.dedent(
         """
         import sys
@@ -256,6 +257,16 @@ def test_import_guard_no_jax():
         import tensorframes_tpu_torch.graph.optimizer
         import tensorframes_tpu_torch.graph.fuse
         import tensorframes_tpu_torch.spark
+        import tensorframes_tpu_torch.serving
+        import tensorframes_tpu_torch.serving.batcher
+        import tensorframes_tpu_torch.serving.client
+        import tensorframes_tpu_torch.serving.registry
+        import tensorframes_tpu_torch.serving.server
+        import tensorframes_tpu_torch.utils.telemetry_http
+        import tensorframes_tpu_torch.runtime.materialize
+        import tensorframes_tpu_torch.runtime.blackbox
+        import tensorframes_tpu_torch.runtime.scheduler
+        import tensorframes_tpu_torch.shape_policy
         df = tft.TensorFrame.from_dict(
             {"x": np.arange(6.0), "k": np.array([0, 1, 0, 1, 2, 2])}, num_blocks=2
         )
@@ -289,6 +300,17 @@ def test_import_guard_no_jax():
         lf = tft.map_blocks((tft.block(lf, "x") * 2.0).named("y"), lf)
         tft.reduce_blocks(tft.dsl.reduce_sum(tft.block(lf, "y", tf_name="y_input")).named("y"), lf)
         df.filter(tft.col("x") > 1.0).group_by("k").agg(s=("sum", "x")).force(device="cpu")
+        xs2 = tft.dsl.placeholder(tft.ScalarType.float32, tft.Shape((None,)), name="x")
+        tft.serving.register(
+            "guard", (xs2 * 2.0 + 1.0).named("y"), {"x": "float32"}, device="cpu",
+            max_batch_rows=16,
+        )
+        handle = tft.serving.serve(port=0)
+        served = tft.serving.ServingClient(handle.url).run(
+            "guard", {"x": np.arange(3, dtype=np.float32)}, timeout_s=30.0
+        )
+        assert served.host_values("y").tolist() == [1.0, 3.0, 5.0]
+        tft.serving.drain(timeout_s=10.0)
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"

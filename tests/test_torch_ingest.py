@@ -490,7 +490,9 @@ class TestHandleLeak:
 # config: every knob the port carries has the JAX package's default and env
 # ---------------------------------------------------------------------------
 
-_ENV_SAMPLES = {int: "7", float: "2.5"}
+# one well-formed non-default env value per knob type (the JSON dict is the
+# histogram_buckets knob, whose default is None)
+_ENV_SAMPLES = {int: "7", float: "2.5", str: "seeded", type(None): '{"seconds": [1.0, 2.0]}'}
 
 
 class TestConfigKnobs:
