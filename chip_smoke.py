@@ -95,16 +95,28 @@ main path through the entry points a user calls:
     rates, latencies and the device's busy share; (c) a 429 with
     ``Retry-After`` and a 504 under an injected hang, the /metrics,
     /healthz and /trace scrapes, and `drain()` freeing the port;
-16. one JSON line listing every kernel with its launches on the main path
-    (phases 3-15), its error and its times;
-17. as the last line, ``{"ok": true, "device": {...}}``.
+16. runtime services: the autotuner over the live profile phase 15 left
+    (the same recommendations twice; a knob pinned through `update()` that
+    `apply` leaves alone); the cost ledger over phase 3's x+3 map (200M
+    rows, 8 blocks) and phase 4's MLP ``map_rows`` (graph route), with
+    every cached program's flops, bytes and footprint, the MLP's flops and
+    the map's bytes against their hand counts and every roofline fraction
+    in (0, 1.05] (execute time from the dispatch spans' CUDA events); the
+    ledger's overhead on the x+3 map (at most 5%); ``/diagnostics`` and
+    ``/profile``; a genuine ``torch.cuda.OutOfMemoryError`` under
+    ``set_per_process_memory_fraction`` that `map_blocks` and
+    `reduce_blocks` survive by splitting the block; and the numerics guard
+    (one host sync a block, ``x / 0.0`` raising);
+17. one JSON line listing every kernel with its launches on the main path
+    (phases 3-16), its error and its times;
+18. as the last line, ``{"ok": true, "device": {...}}``.
 
-Phases 8-15 run after phase 6 and before phase 7. Phases 3-6 and 8-15 run
+Phases 8-16 run after phase 6 and before phase 7. Phases 3-6 and 8-16 run
 no hand-written kernel (their ops are ATen, cuBLAS and cuDNN calls, host
 numpy and the stream's copies; phase 14 trains through the plain
-attention; phase 15 serves graphs of elementwise ops and products), so
-the script checks that the attention kernel's count is still 0 after them
-and counts its launches in phase 7 alone. Phase 15 needs pyarrow (the
+attention; phases 15 and 16 run graphs of elementwise ops and products),
+so the script checks that the attention kernel's count is still 0 after
+them and counts its launches in phase 7 alone. Phase 15 needs pyarrow (the
 serving wire format is Arrow IPC). Phase 12 imports pyarrow for its dataset and durable parts, and
 prints them as skipped where pyarrow is missing; phase 13 needs pyarrow and
 pandas and fails without them. The port factorizes string keys with pandas
@@ -2694,6 +2706,334 @@ def phase_serving(tft, clients: int = 8, requests: int = 48, rows: int = 2048,
     )
 
 
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _runtime_autotune(tft) -> dict:
+    """The autotuner over the live profile phase 15's serving traffic left
+    (taken before this phase resets the telemetry): the same
+    recommendations twice, and a knob pinned through `update()` that
+    `apply` leaves alone."""
+    from tensorframes_tpu_torch.runtime import autotune as at
+
+    first = tft.autotune(apply_recommendations=False)
+    second = tft.autotune(apply_recommendations=False)
+    if first["recommendations"] != second["recommendations"]:
+        raise AssertionError(
+            f"autotune is not deterministic: {first['recommendations']} vs "
+            f"{second['recommendations']}"
+        )
+    knob = "serve_batch_window_ms"
+    value = tft.config.get().serve_batch_window_ms
+    tft.config.update(**{knob: value})  # an operator pin
+    recs = at.recommend() + [
+        at.Recommendation(knob, "config", value, value * 2, "pinned-knob check")
+    ]
+    decisions = at.apply(recs)
+    pinned = [d for d in decisions if d["knob"] == knob and d["scope"] == "config"]
+    if (
+        not pinned or any(d["outcome"] != "skipped:pinned" for d in pinned)
+        or tft.config.get().serve_batch_window_ms != value or knob in tft.config.tuned()
+    ):
+        raise AssertionError(f"apply moved the pinned knob {knob}: {pinned}")
+    tft.config.reset_tuning()
+    return {
+        "recommendations": first["recommendations"],
+        "decisions": [(d["knob"], d["scope"], d["outcome"]) for d in decisions],
+    }
+
+
+def _ledger_workloads(tft, ex, rows: int, blocks: int, mlp_rows: int):
+    """Phase 3's x+3 map and phase 4's MLP map_rows (graph route), each
+    run once to warm the kernels (a first launch loads its module, a first
+    product sets cuBLAS up: neither belongs in a steady-state roofline),
+    then with the ledger and telemetry reset run through the executor
+    ``ex``: the x+3 map twice, the MLP once. Returns the frame, the x+3
+    graph and the MLP's sizes; holds the outputs to their references."""
+    from tensorframes_tpu_torch.models import MLP
+    from tensorframes_tpu_torch.runtime import costmodel
+    from tensorframes_tpu_torch.utils import telemetry
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.rand(rows, device="cuda", generator=gen)
+    df = tft.TensorFrame([tft.Column("x", x)]).repartition(blocks)
+    z = (tft.block(df, "x") + 3.0).named("z")
+
+    sizes = [512, 512, 512, 10]
+    rng = np.random.default_rng(SEED)
+    params = [
+        (
+            (rng.standard_normal((a, b)) * math.sqrt(2.0 / a)).astype(np.float32),
+            (rng.standard_normal(b) * 0.1).astype(np.float32),
+        )
+        for a, b in zip(sizes[:-1], sizes[1:])
+    ]
+    probs = MLP.from_jax_params(params).scoring_graph("features", block=False)
+    feats = torch.rand(mlp_rows, sizes[0], device="cuda", generator=gen)
+    mdf = tft.TensorFrame([tft.Column("features", feats)])
+    tft.map_blocks(z, df)
+    tft.map_rows(probs, mdf)
+    torch.cuda.synchronize()
+    telemetry.reset()
+    costmodel.reset()
+
+    for _ in range(2):
+        out = tft.map_blocks(z, df, executor=ex)
+    if not torch.equal(out.column("z").values, x + 3.0):
+        raise AssertionError("phase 16 map_blocks x+3 disagrees with x + 3")
+    del out
+    got = tft.map_rows(probs, mdf, executor=ex).column("probs").values
+    if tuple(got.shape) != (mlp_rows, sizes[-1]) or not torch.isfinite(got).all():
+        raise AssertionError(f"phase 16 map_rows MLP: bad output {tuple(got.shape)}")
+    torch.cuda.synchronize()
+    return df, z, sizes
+
+
+def _check_ledger(tft, ex, rows: int, blocks: int, mlp_rows: int, sizes) -> dict:
+    """Every cached program has flops, bytes and a footprint; the MLP's
+    flops and the x+3 map's bytes equal their hand counts; every roofline
+    fraction lies in (0, 1.05]."""
+    diag = tft.diagnostics(ex, format="json")
+    costs = {r["program"]: r for r in diag["cost"]["programs"]}
+    kinds = {str(k[1]): k[0] for k in ex.cache_keys()}
+    if set(kinds.values()) != {"block", "vmap-rows"}:
+        raise AssertionError(f"phase 16 cached {sorted(kinds.values())}")
+    rows_out = {}
+    for fp, kind in kinds.items():
+        r = costs[fp]
+        for key in ("flops_per_exec", "bytes_per_exec", "footprint_bytes"):
+            if not r[key]:
+                raise AssertionError(f"program {kind} ({fp}) has no {key}: {r}")
+        for key in ("flops_frac_of_peak", "hbm_frac_of_peak"):
+            if r[key] is None or not 0.0 < r[key] <= 1.05:
+                raise AssertionError(
+                    f"program {kind} ({fp}) {key} = {r[key]}: outside (0, 1.05]"
+                )
+        rows_out[kind] = {
+            "program": fp, "execs": r["execs"], "dispatches": r["dispatches"],
+            "flops_per_exec": r["flops_per_exec"], "bytes_per_exec": r["bytes_per_exec"],
+            "footprint_bytes": r["footprint_bytes"], "execute_s": r["execute_s"],
+            "achieved_tflop_s": r["achieved_flops_s"] / 1e12,
+            "achieved_gb_s": r["achieved_hbm_bytes_s"] / 1e9,
+            "flops_frac_of_peak": r["flops_frac_of_peak"],
+            "hbm_frac_of_peak": r["hbm_frac_of_peak"],
+        }
+    block_rows = rows // blocks
+    if rows_out["block"]["bytes_per_exec"] != 2 * 4 * block_rows:
+        raise AssertionError(
+            f"x+3 bytes/exec {rows_out['block']['bytes_per_exec']} != 2*4*{block_rows}"
+        )
+    if rows_out["block"]["execs"] != 2 * blocks:
+        raise AssertionError(f"x+3 execs {rows_out['block']['execs']} != {2 * blocks}")
+    # per row: the three products at 2 flops a multiply-add; by the
+    # ledger's convention also the bias adds, the ReLUs and the softmax
+    # (4N - 1 over the 10 logits)
+    mm = 2 * sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    elementwise = sum(sizes[1:]) + sum(sizes[1:-1]) + (4 * sizes[-1] - 1)
+    want = mlp_rows * (mm + elementwise)
+    got = rows_out["vmap-rows"]["flops_per_exec"]
+    if abs(got - want) > 0.01 * want:
+        raise AssertionError(f"MLP flops/exec {got} vs 2*rows*(...) + elementwise = {want}")
+    return {
+        "programs": rows_out, "mlp_flops_expected": want,
+        "mlp_matmul_flops": mlp_rows * mm, "peaks": diag["cost"]["peaks"],
+        "memory": diag["memory"],
+    }
+
+
+def _ledger_overhead(tft, df, z, ex, calls: int = 21) -> dict:
+    """x+3 with the ledger and telemetry off, then on: medians of
+    ``calls`` interleaved calls each, after a warm-up each way, the order
+    of the pair alternating so that neither side always runs first. One
+    call takes about 1.4 ms and single calls on the card's host spread by
+    several percent, so 5 calls a side could not tell a 2% overhead from
+    a 7% one. Between the timed calls (outside their windows) the
+    dispatch events are resolved, as `diagnostics` resolves them, so the
+    "on" calls record events from the pool the way a process does once
+    its span ring has filled."""
+    from tensorframes_tpu_torch.utils import telemetry
+
+    off = dict(cost_ledger=False, telemetry=False)
+
+    def timed(on: bool) -> float:
+        if on:
+            return _wall(lambda: tft.map_blocks(z, df, executor=ex))[1]
+        with tft.config.override(**off):
+            return _wall(lambda: tft.map_blocks(z, df, executor=ex))[1]
+
+    timed(False)
+    timed(True)
+    telemetry.resolve_device_times()
+    t_off, t_on = [], []
+    for i in range(calls):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            (t_on if on else t_off).append(timed(on))
+        telemetry.resolve_device_times()
+    off_s, on_s = _median(t_off), _median(t_on)
+    if on_s > 1.05 * off_s:
+        raise AssertionError(
+            f"ledger + telemetry on: {on_s * 1e3:.3f} ms vs off {off_s * 1e3:.3f} ms (> 5%)"
+        )
+    return {"calls": calls, "off_ms": off_s * 1e3, "on_ms": on_s * 1e3,
+            "on_over_off": on_s / off_s,
+            "off_each_ms": [t * 1e3 for t in t_off], "on_each_ms": [t * 1e3 for t in t_on]}
+
+
+def _http_surface(tft) -> dict:
+    """/diagnostics and /profile answer 200 with the same program set; a
+    snapshot survives save -> load."""
+    import tempfile
+    import urllib.request
+
+    from tensorframes_tpu_torch.runtime import profiler
+    from tensorframes_tpu_torch.utils import telemetry
+
+    handle = telemetry.serve(port=0)
+    try:
+        got = {}
+        for route in ("/diagnostics", "/profile"):
+            with urllib.request.urlopen(handle.url + route, timeout=60) as r:
+                if r.status != 200:
+                    raise AssertionError(f"{route} answered {r.status}")
+                got[route] = json.loads(r.read())
+    finally:
+        telemetry.shutdown()
+    ledger = {p["program"] for p in got["/diagnostics"]["cost"]["programs"] if p["execs"]}
+    if ledger != set(got["/profile"]["programs"]):
+        raise AssertionError(
+            f"/diagnostics programs {sorted(ledger)} != /profile {sorted(got['/profile']['programs'])}"
+        )
+    snap = profiler.snapshot(note="phase 16")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "profile.json")
+        snap.save(path)
+        loaded = profiler.load(path)
+    if loaded.to_dict() != json.loads(json.dumps(snap.to_dict())):
+        raise AssertionError("profile save -> load changed the snapshot")
+    return {"programs": sorted(ledger)}
+
+
+def _genuine_oom_split(tft, rows: int) -> dict:
+    """One block whose program needs about 4 blocks of memory (four chained
+    elementwise ops keep their results until the block returns) runs out
+    of memory under a cap of 3.25 blocks above what is live, while each
+    half needs at most 2.5: the verb splits on a real
+    `torch.cuda.OutOfMemoryError` and the result equals the uncapped run.
+    Then the same for `reduce_blocks` of a sum over that transform, which
+    combines the halves by the monoid."""
+    from tensorframes_tpu_torch.runtime import faults
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    x = torch.rand(rows, device="cuda", generator=gen)
+    df = tft.TensorFrame([tft.Column("x", x)])
+    xb = tft.block(df, "x")
+    chain = (((xb + 3.0) * 2.0 - 1.0) * 0.5)
+    zmap = chain.named("z")
+    xin = tft.block(df, "x", tf_name="x_input")
+    zred = tft.dsl.reduce_sum((((xin + 3.0) * 2.0 - 1.0) * 0.5), axes=[0]).named("x")
+    ref = tft.map_blocks(zmap, df).column("z").values
+    torch.cuda.synchronize()
+    block_bytes = rows * 4
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"rows": rows, "block_bytes": block_bytes}
+    for what, run in (
+        ("map_blocks", lambda: tft.map_blocks(zmap, df).column("z").values),
+        ("reduce_blocks", lambda: tft.reduce_blocks(zred, df)),
+    ):
+        faults.reset_ledger()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        cap = base + 3.25 * block_bytes
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            got = run()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        led = faults.ledger_snapshot()
+        snaps = faults.forensics_snapshot()
+        if led["splits"] < 1 or led["resource"] < 1:
+            raise AssertionError(f"{what}: no OOM split under the cap: {led}")
+        if not snaps or not snaps[0]["error"].startswith("OutOfMemoryError"):
+            raise AssertionError(f"{what}: the OOM was not genuine: {snaps[:1]}")
+        dev = snaps[0]["devices"][0] if snaps[0]["devices"] else {}
+        if dev.get("device") != "cuda:0" or not dev.get("bytes_in_use"):
+            raise AssertionError(f"{what}: forensics name no cuda:0 bytes_in_use: {dev}")
+        if what == "map_blocks":
+            if not torch.equal(got, ref):
+                raise AssertionError("OOM-split map_blocks differs from the uncapped run")
+            err = 0.0
+        else:
+            xh = x.cpu().numpy().astype(np.float64)
+            want = float((((xh + 3.0) * 2.0 - 1.0) * 0.5).sum())
+            err = abs(got.item() - want) / abs(want)
+            if err > _SUM_RTOL:
+                raise AssertionError(f"OOM-split reduce_sum rel err {err:.3e} > {_SUM_RTOL}")
+        out[what] = {
+            "cap_bytes": cap, "live_before_bytes": base, "splits": led["splits"],
+            "resource": led["resource"], "decisions": [s["decision"] for s in snaps],
+            "bytes_in_use_at_fault": dev["bytes_in_use"], "rel_err": err,
+        }
+        del got
+    return out
+
+
+def _numerics_guard(tft, df, z, ex, blocks: int, calls: int = 3) -> dict:
+    """check_numerics on the 200M-row x+3 map: one host sync a block, and
+    its time on and off; ``x / 0.0`` raises naming the block and fetch."""
+    from tensorframes_tpu_torch.utils.profiling import reset_stats, stats
+
+    t_off = [_wall(lambda: tft.map_blocks(z, df, executor=ex))[1] for _ in range(calls)]
+    with tft.config.override(check_numerics=True):
+        tft.map_blocks(z, df, executor=ex)
+        reset_stats()
+        tft.map_blocks(z, df, executor=ex)
+        syncs = stats().get("host_sync", 0)
+        t_on = [_wall(lambda: tft.map_blocks(z, df, executor=ex))[1] for _ in range(calls)]
+        bad = (tft.block(df, "x") / 0.0).named("bad")
+        try:
+            tft.map_blocks(bad, df, executor=ex)
+        except FloatingPointError as e:
+            msg = str(e)
+        else:
+            raise AssertionError("x / 0.0 under check_numerics did not raise")
+    if syncs != blocks:
+        raise AssertionError(f"check_numerics cost {syncs} host syncs for {blocks} blocks")
+    if not msg.startswith("map_blocks block 0: fetch 'bad' contains"):
+        raise AssertionError(f"numerics message: {msg}")
+    return {"host_syncs": syncs, "off_ms": _median(t_off) * 1e3,
+            "on_ms": _median(t_on) * 1e3, "message": msg}
+
+
+def phase_runtime_services(tft, rows: int = 200_000_000, blocks: int = 8,
+                           mlp_rows: int = 1_000_000, oom_rows: int = 1 << 28) -> None:
+    """Phase 16: the cost ledger and its roofline on phase 3's x+3 map and
+    phase 4's MLP, the ledger's overhead, /diagnostics and /profile, the
+    autotuner over phase 15's serving profile, a genuine OOM split, and
+    the numerics guard."""
+    from tensorframes_tpu_torch.runtime.executor import Executor
+
+    t0 = time.perf_counter()
+    autotune = _runtime_autotune(tft)
+    ex = Executor()
+    df, z, sizes = _ledger_workloads(tft, ex, rows, blocks, mlp_rows)
+    ledger = _check_ledger(tft, ex, rows, blocks, mlp_rows, sizes)
+    http = _http_surface(tft)
+    overhead = _ledger_overhead(tft, df, z, ex)
+    numerics = _numerics_guard(tft, df, z, ex, blocks)
+    del df
+    torch.cuda.empty_cache()
+    oom = _genuine_oom_split(tft, oom_rows)
+    torch.cuda.empty_cache()
+    _emit(
+        "runtime_services", rows=rows, blocks=blocks, mlp_rows=mlp_rows,
+        ledger=ledger, overhead=overhead, http=http, autotune=autotune,
+        oom_split=oom, numerics=numerics, seconds=time.perf_counter() - t0,
+    )
+
+
 def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int) -> float:
     from tensorframes_tpu_torch.models import TransformerLM
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention_reference
@@ -2755,12 +3095,13 @@ def main() -> int:
     phase_lazy_and_spark(tft)
     phase_training_and_moe(tft, cfg)
     phase_serving(tft)
+    phase_runtime_services(tft)
     if flash_attention.launches:
         raise AssertionError(
             f"the verb, aggregate, k-means, Inception, control-flow, freezing, "
-            f"frame-breadth, streaming, lazy-plan, training and serving phases launched "
-            f"flash_attention {flash_attention.launches} times; none of their graphs holds "
-            f"attention"
+            f"frame-breadth, streaming, lazy-plan, training, serving and runtime-services "
+            f"phases launched flash_attention {flash_attention.launches} times; none of "
+            f"their graphs holds attention"
         )
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)
     launches = flash_attention.launches

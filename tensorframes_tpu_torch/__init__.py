@@ -48,6 +48,18 @@ The flight recorder (`runtime.blackbox`, ``tft.incidents()``) keeps a
 bundle per typed fault. Setting ``TFS_TELEMETRY_PORT`` starts the HTTP
 server at import.
 
+Runtime services: the cost ledger (`runtime.costmodel`) counts every cached
+program's flops and bytes on the meta device at its first dispatch and its
+executions at every dispatch; ``tft.diagnostics()`` joins it with the
+dispatch spans (CUDA event time on the card) into achieved-vs-peak rates
+per program, with memory, OOM forensics and the fault ledger;
+``tft.explain_analyze(lazy_frame)`` runs a plan and reports the same per
+stage. The verbs retry transient errors and split blocks that ran out of
+memory (`runtime.faults`). ``tft.profile.snapshot()`` captures a
+`WorkloadProfile` (save / load / merge / diff, in the JAX package's
+schema), and ``tft.autotune()`` recommends and applies knob changes from
+one; ``config.autotune`` runs that loop in the background.
+
 Float32 matrix products run in full float32: TF32 is turned off here for
 cuBLAS and cuDNN, because the parity bars against the JAX package assume
 it.
@@ -82,10 +94,10 @@ from .api import (  # noqa: E402
     scan,
 )
 from .frame import Column, TensorFrame  # noqa: E402
-from .graph import Graph  # noqa: E402
+from .graph import Graph, ShapeHints  # noqa: E402
 from .graph import builder as dsl  # noqa: E402
 from .graph.plan import col  # noqa: E402
-from .lazy import LazyFrame, RelationalFrame, lazy  # noqa: E402
+from .lazy import LazyFrame, RelationalFrame, explain_analyze, lazy  # noqa: E402
 from .models import InceptionLite  # noqa: E402
 from .io import stream_dataset  # noqa: E402
 from .runtime import Executor  # noqa: E402
@@ -97,12 +109,19 @@ from .runtime.deadline import (  # noqa: E402
     deadline_scope,
 )
 from .runtime.blackbox import incidents  # noqa: E402
+from .runtime import profiler as profile  # noqa: E402
+from .runtime import autotune as _autotune_mod  # noqa: E402
+from .runtime.autotune import autotune  # noqa: E402
 from .schema import ColumnInfo, FrameInfo, ScalarType, Shape, Unknown  # noqa: E402
 from .utils import telemetry  # noqa: E402
+from .utils.telemetry import diagnostics  # noqa: E402
 
 # the telemetry HTTP endpoint starts here only when config.telemetry_port
 # (TFS_TELEMETRY_PORT) is set
 telemetry.maybe_serve()
+# the background autotuner starts here only when config.autotune
+# (TFS_AUTOTUNE) is on
+_autotune_mod.maybe_start()
 
 __version__ = "0.1.0"
 
@@ -122,18 +141,22 @@ __all__ = [
     "RelationalFrame",
     "ScalarType",
     "Shape",
+    "ShapeHints",
     "TensorFrame",
     "Unknown",
     "aggregate",
     "analyze",
     "append_shape",
+    "autotune",
     "block",
     "block_to_row",
     "col",
     "config",
     "deadline_scope",
+    "diagnostics",
     "dsl",
     "explain",
+    "explain_analyze",
     "explain_detailed",
     "group_by",
     "incidents",
@@ -143,6 +166,7 @@ __all__ = [
     "map_blocks",
     "map_rows",
     "print_schema",
+    "profile",
     "reduce_blocks",
     "reduce_blocks_stream",
     "reduce_rows",

@@ -32,7 +32,9 @@ from .graph.analysis import GraphSummary
 from .graph.ir import Graph, base_name as _base
 from .ops.lowering import build_callable
 from .ops.standard import segment_reduce
+from .runtime import faults as _flt
 from .schema import ScalarType
+from .utils import telemetry as _tele
 
 
 def _factorized(grouped, device: torch.device):
@@ -218,20 +220,36 @@ def _aggregate_segment(
     roots = [graph[b].data_inputs()[0][0] for b in bases]
     transform = ex.callable_for(graph, roots, feed_names, device)
     feeds = [as_tensor(frame.column(mapping[n]).values, device) for n in feed_names]
-    outs = transform(*feeds)
-    counts = (
-        torch.bincount(gid, minlength=num_groups)
-        if "mean" in combiners.values()
-        else None
+
+    def segment():
+        outs = transform(*feeds)
+        counts = (
+            torch.bincount(gid, minlength=num_groups)
+            if "mean" in combiners.values()
+            else None
+        )
+        results: Dict[str, torch.Tensor] = {}
+        for b, o in zip(bases, outs):
+            comb = combiners[b]
+            if comb == "mean":
+                s = segment_reduce(o, gid, num_groups, "sum")
+                results[b] = s / counts.to(o.dtype).reshape((-1,) + (1,) * (s.dim() - 1))
+            else:
+                results[b] = segment_reduce(o, gid, num_groups, _SEGMENT_OF[comb])
+        return results
+
+    def thunk():
+        with _tele.dispatch_span(
+            "aggregate.segment", program=graph.fingerprint(), rows=frame.nrows,
+            groups=num_groups, torch_device=device,
+        ):
+            return segment()
+
+    # one whole-frame dispatch: no block to split, so a transient retry only
+    results = _flt.scope("aggregate").dispatch(thunk, what="aggregate segment dispatch")
+    _flt.maybe_check_numerics(
+        bases, [results[b] for b in bases], "aggregate (segment fast path)"
     )
-    results: Dict[str, torch.Tensor] = {}
-    for b, o in zip(bases, outs):
-        comb = combiners[b]
-        if comb == "mean":
-            s = segment_reduce(o, gid, num_groups, "sum")
-            results[b] = s / counts.to(o.dtype).reshape((-1,) + (1,) * (s.dim() - 1))
-        else:
-            results[b] = segment_reduce(o, gid, num_groups, _SEGMENT_OF[comb])
     return _keyed_output(key_out, results, bases)
 
 
@@ -267,14 +285,26 @@ def _aggregate_exact(
     else:
         vfn = ex.cached(
             "vmap-agg", graph, fetch_list, feed_names, device,
-            lambda: torch.func.vmap(build_callable(graph, fetch_list, feed_names, device)),
+            lambda d: torch.func.vmap(build_callable(graph, fetch_list, feed_names, d)),
         )
     bases = [_base(f) for f in fetch_list]
     results: Dict[str, Optional[torch.Tensor]] = {b: None for b in bases}
+    fscope = _flt.scope("aggregate")
+    fp = graph.fingerprint()
     for size in np.unique(counts[counts > 0]):
         gids = np.nonzero(counts == size)[0]
         rows = torch.from_numpy(starts[gids][:, None] + np.arange(size)[None, :]).to(device)
-        outs = vfn(*[col_data[n][rows] for n in feed_names])  # (g, size, *cell) each
+        feeds = [col_data[n][rows] for n in feed_names]  # (g, size, *cell) each
+
+        def thunk(feeds=feeds, size=size, g=len(gids)):
+            with _tele.dispatch_span(
+                "aggregate.size", program=fp, rows=int(size) * g, size=int(size),
+                torch_device=device,
+            ):
+                return vfn(*feeds)
+
+        outs = fscope.dispatch(thunk, what=f"aggregate groups of size {int(size)}")
+        _flt.maybe_check_numerics(bases, outs, f"aggregate groups of size {size}")
         gids_t = torch.from_numpy(gids).to(device)
         for b, o in zip(bases, outs):
             if results[b] is None:

@@ -18,15 +18,25 @@ DataFrame out.
 block and before the combine, and a top-level call takes an admission slot.
 `reduce_blocks_stream` (`streaming.py`) folds an iterator of frames.
 
+Every block dispatch runs inside a ``dispatch`` span labeled with its
+program fingerprint (`utils.telemetry.dispatch_span`) and through a
+`runtime.faults.FaultScope`: a transient error is retried with backoff,
+and a block that runs out of memory is split in half (up to
+``config.oom_split_depth`` times) — a row-local map concatenates the
+halves, a classified monoid reduce (`aggregate._chunk_combiners`) combines
+them, anything else re-raises the original error. With
+``config.check_numerics`` on, every block's outputs are checked for NaN
+and Inf (`runtime.faults.maybe_check_numerics`).
+
 On a `LazyFrame` (`lazy.py`), or on a plain frame under ``with
 tft.lazy():`` for graph fetches without ``trim``, ``bindings`` or bytes
 placeholders, `map_blocks` defers; `reduce_blocks` fuses the pending chain
 with the reduce; `map_rows`, `reduce_rows` and `aggregate` force the plan
 first. `scan` opens a dataset as a relational plan (`RelationalFrame`).
 
-Not in the port yet: the mesh/scheduler/global routes, shape bucketing
-(eager PyTorch has no per-shape compile to bound) and the chunked
-aggregate plan.
+Not in the port yet: the mesh/scheduler/global routes and the chunked
+aggregate plan; shape bucketing is left out on purpose (eager PyTorch has
+no per-shape compile to bound).
 """
 
 from __future__ import annotations
@@ -53,9 +63,12 @@ from .graph.freeze import freeze_variables
 from .graph.ir import Graph, base_name
 from .ops.lowering import build_callable
 from .runtime import deadline as _dl
+from .runtime import faults as _flt
 from .runtime.deadline import deadline_entry as _deadline_entry
 from .runtime.executor import Executor, default_executor
+from .runtime.faults import maybe_check_numerics
 from .schema import ColumnInfo, ScalarType, Shape
+from .utils import telemetry as _tele
 from .utils.profiling import count as _count
 
 __all__ = [
@@ -428,6 +441,12 @@ def _feeds(frame, mapping, feed_names, lo, hi, device, bound=None) -> List[torch
     ]
 
 
+def _feed_source(frame, mapping, feed_names, device, bound=None):
+    """``feeds_for(lo, hi)``: `_feeds` of this call's frame and columns
+    (looked up at call time, so a replaced `_feeds` takes effect)."""
+    return lambda lo, hi: _feeds(frame, mapping, feed_names, lo, hi, device, bound)
+
+
 def _bound_tensors(bindings: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     """Every binding on ``device``, once per call: every block reuses it."""
     return {k: as_tensor(v, device) for k, v in bindings.items()}
@@ -454,6 +473,117 @@ def _block_rows(outs: Dict[str, torch.Tensor], rows: int, trim: bool) -> int:
     if len(sizes) > 1:
         raise ValueError("map_blocks(trim): outputs disagree on row count")
     return sizes.pop()
+
+
+# ---------------------------------------------------------------------------
+# block dispatch: spans, classified retries, OOM splits
+# ---------------------------------------------------------------------------
+
+
+def _concat_halves(left, right, n_left, n_right):
+    """Split-combine of a row-local map: the halves' outputs, concatenated."""
+    return tuple(torch.cat([a, b]) for a, b in zip(left, right))
+
+
+_UNSET = object()
+
+
+class _Split:
+    """An OOM split recipe — ``merge(left, right, n_left, n_right)`` or
+    None (the block cannot split) — resolved at the first resource fault:
+    the row-local walk behind it costs a graph walk, and its control-flow
+    checks count fallback reasons, so the clean path never runs it."""
+
+    __slots__ = ("_resolve", "_merge")
+
+    def __init__(self, resolve):
+        self._resolve = resolve
+        self._merge = _UNSET
+
+    def merge(self):
+        if self._merge is _UNSET:
+            self._merge = self._resolve()
+        return self._merge
+
+
+_CONCAT = _Split(lambda: _concat_halves)
+
+
+def _rowwise_split(graph, fetches, ph_ranks) -> _Split:
+    """Concatenate the halves when every fetch is a row-local function of
+    the placeholders (`aggregate._rowwise_transform`)."""
+    return _Split(
+        lambda: _concat_halves
+        if _rowwise_transform(graph, list(fetches), ph_ranks.get)
+        else None
+    )
+
+
+def _reduce_split(graph, fetch_list, summary) -> _Split:
+    """Combine the halves' partials by `faults.combine_split_partials` over
+    `aggregate._chunk_combiners`' tags in fetch order, when the reduce
+    graph classifies."""
+
+    def resolve():
+        classified = _chunk_combiners(graph, fetch_list, summary)
+        if classified is None:
+            return None
+        tags = [classified[base_name(f)] for f in fetch_list]
+        return lambda left, right, nl, nr: _flt.combine_split_partials(
+            tags, left, right, nl, nr
+        )
+
+    return _Split(resolve)
+
+
+def _dispatch_rows(
+    verb, span_name, fp, run, feeds_for, fscope, bi, lo, hi, dev,
+    split=None, refuse="not-row-local", forensics=True, depth=0,
+):
+    """Dispatch rows ``[lo, hi)`` of block ``bi``: ``run(feeds_for(lo, hi),
+    hi - lo)`` inside a dispatch span, through ``fscope`` (transient
+    errors retry with backoff). A ``resource`` error splits the range in
+    half and merges the halves by the `_Split` recipe ``split``; without a
+    recipe it re-raises, its forensic snapshot naming ``refuse``. Returns
+    the outputs as a tuple.
+
+    The split runs after the ``except`` clause has ended: a CUDA
+    out-of-memory error's traceback holds the failed attempt's frames,
+    and their tensors would make the halves run out of memory too."""
+    feeds = feeds_for(lo, hi)
+
+    def thunk():
+        with _tele.dispatch_span(
+            span_name, program=fp, block=bi, rows=hi - lo, torch_device=dev
+        ):
+            return run(feeds, hi - lo)
+
+    try:
+        return tuple(fscope.dispatch(thunk, what=f"{verb} block {bi} rows [{lo}:{hi})"))
+    except Exception as e:
+        if _flt.classify(e) != _flt.RESOURCE:
+            raise
+        combine = split.merge() if split is not None else None
+        if combine is None or not _flt.split_allowed(hi - lo, depth):
+            if forensics:
+                why = refuse if combine is None else "split-depth-exhausted"
+                _flt.record_oom(verb, fp, hi - lo, depth, f"reraise:{why}", e)
+            raise
+        mid = (lo + hi) // 2
+        if forensics:
+            _flt.record_oom(verb, fp, hi - lo, depth, f"split:[{lo}:{mid})+[{mid}:{hi})", e)
+        _flt.note_split(verb)
+    del feeds, thunk
+    left = _dispatch_rows(
+        verb, span_name, fp, run, feeds_for, fscope, bi, lo, mid, dev,
+        split, refuse, forensics, depth + 1,
+    )
+    right = _dispatch_rows(
+        verb, span_name, fp, run, feeds_for, fscope, bi, mid, hi, dev,
+        split, refuse, forensics, depth + 1,
+    )
+    return combine(left, right, mid - lo, hi - mid)
+
 
 
 # ---------------------------------------------------------------------------
@@ -541,20 +671,35 @@ def _map_blocks_graph(graph, fetch_list, frame, feed_dict, trim, executor, bindi
     feed_names = sorted(summary.inputs)
     fn = ex.callable_for(graph, fetch_list, feed_names, dev)
     bound = _bound_tensors(bindings, dev)
+    # a row-local graph's block may split on OOM (halves concatenate)
+    split = None
+    if not trim and not bindings:
+        split = _rowwise_split(
+            graph, fetch_list, {p: ph.shape.rank for p, ph in summary.inputs.items()}
+        )
+    fscope = _flt.scope("map_blocks")
+    fp = graph.fingerprint()
+    feeds_for = _feed_source(frame, mapping, feed_names, dev, bound)
 
-    acc: Dict[str, List[torch.Tensor]] = {base_name(f): [] for f in fetch_list}
+    bases = [base_name(f) for f in fetch_list]
+    acc: Dict[str, List[torch.Tensor]] = {b: [] for b in bases}
     out_sizes: List[int] = []
-    for bi in range(frame.num_blocks):
-        lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
-        if lo == hi:
-            out_sizes.append(0)
-            continue  # an empty block contributes nothing
-        _dl.check("map_blocks")
-        outs = fn(*_feeds(frame, mapping, feed_names, lo, hi, dev, bound))
-        named = {base_name(f): o for f, o in zip(fetch_list, outs)}
-        out_sizes.append(_block_rows(named, hi - lo, trim))
-        for base, o in named.items():
-            acc[base].append(o)
+    with _tele.dispatch_run(dev):
+        for bi in range(frame.num_blocks):
+            lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
+            if lo == hi:
+                out_sizes.append(0)
+                continue  # an empty block contributes nothing
+            _dl.check("map_blocks")
+            outs = _dispatch_rows(
+                "map_blocks", "map_blocks.block", fp, lambda feeds, rows: fn(*feeds),
+                feeds_for, fscope, bi, lo, hi, dev, split=split,
+            )
+            maybe_check_numerics(fetch_list, outs, f"map_blocks block {bi}")
+            named = dict(zip(bases, outs))
+            out_sizes.append(_block_rows(named, hi - lo, trim))
+            for base, o in named.items():
+                acc[base].append(o)
 
     out_cols = [
         Column(
@@ -587,8 +732,8 @@ def _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev):
         _count("map_rows.plan.lifted")
         fn = ex.cached(
             "lifted-rows", graph, fetch_list, feed_names, dev,
-            lambda: build_callable(
-                _vec.lift_to_block_level(graph.clone()), fetch_list, feed_names, dev,
+            lambda d: build_callable(
+                _vec.lift_to_block_level(graph.clone()), fetch_list, feed_names, d,
                 row_axis=True,
             ),
         )
@@ -617,8 +762,8 @@ def _vmap_plan(ex, graph, fetch_list, feed_names, bindings, dev):
     vfn = ex.cached(
         f"vmap-rows-[{','.join(sorted(bindings))}]" if bindings else "vmap-rows",
         graph, fetch_list, feed_names, dev,
-        lambda: torch.func.vmap(
-            build_callable(graph, fetch_list, feed_names, dev), in_dims=in_dims
+        lambda d: torch.func.vmap(
+            build_callable(graph, fetch_list, feed_names, d), in_dims=in_dims
         ),
     )
     return lambda feeds, rows: vfn(*feeds)
@@ -728,15 +873,26 @@ def _map_rows_graph(graph, fetch_list, frame, feed_dict, executor, bindings, dev
         ]
         return _output_frame(frame, out_cols, append_input=True)
     bound = _bound_tensors(bindings, dev)
+    fscope = _flt.scope("map_rows")
+    fp = graph.fingerprint()
+    feeds_for = _feed_source(frame, mapping, feed_names, dev, bound)
+
     acc: Dict[str, List[torch.Tensor]] = {n: [] for n in out_names}
-    for bi in range(frame.num_blocks):
-        lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
-        if lo == hi:
-            continue
-        _dl.check("map_rows")
-        outs = run_block(_feeds(frame, mapping, feed_names, lo, hi, dev, bound), hi - lo)
-        for n, o in zip(out_names, outs):
-            acc[n].append(o)
+    with _tele.dispatch_run(dev):
+        for bi in range(frame.num_blocks):
+            lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
+            if lo == hi:
+                continue
+            _dl.check("map_rows")
+            # every plan is row-independent (bound placeholders stay
+            # whole): an OOM split is always valid
+            outs = _dispatch_rows(
+                "map_rows", "map_rows.block", fp, run_block, feeds_for, fscope,
+                bi, lo, hi, dev, split=_CONCAT,
+            )
+            maybe_check_numerics(out_names, outs, f"map_rows block {bi}")
+            for n, o in zip(out_names, outs):
+                acc[n].append(o)
     out_cols = [
         Column(
             n,
@@ -795,6 +951,21 @@ def _combine_partials(fn, feed_src: List[int], partials: List[Tuple]) -> Tuple:
     return fn(*stacked)
 
 
+def _dispatch_combine(kind, fp, fscope, fn, feed_src, partials, dev) -> Tuple:
+    """`_combine_partials` as one dispatch: a span labeled with the
+    program (no rows: the combine consumes partials, not rows) and a
+    transient retry. A resource error re-raises: there is no row range to
+    halve."""
+
+    def thunk():
+        with _tele.dispatch_span(
+            kind, program=fp, partials=len(partials), torch_device=dev
+        ):
+            return _combine_partials(fn, feed_src, partials)
+
+    return tuple(fscope.dispatch(thunk, what=f"{kind} of {len(partials)} partials"))
+
+
 def _stack_parts(parts: List) -> Union[np.ndarray, torch.Tensor]:
     """Stack partials: on the device of the first tensor among them when
     any is a tensor (host partials, spilled or restored from a checkpoint,
@@ -845,13 +1016,26 @@ def reduce_blocks(
     fetch_of_feed = {base_name(f) + "_input": i for i, f in enumerate(fetch_list)}
     feed_src = [fetch_of_feed[n] for n in feed_names]
 
+    fscope = _flt.scope("reduce_blocks")
+    fp = graph.fingerprint()
+    split = _reduce_split(graph, fetch_list, summary)
+    feeds_for = _feed_source(frame, mapping, feed_names, dev)
     partials: List[Tuple] = []
-    for bi in range(frame.num_blocks):
-        lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
-        if lo == hi:
-            continue  # the reduction identity would poison the combine
-        _dl.check("reduce_blocks")
-        partials.append(fn(*_feeds(frame, mapping, feed_names, lo, hi, dev)))
+    with _tele.dispatch_run(dev):
+        for bi in range(frame.num_blocks):
+            lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
+            if lo == hi:
+                continue  # the reduction identity would poison the combine
+            _dl.check("reduce_blocks")
+            outs = _dispatch_rows(
+                "reduce_blocks", "reduce_blocks.block", fp,
+                lambda feeds, rows: fn(*feeds),
+                feeds_for,
+                fscope, bi, lo, hi, dev,
+                split=split, refuse="unclassifiable-reduce",
+            )
+            maybe_check_numerics(fetch_list, outs, f"reduce_blocks block {bi}")
+            partials.append(outs)
     if not partials:
         raise ValueError("reduce_blocks on an empty frame")
     # a verb whose budget ran out during the blocks must not start the
@@ -860,7 +1044,7 @@ def reduce_blocks(
     final = (
         partials[0]
         if len(partials) == 1
-        else _combine_partials(fn, feed_src, partials)
+        else _dispatch_combine("reduce-combine", fp, fscope, fn, feed_src, partials, dev)
     )
     return _results([base_name(f) for f in fetch_list], final)
 
@@ -989,14 +1173,30 @@ def reduce_rows(
             carry = pair(*[v for c, x in zip(carry, rows) for v in (c, x[i])])
         return carry
 
+    # classified transient retries only: the verb's contract is a LEFT
+    # FOLD in row order, so an OOM cannot split the block (regrouping
+    # would change a non-associative result) and surfaces as it is
+    fscope = _flt.scope("reduce_rows")
+    fp = graph.fingerprint()
     partials: List[Tuple[torch.Tensor, ...]] = []
     for bi in range(frame.num_blocks):
         lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
         if lo == hi:
             continue
         rows = [as_tensor(frame.column(mapping[b + "_1"]).values[lo:hi], dev) for b in bases]
-        # a single-row block's partial is its row
-        partials.append(tuple(x[0] for x in rows) if hi - lo == 1 else fold(rows))
+        if hi - lo == 1:  # a single-row block's partial is its row
+            partials.append(tuple(x[0] for x in rows))
+            continue
+
+        def thunk(rows=rows, bi=bi, n=hi - lo):
+            with _tele.dispatch_span(
+                "reduce_rows.block", program=fp, block=bi, rows=n, torch_device=dev
+            ):
+                return fold(rows)
+
+        outs = tuple(fscope.dispatch(thunk, what=f"reduce_rows block {bi}"))
+        maybe_check_numerics(bases, outs, f"reduce_rows block {bi}")
+        partials.append(outs)
     if not partials:
         raise ValueError("reduce_rows on an empty frame")
     if len(partials) == 1:

@@ -17,7 +17,11 @@ and default.
 
 Pin tracking: every knob set EXPLICITLY — through `update()`, inside an
 `override()` scope, or seeded from a well-formed ``TFS_*`` env var at
-import — is recorded as pinned (`explicit_keys()` / `is_explicit()`).
+import — is recorded as pinned (`explicit_keys()` / `is_explicit()`). The
+autotuner (`runtime.autotune`) writes knobs only through `set_tuned()`,
+which refuses pinned keys; `tuned()` reports what it owns and
+`reset_tuning()` restores those knobs to their (env-seeded) defaults. A
+later `update()` of a tuned knob converts it to a pin.
 
 Env parsing: a malformed ``TFS_*`` value never breaks the package import;
 it is ignored entirely (default value, no pin).
@@ -38,7 +42,10 @@ __all__ = [
     "override",
     "explicit_keys",
     "is_explicit",
+    "set_tuned",
+    "tuned",
     "default_value",
+    "reset_tuning",
 ]
 
 
@@ -216,6 +223,63 @@ class Config:
         default_factory=lambda: _env_float(
             "TFS_ADMISSION_WAIT_TIMEOUT_S", 30.0,
             "admission_wait_timeout_s", minimum=0.0,
+        )
+    )
+    # One-time per-program warning when one cached program has been
+    # dispatched with more than this many distinct input shape signatures
+    # (`runtime.executor`). 0 disables the check.
+    recompile_warn_shapes: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_RECOMPILE_WARN_SHAPES", 16, "recompile_warn_shapes",
+            minimum=0,
+        )
+    )
+    # Cost-model accuracy (`runtime.costmodel.residuals`): a program whose
+    # achieved-vs-predicted time ratio exceeds this (either direction) is
+    # flagged. 0 disables flagging.
+    cost_residual_warn_ratio: float = dataclasses.field(
+        default_factory=lambda: _env_float(
+            "TFS_COST_RESIDUAL_WARN_RATIO", 4.0,
+            "cost_residual_warn_ratio", minimum=0.0,
+        )
+    )
+    # Always-on cost ledger (`runtime.costmodel`): the first dispatch of
+    # each (program, input shapes) counts its flops and bytes on the meta
+    # device; every dispatch counts one execution. Independent of
+    # `telemetry`.
+    cost_ledger: bool = dataclasses.field(
+        default_factory=lambda: _env_bool(
+            "TFS_COST_LEDGER", True, "cost_ledger"
+        )
+    )
+    # Deep memory capture: the meta replay also tracks the high-water mark
+    # of live intermediate bytes (``temp_bytes``). Off = the footprint is
+    # argument + output bytes and temp_bytes reads None.
+    cost_ledger_memory: bool = dataclasses.field(
+        default_factory=lambda: _env_bool(
+            "TFS_COST_LEDGER_MEMORY", False, "cost_ledger_memory"
+        )
+    )
+    # OOM block splits (`runtime.faults`): a block dispatch that runs out
+    # of memory is halved and re-dispatched, up to this many recursive
+    # halvings; row-local maps concatenate the halves, classified monoid
+    # reduces combine them. 0 disables splitting.
+    oom_split_depth: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_OOM_SPLIT_DEPTH", 3, "oom_split_depth", minimum=0
+        )
+    )
+    # Closed-loop autotuner (`runtime.autotune`): a background thread that
+    # tunes the unpinned knobs from the live workload profile. Off (the
+    # default) = no thread starts and no knob is mutated; `tft.autotune()`
+    # stays available for one-shot tuning.
+    autotune: bool = dataclasses.field(
+        default_factory=lambda: _env_bool("TFS_AUTOTUNE", False, "autotune")
+    )
+    # Seconds between background tuning cycles.
+    autotune_interval_s: float = dataclasses.field(
+        default_factory=lambda: _env_float(
+            "TFS_AUTOTUNE_INTERVAL_S", 30.0, "autotune_interval_s"
         )
     )
     # Debug mode: raise on NaN/Inf in any verb output. Part of the
@@ -402,12 +466,18 @@ class Config:
 
 _config = Config()
 
-# one lock serializes every pin mutation (update / override restore)
+# one lock serializes every pin/tuned mutation (update / set_tuned /
+# reset_tuning / override restore): the autotuner runs on a background
+# thread, and "pins win" needs check-then-write to be atomic
 _state_lock = threading.Lock()
 
 # knobs the OPERATOR set: update()/override() calls plus well-formed
 # TFS_* env seeds captured while _config was constructed above
 _EXPLICIT: set = set(_ENV_SEEDED)
+# knobs the AUTOTUNER currently owns -> the value it applied
+_TUNED: dict = {}
+
+_MISSING = object()
 
 
 def explicit_keys() -> frozenset:
@@ -419,6 +489,11 @@ def is_explicit(key: str) -> bool:
     return key in _EXPLICIT
 
 
+def tuned() -> dict:
+    """``{knob: value}`` currently owned by the autotuner."""
+    return dict(_TUNED)
+
+
 def default_value(key: str):
     """The knob's baseline: the dataclass default, env-seeded the same way
     the process's initial config was."""
@@ -426,6 +501,32 @@ def default_value(key: str):
     if not hasattr(base, key):
         raise AttributeError(f"unknown config key {key!r}")
     return getattr(base, key)
+
+
+def set_tuned(key: str, value) -> bool:
+    """The autotuner's only write path: apply ``value`` unless the knob is
+    pinned. Returns False (and changes nothing) for a pinned knob; the pin
+    check and the write are one step under the state lock."""
+    if not hasattr(_config, key):
+        raise AttributeError(f"unknown config key {key!r}")
+    with _state_lock:
+        if key in _EXPLICIT:
+            return False
+        setattr(_config, key, value)
+        _TUNED[key] = value
+    return True
+
+
+def reset_tuning() -> None:
+    """Restore every tuned knob to its (env-seeded) default and forget the
+    tuned set."""
+    if not _TUNED:
+        return
+    base = Config()
+    with _state_lock:
+        for k in list(_TUNED):
+            setattr(_config, k, getattr(base, k))
+        _TUNED.clear()
 
 
 def get() -> Config:
@@ -438,15 +539,19 @@ def update(**kwargs) -> None:
             raise AttributeError(f"unknown config key {k!r}")
         with _state_lock:
             setattr(_config, k, v)
-            _EXPLICIT.add(k)  # an explicit set PINS the knob
+            # an explicit set PINS the knob and supersedes a tuned value
+            _EXPLICIT.add(k)
+            _TUNED.pop(k, None)
 
 
 @contextlib.contextmanager
 def override(**kwargs):
     old = {k: getattr(_config, k) for k in kwargs}
     # pin state is scoped like the values: a knob pinned only inside an
-    # override() is un-pinned again on exit
+    # override() is un-pinned again on exit, and a tuned value it shadowed
+    # is restored to the tuned ledger
     old_explicit = {k: (k in _EXPLICIT) for k in kwargs}
+    old_tuned = {k: _TUNED.get(k, _MISSING) for k in kwargs}
     update(**kwargs)
     try:
         yield _config
@@ -456,3 +561,5 @@ def override(**kwargs):
             for k in kwargs:
                 if not old_explicit[k]:
                     _EXPLICIT.discard(k)
+                if old_tuned[k] is not _MISSING:
+                    _TUNED[k] = old_tuned[k]

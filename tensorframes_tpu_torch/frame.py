@@ -37,6 +37,8 @@ def as_tensor(values, device: torch.device) -> torch.Tensor:
     without a copy and then copied once to the device (no copy at all when
     ``device`` is the CPU); a tensor moves only if it lies elsewhere."""
     if isinstance(values, torch.Tensor):
+        if _on(values.device, device):
+            return values  # already there: skip the per-block `.to` call
         return values.to(device)
     arr = np.asarray(values)
     if arr.dtype.name == "bfloat16":  # ml_dtypes: no torch.from_numpy path
@@ -45,6 +47,25 @@ def as_tensor(values, device: torch.device) -> torch.Tensor:
         ScalarType.from_np_dtype(arr.dtype).torch_dtype  # refuses uint32/64, strings
         t = torch.from_numpy(arr)
     return t.to(device)
+
+
+def _on(have: torch.device, want: torch.device) -> bool:
+    """Whether a tensor on ``have`` already lies on ``want`` (a CUDA device
+    without an index is the current one)."""
+    if have == want:
+        return True
+    if have.type != want.type or want.index is not None:
+        return False
+    return want.type == "cpu" or have.index == _cuda_device()
+
+
+def _cuda_device() -> int:
+    """The current CUDA device's index (`torch.cuda.current_device` without
+    its per-call initialisation check, once CUDA is up)."""
+    try:
+        return torch._C._cuda_getDevice()
+    except AttributeError:
+        return torch.cuda.current_device()
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

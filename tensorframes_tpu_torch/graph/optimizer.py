@@ -33,9 +33,9 @@ __all__ = ["optimize", "Estimator"]
 # makes "fewer nodes doing the same bytes" (dedup, map fusion) strictly
 # cheaper. Dwarfed by any real data movement.
 _NODE_OVERHEAD_S = 5e-4
-# Throughput when no calibrated figure exists (the JAX package's
-# cold-start value; the port has no cost model yet): roughly
-# host-memory bandwidth order, bytes/second.
+# Throughput when the cost ledger has no calibrated figure yet (the JAX
+# package's cold-start value): roughly host-memory bandwidth order,
+# bytes/second.
 _DEFAULT_BYTES_PER_S = 2.0e9
 _COL_BYTES = 8.0  # double-precision column element (x64 default)
 _UNKNOWN_ROWS = 1_000_000
@@ -47,11 +47,12 @@ class Estimator:
 
     Rows propagate through the DAG (filter/scan predicates scale by the
     verb's selectivity hint or ``config.plan_selectivity_default``);
-    bytes = rows x live columns x 8; seconds = bytes / the throughput
-    of the node's op class (`throughput`).
+    bytes = rows x live columns x 8; seconds = bytes / the
+    residuals-corrected throughput of the node's op class (`throughput`).
     """
 
     def __init__(self, executor=None):
+        self._thr: Dict[str, float] = {}
         self._est: Dict[int, Tuple[float, float]] = {}
         from .. import config as _config
 
@@ -59,11 +60,21 @@ class Estimator:
 
     # -- throughput -----------------------------------------------------
     def throughput(self, op_class: str) -> float:
-        """Bytes/second for ``op_class``. The port has no cost model yet
-        (ROADMAP Queue 1 item 11 brings `runtime.costmodel` and its
-        calibrated `planner_throughput`), so every class prices at the
-        cold-start figure the JAX package uses while uncalibrated."""
-        return _DEFAULT_BYTES_PER_S
+        """Bytes/second for ``op_class``: the residuals-corrected figure
+        of the cost ledger (`costmodel.planner_throughput`), else the
+        cold-start default."""
+        v = self._thr.get(op_class)
+        if v is None:
+            try:
+                from ..runtime import costmodel as _cm
+
+                v = _cm.planner_throughput(op_class)
+            except Exception:
+                v = None
+            if not v or not math.isfinite(v) or v <= 0:
+                v = _DEFAULT_BYTES_PER_S
+            self._thr[op_class] = v
+        return v
 
     # -- (rows, cols) propagation --------------------------------------
     def shape(self, node: PlanNode) -> Tuple[float, float]:

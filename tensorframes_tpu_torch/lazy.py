@@ -48,12 +48,17 @@ Relational verbs (`filter`, `select`, `sort_by`, `join`, `group_by(...)
 .agg(...)`) seal the chain into a `graph.plan` DAG (`RelationalFrame`),
 which `graph.optimizer` rewrites before `graph.plan.execute` runs it.
 
+Block dispatches go through `api._dispatch_rows` as the eager verbs' do:
+a dispatch span, classified retries, OOM block splits (a row-local fused
+chain concatenates the halves; the fused reduce combines classified
+monoid halves) and the numerics guard. `explain_analyze` executes a plan
+and joins its spans with the cost ledger.
+
 Not in the port yet: the mesh, ``devices=`` and scheduler routes and the
-global-frame route (ROADMAP Queue 1 items 11 and 12; a ``mesh=`` or
-``devices=`` argument raises as it does on the eager verbs), the
-materialization cache, OOM block splits, ``maybe_check_numerics`` and
-`explain_analyze` (item 11). Shape bucketing is not in the port on
-purpose: eager PyTorch compiles nothing per shape.
+global-frame route (a ``mesh=`` or ``devices=`` argument raises as it
+does on the eager verbs), and the materialization cache on `force`. Shape
+bucketing is not in the port on purpose: eager PyTorch compiles nothing
+per shape.
 """
 
 from __future__ import annotations
@@ -79,7 +84,7 @@ from . import api as _api
 
 __all__ = [
     "lazy", "lazy_active", "LazyFrame", "LazyStage", "LazyPlan",
-    "RelationalFrame", "LazyGroupedFrame",
+    "RelationalFrame", "LazyGroupedFrame", "explain_analyze",
 ]
 
 
@@ -478,19 +483,40 @@ class LazyFrame:
             frame, [feed_map[n] for n in feed_names], "reduce_blocks"
         )
         fn = ex.callable_for(fused, fused_fetches, feed_names, dev)
+        from .runtime import faults as _flt
+        from .runtime.faults import maybe_check_numerics
+
+        fscope = _flt.scope("reduce_blocks.fused")
+        fp = fused.fingerprint()
+        # the OOM split recipe: the fused graph (map chain + reduce) must
+        # classify as a monoid reduce over a row-local transform
+        def _fused_split():
+            fshapes = {
+                ph: frame.info[col].block_shape for ph, col in feed_map.items()
+            }
+            summary = analyze_graph(fused, fused_fetches, placeholder_shapes=fshapes)
+            return _api._reduce_split(fused, fused_fetches, summary).merge()
+
+        split = _api._Split(_fused_split)
+        feeds_for = _api._feed_source(frame, feed_map, feed_names, dev)
         partials: List[Tuple] = []
         with _tele.span(
-            "reduce_blocks.fused.blocks", kind="stage",
-            program=fused.fingerprint(),
-        ):
+            "reduce_blocks.fused.blocks", kind="stage", program=fp
+        ), _tele.dispatch_run(dev):
             for bi in range(frame.num_blocks):
                 lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
                 if lo == hi:
                     continue  # the reduction identity would poison the combine
                 _dl.check("reduce_blocks")
-                partials.append(
-                    fn(*_api._feeds(frame, feed_map, feed_names, lo, hi, dev))
+                outs = _api._dispatch_rows(
+                    "reduce_blocks.fused", "reduce_blocks.fused.block", fp,
+                    lambda feeds, rows: fn(*feeds),
+                    feeds_for,
+                    fscope, bi, lo, hi, dev,
+                    split=split, refuse="unclassifiable-reduce",
                 )
+                maybe_check_numerics(rfetch, outs, f"reduce_blocks (fused) block {bi}")
+                partials.append(outs)
         if not partials:
             raise ValueError("reduce_blocks on an empty frame")
         _dl.check("reduce_blocks")
@@ -499,10 +525,13 @@ class LazyFrame:
         else:
             combine = ex.cached(
                 "reduce-combine", rgraph, rfetch, rfeed_names, dev,
-                lambda: build_callable(rgraph, rfetch, rfeed_names, dev),
+                lambda d: build_callable(rgraph, rfetch, rfeed_names, d),
             )
             with _tele.span("reduce_blocks.fused.combine", kind="stage"):
-                final = _api._combine_partials(combine, feed_src, partials)
+                final = _api._dispatch_combine(
+                    "reduce-combine", rgraph.fingerprint(), fscope, combine,
+                    feed_src, partials, dev,
+                )
         return _api._results([_base(f) for f in rfetch], final)
 
     def reduce_rows(self, fetches, **kw):
@@ -542,10 +571,34 @@ class LazyFrame:
         )
         fn = ex.callable_for(self._graph, fetch_edges, feed_names, dev)
         acc: Dict[str, List[torch.Tensor]] = {n: [] for n in out_names}
+        from .runtime import faults as _flt
+        from .runtime.faults import maybe_check_numerics
+
+        # a row-local fused chain's block may split on OOM (halves
+        # concatenate)
+        split = _api._rowwise_split(
+            self._graph, fetch_edges,
+            {ph: frame.info[col].block_shape.rank for ph, col in self._feed_map.items()},
+        )
+        fscope = _flt.scope("lazy.force")
+        fp = self._graph.fingerprint()
+
+        feeds_for = _api._feed_source(frame, self._feed_map, feed_names, dev)
 
         def _consume(bi, lo, hi, feeds):
             _dl.check("lazy.force")
-            outs = fn(*feeds)
+
+            def prepared(lo_, hi_):
+                # the block's own range: the prepared feeds (the pipelined
+                # path staged them); a split re-slices its halves
+                return feeds if (lo_, hi_) == (lo, hi) else feeds_for(lo_, hi_)
+
+            outs = _api._dispatch_rows(
+                "lazy.force", "lazy.force.block", fp, lambda f, rows: fn(*f),
+                prepared, fscope, bi, lo, hi, dev,
+                split=split, forensics=False,
+            )
+            maybe_check_numerics(out_names, outs, f"lazy fused block {bi}")
             for n, o in zip(out_names, outs):
                 if o.dim() == 0 or o.shape[0] != hi - lo:
                     raise ValueError(
@@ -563,7 +616,7 @@ class LazyFrame:
         cfg = _config.get()
         with _tele.span(
             "lazy.force.blocks", kind="stage", program=self._graph.fingerprint()
-        ):
+        ), _tele.dispatch_run(dev):
             if cfg.plan_pipeline and len(blocks) >= 2:
                 self._pipelined_blocks(
                     frame, blocks, feed_names, dev, cfg.plan_pipeline_depth,
@@ -573,7 +626,7 @@ class LazyFrame:
                 for bi, lo, hi in blocks:
                     _consume(
                         bi, lo, hi,
-                        _api._feeds(frame, self._feed_map, feed_names, lo, hi, dev),
+                        feeds_for(lo, hi),
                     )
         with _tele.span("lazy.force.collect", kind="stage"):
             out_cols = []
@@ -1019,3 +1072,282 @@ class LazyGroupedFrame:
             "keys": self._keys, "specs": parsed,
         })
         return self._rel._chain(node)
+
+
+# ---------------------------------------------------------------------------
+# explain_analyze: execute a plan and join its spans with the cost ledger
+# ---------------------------------------------------------------------------
+
+
+def _fmt_seconds(s: float) -> str:
+    if s >= 1.0:
+        return f"{s:.3f}s"
+    if s >= 1e-3:
+        return f"{s * 1e3:.2f}ms"
+    return f"{s * 1e6:.0f}us"
+
+
+def _analyze_window(new_spans, wall_s: float, dropped: int) -> Dict:
+    """Join one execution window's spans with the cost ledger into the
+    explain_analyze payload (shared by the text and JSON renderings)."""
+    from .runtime import costmodel as _cm
+    from .utils import telemetry as _tele
+
+    ids = {s.span_id for s in new_spans}
+    agg = _tele.span_aggregates(new_spans)
+    # verb spans cover the whole window by construction: attribution counts
+    # everything below them
+    non_verb = [s for s in new_spans if s.kind != "verb"]
+    attributed = _tele._union_seconds([(s.t0, s.t1) for s in non_verb])
+    stages: Dict[Tuple[str, str], Dict] = {}
+    per_prog: Dict[str, Dict] = {}
+    for s in new_spans:
+        st = stages.setdefault(
+            (s.name, s.kind),
+            {
+                "name": s.name, "kind": s.kind, "count": 0,
+                "seconds": 0.0, "rows": 0, "pad_rows": 0,
+                "devices": set(), "programs": set(),
+            },
+        )
+        st["count"] += 1
+        st["seconds"] += s.seconds
+        prog = s.attrs.get("program")
+        if prog:
+            st["programs"].add(str(prog))
+        if s.kind == "dispatch":
+            rows = int(s.attrs.get("rows") or 0)
+            st["rows"] += rows
+            dev = s.attrs.get("device")
+            if dev:
+                st["devices"].add(str(dev))
+            if prog:
+                p = per_prog.setdefault(
+                    str(prog),
+                    {"rows": 0, "pad_rows": 0, "rungs": set(), "devices": set()},
+                )
+                p["rows"] += rows
+                if rows:
+                    p["rungs"].add(rows)
+                if dev:
+                    p["devices"].add(str(dev))
+    stage_rows = [
+        {**st, "devices": sorted(st["devices"]), "programs": sorted(st["programs"])}
+        for st in stages.values()
+    ]
+    stage_rows.sort(key=lambda r: -r["seconds"])
+
+    roof = {r["program"]: r for r in _cm.roofline(agg["by_program"])}
+    res = _cm.residuals(new_spans)
+    res_progs = res.get("programs", {})
+    programs = []
+    for fp in sorted(agg["by_program"]):
+        p = agg["by_program"][fp]
+        if not p["dispatches"] and not p["compiles"]:
+            continue  # a plan-analysis span's program attr, not an execution
+        r = roof.get(fp, {})
+        extra = per_prog.get(fp, {})
+        rr = res_progs.get(fp, {})
+        programs.append(
+            {
+                "program": fp,
+                "dispatches": int(p["dispatches"]),
+                "execute_s": p["execute_s"],
+                "compiles": int(p["compiles"]),
+                "compile_s": p["compile_s"],
+                "host_syncs": int(p["host_syncs"]),
+                "host_sync_s": p["host_sync_s"],
+                "rows": extra.get("rows", 0),
+                "pad_rows": extra.get("pad_rows", 0),
+                "bucket_rungs": sorted(extra.get("rungs", ())),
+                "devices": sorted(extra.get("devices", ())),
+                "modeled_flops_per_exec": r.get("flops_per_exec"),
+                "modeled_bytes_per_exec": r.get("bytes_per_exec"),
+                "modeled_footprint_bytes": r.get("footprint_bytes"),
+                "achieved_flops_s": r.get("achieved_flops_s"),
+                "achieved_hbm_bytes_s": r.get("achieved_hbm_bytes_s"),
+                "flops_frac_of_peak": r.get("flops_frac_of_peak"),
+                "hbm_frac_of_peak": r.get("hbm_frac_of_peak"),
+                "residual_ratio": rr.get("residual_ratio"),
+            }
+        )
+    roots = [s for s in new_spans if s.parent_id is None or s.parent_id not in ids]
+    return {
+        "wall_s": wall_s,
+        "attributed_s": attributed,
+        "coverage": min(1.0, attributed / max(wall_s, 1e-12)),
+        "spans": len(new_spans),
+        "spans_dropped_during": dropped,
+        "roots": len(roots),
+        "stages": stage_rows,
+        "programs": programs,
+        "accuracy_fit": res.get("fit"),
+    }
+
+
+def _render_explain_analyze(data: Dict) -> str:
+    from .utils.telemetry import _fmt_bytes, _fmt_rate
+
+    lines = [
+        f"explain_analyze: {_fmt_seconds(data['wall_s'])} wall, "
+        f"{data['coverage'] * 100:.1f}% attributed to "
+        f"{len(data['stages'])} stage group(s) "
+        f"({data['spans']} span(s), {data['roots']} root(s))"
+    ]
+    if data["spans_dropped_during"]:
+        lines.append(
+            f"  WARNING: {data['spans_dropped_during']} span(s) fell off the "
+            "ring during execution — attribution is partial"
+        )
+    plan = data.get("plan")
+    if plan:
+        lines.append(
+            f"plan: {len(plan['stages'])} fused stage(s), "
+            f"{plan['nodes']} node(s), feeds {plan['feeds']}"
+        )
+        for i, st in enumerate(plan["stages"], 1):
+            outs = ", ".join(st["outputs"])
+            lines.append(
+                f"  stage {i}: {st['verb']} -> [{outs}] (+{st['nodes']} node(s))"
+            )
+    lines.append("observed stages (by span group, slowest first):")
+    for st in data["stages"]:
+        extra = ""
+        if st["rows"]:
+            extra += f" rows={st['rows']}"
+        if st["pad_rows"]:
+            extra += f" pad_rows={st['pad_rows']}"
+        if st["devices"]:
+            extra += f" devices={','.join(st['devices'])}"
+        lines.append(
+            f"  {st['name']:<28} {st['kind']:<9} x{st['count']:<4} "
+            f"{_fmt_seconds(st['seconds'])}{extra}"
+        )
+    if data["programs"]:
+        lines.append("programs (modeled vs achieved, this execution):")
+        for p in data["programs"]:
+            lines.append(
+                f"  {p['program']:<16} dispatches={p['dispatches']} "
+                f"execute={_fmt_seconds(p['execute_s'])} "
+                f"compiles={p['compiles']} "
+                f"({_fmt_seconds(p['compile_s'])}) rows={p['rows']} "
+                f"pad={p['pad_rows']} rungs={p['bucket_rungs']}"
+            )
+            frac = ""
+            if p["flops_frac_of_peak"] is not None:
+                frac = f" ({p['flops_frac_of_peak'] * 100:.1f}% of peak)"
+            rr = p["residual_ratio"]
+            lines.append(
+                "    modeled "
+                f"{_fmt_rate(p['modeled_flops_per_exec'], 'FLOP')}/exec, "
+                f"{_fmt_bytes(p['modeled_bytes_per_exec'])}/exec | "
+                "achieved "
+                f"{_fmt_rate(p['achieved_flops_s'], 'FLOP/s')}, "
+                f"{_fmt_rate(p['achieved_hbm_bytes_s'], 'B/s')}{frac}"
+                + (f" | residual={rr:.2f}x" if rr is not None else "")
+            )
+    return "\n".join(lines)
+
+
+def _sync_result(result) -> None:
+    """Wait for the card's queue behind ``result`` (a frame, a tensor or a
+    dict of tensors): the dispatch spans time the enqueue."""
+    ts = []
+    if isinstance(result, TensorFrame):
+        ts = [
+            result.column(c).values for c in result.columns
+            if isinstance(result.column(c).values, torch.Tensor)
+        ]
+    elif isinstance(result, torch.Tensor):
+        ts = [result]
+    elif isinstance(result, dict):
+        ts = [v for v in result.values() if isinstance(v, torch.Tensor)]
+    for dev in {t.device for t in ts if t.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+
+
+def explain_analyze(plan, format: str = "text"):
+    """EXPLAIN ANALYZE for a lazy plan: EXECUTE it and render each stage
+    with what actually happened — observed wall time per span group, rows
+    per dispatch, build counts — beside the cost ledger's modeled flops
+    and bytes and the achieved rates of every program the execution
+    touched (`runtime.costmodel`), plus the residual ratio per program.
+
+    ``plan`` is a `LazyFrame` (its pending chain is forced fresh, so there
+    is always a real execution to measure), a `RelationalFrame`, or any
+    zero-argument callable running verbs (the way to analyze a chain
+    ending in a reduce: ``tft.explain_analyze(lambda:
+    lf.reduce_blocks(...))``); a callable returning a LazyFrame is forced.
+    A bare `LazyPlan` is rejected: it cannot execute. ``format="json"``
+    returns the payload dict. Needs ``config.telemetry``. The card's queue
+    is drained inside the window (a ``host_sync`` stage) and the dispatch
+    events resolved, so execute times are device times."""
+    from .utils import telemetry as _tele
+
+    if format not in ("text", "json"):
+        raise ValueError(
+            f"explain_analyze format={format!r} is not one of 'text' | 'json'"
+        )
+    if not _tele.enabled():
+        raise RuntimeError(
+            "explain_analyze needs telemetry: the span ring is the "
+            "measurement (config.update(telemetry=True) / TFS_TELEMETRY=1)"
+        )
+    if isinstance(plan, LazyPlan):
+        raise TypeError(
+            "explain_analyze cannot execute a bare LazyPlan (it is detached "
+            "from its frame); pass the LazyFrame itself or a callable "
+            "running the terminal action"
+        )
+    plan_obj: Optional[LazyPlan] = None
+    if isinstance(plan, LazyFrame):
+        plan_obj = plan.plan()
+        fresh = LazyFrame(
+            plan._base, plan._graph, plan._sources, plan._feed_map,
+            plan._stages, plan._executor, plan._device,
+        )
+        action = fresh.force
+    elif isinstance(plan, RelationalFrame):
+        fresh_rel = RelationalFrame(
+            plan._node, executor=plan._executor, device=plan._device
+        )
+        action = fresh_rel.force
+    elif callable(plan):
+        action = plan
+    else:
+        raise TypeError(
+            "explain_analyze wants a LazyFrame or a callable, got "
+            f"{type(plan).__name__}"
+        )
+    import time as _time
+
+    sid0 = _tele.allocate_span_id()  # monotonic floor for window spans
+    dropped0 = _tele.spans_dropped()
+    t0 = _time.perf_counter()
+    result = action()
+    if isinstance(result, LazyFrame):
+        plan_obj = result.plan()
+        result = result.force()
+    elif isinstance(result, RelationalFrame):
+        result = result.force()
+    with _tele.span("explain_analyze.sync", kind="host_sync"):
+        _sync_result(result)
+    wall_s = _time.perf_counter() - t0
+    new = [s for s in _tele.spans() if s.span_id > sid0]
+    _tele.resolve_device_times(new)
+    data = _analyze_window(new, wall_s, _tele.spans_dropped() - dropped0)
+    if plan_obj is not None:
+        data["plan"] = {
+            "stages": [
+                {"verb": st.verb, "outputs": list(st.outputs), "nodes": st.nodes}
+                for st in plan_obj.stages
+            ],
+            "nodes": len(plan_obj.graph),
+            "feeds": dict(plan_obj.feeds),
+            "outputs": sorted(plan_obj.sources),
+        }
+    else:
+        data["plan"] = None
+    if format == "json":
+        return data
+    return _render_explain_analyze(data)

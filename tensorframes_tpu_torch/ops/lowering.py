@@ -19,10 +19,22 @@ from .registry import GraphLoweringError, LowerCtx, get_rule
 from . import standard  # noqa: F401  (populates the registry)
 from . import control  # noqa: F401  (_Cond/_While and TensorList rules)
 
-__all__ = ["build_callable", "GraphLoweringError"]
+__all__ = ["build_callable", "supported", "GraphLoweringError"]
 
 _PLACEHOLDERS = ("Placeholder", "PlaceholderV2")
 _CPU = torch.device("cpu")
+
+
+def supported(graph: Graph, fetches: Sequence[str]) -> Tuple[bool, str]:
+    """Whether every op in the closure of ``fetches`` has a rule:
+    ``(True, "")``, or ``(False, reason)`` naming the first op without
+    one."""
+    for node in graph.toposort(list(fetches)):
+        if node.op in _PLACEHOLDERS:
+            continue
+        if get_rule(node.op) is None:
+            return False, f"unsupported op {node.op!r} (node {node.name!r})"
+    return True, ""
 
 
 def _host(out):
@@ -102,6 +114,20 @@ def build_callable(
     for key in used & const_env.keys():
         ctx.pin(const_env[key])
 
+    # the call plan, resolved once: (node, rule, input keys) per computed
+    # node, the feed position per placeholder (control edges only order)
+    steps: List[Tuple[Any, Any, List[Tuple[str, int]]]] = []
+    feed_steps: List[Tuple[Tuple[str, int], int]] = []
+    for node in order:
+        if (node.name, 0) in const_env:
+            continue
+        if node.op in _PLACEHOLDERS:
+            feed_steps.append(((node.name, 0), feed_pos[node.name]))
+            continue
+        keys = [(dep, idx) for dep, idx, ctrl in map(parse_edge, node.inputs) if not ctrl]
+        steps.append((node, get_rule(node.op).fn, keys))
+    fetch_keys = [parse_edge(f)[:2] for f in fetches]
+
     def fn(*feed_arrays):
         if len(feed_arrays) != len(feed_pos):
             raise ValueError(
@@ -109,32 +135,28 @@ def build_callable(
                 f"got {len(feed_arrays)}"
             )
         env: Dict[Tuple[str, int], Any] = dict(const_env)
-        for node in order:
-            if (node.name, 0) in const_env:
-                continue
-            if node.op in _PLACEHOLDERS:
-                env[(node.name, 0)] = feed_arrays[feed_pos[node.name]]
-                continue
-            ins: List[Any] = []
-            for edge in node.inputs:
-                dep, idx, ctrl = parse_edge(edge)
-                if ctrl:
-                    continue  # purely functional: control edges only order
-                if (dep, idx) not in env:
-                    raise GraphLoweringError(
-                        f"node {node.name!r} consumes output {idx} of {dep!r} "
-                        "which was not produced"
-                    )
-                ins.append(env[(dep, idx)])
-            out = get_rule(node.op).fn(ctx, node, ins)
-            for i, v in enumerate(out if isinstance(out, tuple) else (out,)):
-                env[(node.name, i)] = v
+        for key, pos in feed_steps:
+            env[key] = feed_arrays[pos]
+        for node, rule, keys in steps:
+            try:
+                ins = [env[k] for k in keys]
+            except KeyError:
+                missing = next(k for k in keys if k not in env)
+                raise GraphLoweringError(
+                    f"node {node.name!r} consumes output {missing[1]} of "
+                    f"{missing[0]!r} which was not produced"
+                ) from None
+            out = rule(ctx, node, ins)
+            if isinstance(out, tuple):
+                for i, v in enumerate(out):
+                    env[(node.name, i)] = v
+            else:
+                env[(node.name, 0)] = out
         results = []
-        for f in fetches:
-            name, idx, _ = parse_edge(f)
-            if (name, idx) not in env:
+        for f, key in zip(fetches, fetch_keys):
+            if key not in env:
                 raise GraphLoweringError(f"fetch {f!r} was not produced")
-            results.append(ctx.tensor(env[(name, idx)]))
+            results.append(ctx.tensor(env[key]))
         return tuple(results)
 
     return fn

@@ -14,11 +14,11 @@ moment a typed fault ESCAPES the runtime, `capture` freezes a bounded
 - the offending program's fingerprint (the trigger site's, else the
   newest span in the ring carrying a ``program`` attribute).
 
-The ``program`` (cost entry), ``memory`` and ``autotune_decisions``
-sections read the JAX package's cost model and autotuner, which the port
-does not have yet: they say so as ``{"error": "not ported: ..."}``, and
-the bundle keeps the JAX package's keys. The ``scheduler`` section's
-``circuits`` list is empty until the circuit breaker is ported.
+The ``program`` section carries the cost ledger's entry and residual ratio
+for the offending program (`runtime.costmodel`), ``memory`` the per-device
+memory overview, and ``autotune_decisions`` the autotuner's decision ring.
+The ``scheduler`` section's ``circuits`` list is empty until the circuit
+breaker is ported.
 
 Triggers: ``deadline`` (`DeadlineExceeded`), ``cancel`` (`Cancelled`),
 ``shed`` (`OverloadError`), ``oom`` and ``fault`` (a classified failure),
@@ -417,11 +417,6 @@ def _build_bundle(
     return bundle
 
 
-#: what the sections that read the cost model and the autotuner say until
-#: those modules are ported; the bundle keeps the JAX package's keys
-_NO_COSTMODEL = {"error": "not ported: runtime/costmodel.py"}
-_NO_AUTOTUNE = {"error": "not ported: runtime/autotune.py"}
-
 #: exception attributes worth carrying verbatim into the fault section
 _FAULT_ATTRS = (
     "verb", "budget_s", "elapsed_s", "retry_after_s", "queue_depth",
@@ -449,9 +444,19 @@ def _fault_section(exc: Optional[BaseException], fclass: str) -> Dict:
 
 
 def _program_section(prog: Optional[str]) -> Dict:
+    out: Dict = {"fingerprint": prog, "cost": None, "residual_ratio": None}
     if not prog:
-        return {"fingerprint": None, "cost": None, "residual_ratio": None}
-    return dict(_NO_COSTMODEL)
+        return out
+    from . import costmodel as _cm
+
+    out["cost"] = _cm.program_costs().get(prog)
+    try:
+        entry = (_cm.residuals().get("programs") or {}).get(prog)
+        if entry:
+            out["residual_ratio"] = entry.get("residual_ratio")
+    except Exception:
+        pass  # residuals need spans; their absence is not an error
+    return out
 
 
 def _trailing_trace(window: float) -> Dict:
@@ -536,12 +541,14 @@ def _config_section() -> Dict:
     return {
         "digest": config_digest(),
         "explicit": sorted(_config.explicit_keys()),
-        "tuned": {},  # the port has no autotuner: no knob is tuned
+        "tuned": _config.tuned(),
     }
 
 
 def _autotune_section():
-    return dict(_NO_AUTOTUNE)
+    from . import autotune as _autotune
+
+    return _autotune.decisions()
 
 
 def _scheduler_section() -> Dict:
@@ -556,7 +563,9 @@ def _scheduler_section() -> Dict:
 
 
 def _memory_section():
-    return dict(_NO_COSTMODEL)
+    from . import costmodel as _cm
+
+    return _cm.memory_overview()
 
 
 def _json_default(o):

@@ -24,24 +24,43 @@ the ingest pipeline uses):
   attempt cap (``config.block_retry_attempts``), exponential backoff with
   DETERMINISTIC seeded jitter, and a deadline check before every attempt.
 
+- **OOM block splits** (`split_allowed`, `combine_split_partials`,
+  `record_oom`): a verb whose block dispatch fails with a ``resource``
+  error halves the block's row range (up to ``config.oom_split_depth``
+  times) and re-dispatches; row-local maps concatenate the halves,
+  classified monoid reduces combine them. Each resource fault leaves a
+  forensic snapshot (`forensics_snapshot`): the program, its modeled
+  footprint from the cost ledger, the card's memory at fault time and the
+  split decision. The snapshot holds strings and numbers only, never the
+  exception: a CUDA out-of-memory error's traceback keeps the failed
+  attempt's tensors alive.
+
 - **Fault ledger** (`ledger_snapshot`): process-wide counts by class, plus
-  retries, fail-fasts, deadline expiries and admission sheds.
+  retries, splits, fail-fasts, deadline expiries and admission sheds.
+
+- **Numerics guard** (`maybe_check_numerics`): with
+  ``config.check_numerics`` on, a verb raises `FloatingPointError` on a
+  NaN or Inf output, naming the block and the fetch.
 
 An explicit ``tfs_fault_class`` attribute (the injection harness in
 `testing.faults` stamps it) wins over every pattern.
 
 Not in the port: the device-grant watchdog (it falls back to the CPU
-backend, which the port never does), and the verb-dispatch half — OOM
-block splits, their forensics and the numerics guard.
+backend, which the port never does) and device evictions (they belong to
+the multi-device scheduler).
 """
 
 from __future__ import annotations
 
 import threading
 import zlib
-from typing import Callable, Dict, Optional
+from collections import deque as _deque
+from typing import Callable, Dict, Optional, Sequence
 
+from .. import config as _config
+from ..utils import telemetry as _tele
 from ..utils.log import get_logger
+from . import deadline as _dl
 
 __all__ = [
     "TRANSIENT",
@@ -52,8 +71,15 @@ __all__ = [
     "FaultScope",
     "scope",
     "run_with_retries",
+    "split_allowed",
+    "combine_split_partials",
+    "note_split",
+    "note_transient_retry",
+    "record_oom",
+    "forensics_snapshot",
     "ledger_snapshot",
     "reset_ledger",
+    "maybe_check_numerics",
 ]
 
 _log = get_logger("faults")
@@ -156,7 +182,7 @@ def classify(exc: BaseException) -> str:
 
 _LEDGER_KEYS = (
     "transient", "resource", "deterministic",  # classified failures seen
-    "retries", "failfast",
+    "retries", "splits", "failfast",
     "deadlines", "shed",  # runtime.deadline: budget expiries + admission sheds
 )
 _ledger_lock = threading.Lock()
@@ -166,6 +192,24 @@ _ledger: Dict[str, int] = {k: 0 for k in _LEDGER_KEYS}
 def _note(key: str, n: int = 1) -> None:
     with _ledger_lock:
         _ledger[key] = _ledger.get(key, 0) + n
+
+
+def note_transient_retry() -> None:
+    """Ledger + counter for a transient retry performed outside
+    `FaultScope.dispatch`."""
+    _note(TRANSIENT)
+    _note("retries")
+    _tele.counter_inc("fault_retries", 1.0, **{"class": TRANSIENT})
+
+
+def note_split(verb: str) -> None:
+    """One OOM block split performed by ``verb`` (ledger + the always-live
+    ``block_splits`` counter; the split IS the resource class's retry, so
+    it counts under ``fault_retries{class=resource}`` too)."""
+    _note("splits")
+    _note("retries")
+    _tele.counter_inc("block_splits", 1.0, verb=verb)
+    _tele.counter_inc("fault_retries", 1.0, **{"class": RESOURCE})
 
 
 def note_deadline() -> None:
@@ -191,6 +235,7 @@ def reset_ledger() -> None:
     with _ledger_lock:
         for k in list(_ledger):
             _ledger[k] = 0
+        _forensics.clear()
 
 
 def _tag_fault(e: BaseException, cls: str) -> None:
@@ -201,6 +246,84 @@ def _tag_fault(e: BaseException, cls: str) -> None:
             e.tfs_fault_class = cls
         except Exception:
             pass  # __slots__ errors refuse stamps; e still raises
+
+
+# ---------------------------------------------------------------------------
+# OOM forensics: what was resident when a dispatch ran out of memory
+# ---------------------------------------------------------------------------
+
+# bounded: the freshest window of OOMs is the useful one
+_FORENSICS_MAX = 16
+_forensics: "_deque" = _deque(maxlen=_FORENSICS_MAX)
+
+
+def record_oom(
+    verb: str,
+    program,
+    rows: int,
+    depth: int,
+    decision: str,
+    error: BaseException,
+    bucket: Optional[int] = None,
+) -> None:
+    """Capture a forensic snapshot for one ``resource``-classified
+    dispatch: the failing program, its cost-ledger modeled footprint, the
+    memory of every CUDA device at fault time (`costmodel.memory_overview`),
+    the block's row count and the split decision (``"split:..."``, or a
+    ``"reraise:*"`` reason when splitting is ineligible). Only strings and
+    numbers are kept. A decision other than a split means the fault is
+    about to escape, so the flight recorder captures a bundle too. Never
+    raises."""
+    err = f"{type(error).__name__}: {str(error)[:200]}"
+    try:
+        from . import costmodel as _cm
+
+        snap = {
+            "verb": str(verb),
+            "program": str(program),
+            "rows": int(rows),
+            "bucket": int(bucket) if bucket is not None else None,
+            "depth": int(depth),
+            "decision": str(decision),
+            "error": err,
+            "modeled": _cm.program_footprint(program),
+            "devices": _cm.memory_overview(),
+        }
+    except Exception:  # a degraded snapshot beats no snapshot
+        snap = {
+            "verb": str(verb),
+            "program": str(program),
+            "rows": int(rows),
+            "bucket": None,
+            "depth": int(depth),
+            "decision": str(decision),
+            "error": type(error).__name__,
+            "modeled": None,
+            "devices": [],
+        }
+    with _ledger_lock:
+        _forensics.append(snap)
+    try:
+        _tele.counter_inc("oom_forensics", 1.0, verb=str(verb))
+    except Exception:
+        pass  # forensics must not worsen the failure it documents
+    if not str(decision).startswith("split"):
+        try:
+            from . import blackbox as _blackbox
+
+            _tag_fault(error, RESOURCE)
+            _blackbox.capture(
+                "oom", error, verb=str(verb), program=str(program),
+                extra={"oom": snap},
+            )
+        except Exception:
+            pass  # the recorder must not worsen the failure either
+
+
+def forensics_snapshot() -> list:
+    """The bounded OOM forensic log, oldest first."""
+    with _ledger_lock:
+        return [dict(s) for s in _forensics]
 
 
 # ---------------------------------------------------------------------------
@@ -221,8 +344,6 @@ def backoff_delay(
     jitter factor in ``[1, 1+jitter]`` seeded from ``(seed, what,
     attempt)`` — reruns of the same failing dispatch sleep the same
     schedule."""
-    from .. import config as _config
-
     cfg = _config.get()
     base = cfg.retry_backoff_base_s if base is None else base
     cap = cfg.retry_backoff_max_s if cap is None else cap
@@ -251,8 +372,6 @@ class FaultScope:
         attempts: Optional[int] = None,
         budget: Optional[int] = None,
     ):
-        from .. import config as _config
-
         cfg = _config.get()
         self.verb = verb
         self.attempts = (
@@ -280,9 +399,6 @@ class FaultScope:
         (`runtime.deadline.check`). The default backoff ``sleep`` is the
         deadline-aware interruptible wait; an explicit ``sleep=`` callable
         (tests) bypasses the clipping but not the per-attempt checks."""
-        from ..utils import telemetry as _tele
-        from . import deadline as _dl
-
         attempt = 0
         while True:
             try:
@@ -353,3 +469,95 @@ def run_with_retries(
     after exactly one attempt."""
     s = FaultScope(verb or what, attempts=attempts)
     return s.dispatch(lambda: fn(*args), what=what, sleep=sleep)
+
+
+# ---------------------------------------------------------------------------
+# OOM split support
+# ---------------------------------------------------------------------------
+
+
+def split_allowed(n_rows: int, depth: int) -> bool:
+    """A resource-classified block of ``n_rows`` at recursion ``depth`` may
+    split once more: at least 2 rows to halve, and a bounded depth
+    (``config.oom_split_depth``), so a memory budget too small even for the
+    smallest half re-raises the original error."""
+    return n_rows > 1 and depth < _config.get().oom_split_depth
+
+
+def combine_split_partials(
+    combiners: Sequence[str],
+    left: Sequence,
+    right: Sequence,
+    n_left: int,
+    n_right: int,
+):
+    """Monoid-combine the per-fetch partials of a split reduce block:
+    ``sum`` adds, ``prod`` multiplies, ``min``/``max`` are elementwise
+    (`torch.minimum` / `torch.maximum`), and ``mean`` is the row-weighted
+    mean in the partial's dtype (exact: the halves partition the block's
+    rows). Only graphs `aggregate._chunk_combiners` classified reach a
+    split."""
+    import torch
+
+    out = []
+    for comb, a, b in zip(combiners, left, right):
+        if comb == "sum":
+            out.append(a + b)
+        elif comb == "prod":
+            out.append(a * b)
+        elif comb == "min":
+            out.append(torch.minimum(a, b))
+        elif comb == "max":
+            out.append(torch.maximum(a, b))
+        elif comb == "mean":
+            w = float(n_left + n_right)
+            out.append((a * (n_left / w) + b * (n_right / w)).to(a.dtype))
+        else:  # pragma: no cover - the classifier emits only the tags above
+            raise AssertionError(f"unknown combiner {comb!r}")
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# numerics guard
+# ---------------------------------------------------------------------------
+
+
+def maybe_check_numerics(fetch_names, outs, what: str) -> None:
+    """Debug-mode numerics guard (``config.check_numerics``): raise
+    `FloatingPointError` naming the verb, block and fetch when an output
+    holds a NaN or Inf.
+
+    The check runs on the device: each float fetch folds to one
+    ``isfinite().all()`` boolean, the booleans stack into one verdict, and
+    the clean path pays exactly one host sync (``.item()``, counted as
+    ``host_sync``). Only when the verdict fires are the bad values counted,
+    fetch by fetch. Off by default."""
+    if not _config._config.check_numerics:
+        return
+    import torch
+
+    from ..utils.profiling import count
+
+    finites = []  # (name, tensor, all-finite scalar) per float fetch
+    for name, o in zip(fetch_names, outs):
+        if not isinstance(o, torch.Tensor) or not o.is_floating_point():
+            continue
+        finites.append((name, o, torch.isfinite(o).all()))
+    if not finites:
+        return
+    verdict = (
+        finites[0][2]
+        if len(finites) == 1
+        else torch.stack([f for _, _, f in finites]).all()
+    )
+    count("host_sync")
+    if verdict.item():  # the one sync on the clean path
+        return
+    for name, o, fin in finites:
+        if not fin.item():
+            bad = int((~torch.isfinite(o)).sum().item())
+            raise FloatingPointError(
+                f"{what}: fetch {name!r} contains {bad} non-finite "
+                "value(s) (check_numerics is on)"
+            )
+    raise AssertionError("unreachable: verdict fired but no fetch did")

@@ -311,10 +311,16 @@ def store(
     data_fp: str,
     plan_fp: str,
     frame,
+    ledger_fp: Optional[str] = None,
     compute_s: Optional[float] = None,
 ) -> bool:
-    """Offer a result frame to the cache; True when admitted. Serializing
-    a frame with columns on the card is a device-to-host copy, counted as
+    """Offer a result frame to the cache; True when admitted.
+
+    Admission pricing: the entry is kept only when the modeled recompute
+    cost (`costmodel.modeled_recompute_s(ledger_fp)`, falling back to the
+    measured ``compute_s``) exceeds the measured store cost plus the
+    symmetric load estimate; an unpriced result is admitted. Serializing a
+    frame with columns on the card is a device-to-host copy, counted as
     one (``host_sync``, and the ``d2h_bytes`` histogram)."""
     if not enabled() or data_fp is None:
         return False
@@ -356,7 +362,18 @@ def store(
     except _ckpt.CheckpointError:
         return False  # unwritable dir: the cache degrades to a no-op
     store_s = time.perf_counter() - t0
-    if _priced_out(compute_s, store_s):
+    # price the admission: recompute vs store + (symmetric) load
+    recompute_s = None
+    if ledger_fp is not None:
+        from . import costmodel as _cm
+
+        try:
+            recompute_s = _cm.modeled_recompute_s(ledger_fp)
+        except Exception:
+            recompute_s = None
+    if recompute_s is None:
+        recompute_s = compute_s
+    if _priced_out(recompute_s, store_s):
         try:
             os.unlink(path)
         except OSError:
@@ -380,7 +397,7 @@ def store(
         _acct["last_store"] = {
             "program": plan_fp, "data": data_fp, "bytes": len(payload),
             "store_seconds": store_s,
-            "recompute_seconds": compute_s,
+            "recompute_seconds": recompute_s,
         }
     for p in evicted:
         try:

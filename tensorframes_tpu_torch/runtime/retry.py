@@ -1,11 +1,11 @@
-"""Compatibility name: the classified retry lives in `runtime.faults`.
+"""Compatibility names: the classified retry and the numerics guard live in
+`runtime.faults`.
 
-The PyTorch counterpart of `tensorframes_tpu/runtime/retry.py`. The JAX
-shim also re-exports the numerics guard, which is not in the port yet.
+The PyTorch counterpart of `tensorframes_tpu/runtime/retry.py`.
 """
 
 from __future__ import annotations
 
-from .faults import run_with_retries  # noqa: F401
+from .faults import maybe_check_numerics, run_with_retries  # noqa: F401
 
-__all__ = ["run_with_retries"]
+__all__ = ["run_with_retries", "maybe_check_numerics"]

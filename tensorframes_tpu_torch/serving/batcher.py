@@ -7,7 +7,8 @@ dwarfs the per-row work. Concurrent requests to one ``(endpoint, program
 fingerprint)`` coalesce into ONE dispatch:
 
 - Requests queue into a per-key **lane**; the lane's daemon dispatcher
-  thread holds an open batch for ``config.serve_batch_window_ms``, closing
+  thread holds an open batch for the endpoint's window (its tuned
+  ``batch_window_ms``, else ``config.serve_batch_window_ms``), closing
   EARLY when the row total lands exactly on a bucket-ladder rung or
   reaches ``max_batch_rows``. An oversized request dispatches alone.
 - The closed batch concatenates the requests' host rows (one host-to-
@@ -55,6 +56,20 @@ from ..runtime import deadline as _dl
 
 __all__ = ["MicroBatcher", "batcher"]
 
+
+
+def _window_s(endpoint, cfg) -> float:
+    """Effective coalescing window of one endpoint, in seconds: its own
+    ``batch_window_ms`` (the autotuner's per-endpoint value) when set,
+    else ``config.serve_batch_window_ms``. Read per batch, so a tuned
+    change applies to the next window; an operator pin of the global knob
+    wins over a tuned endpoint value at read time."""
+    from .. import config as _config
+
+    w = getattr(endpoint, "batch_window_ms", None)
+    if w is None or _config.is_explicit("serve_batch_window_ms"):
+        w = float(cfg.serve_batch_window_ms)
+    return float(w) / 1e3
 
 class _Request:
     __slots__ = ("frame", "rows", "future", "request_id", "deadline_at", "t_enq")
@@ -139,7 +154,7 @@ class MicroBatcher:
 
         cfg = _config.get()
         fut: Future = Future()
-        if not endpoint.batchable or float(cfg.serve_batch_window_ms) <= 0.0:
+        if not endpoint.batchable or _window_s(endpoint, cfg) <= 0.0:
             # unbatched: inline on the caller's thread, under its scope
             with self._lock:
                 self.inline += 1
@@ -242,7 +257,7 @@ class MicroBatcher:
                     lane.cond.wait(0.25)
                 if not lane.queue and lane.stop:
                     return
-                window_s = float(_config.get().serve_batch_window_ms) / 1e3
+                window_s = _window_s(ep, _config.get())
                 max_rows = ep.max_batch_rows
                 t_close = time.monotonic() + window_s
                 batch: List[_Request] = []

@@ -145,6 +145,9 @@ class Endpoint:
         self.fingerprint = graph.fingerprint()
         self.warmed_rungs: Tuple[int, ...] = ()
         self.created_at = time.time()
+        # per-endpoint batch window (milliseconds) the autotuner writes
+        # (`runtime.autotune`); None = follow config.serve_batch_window_ms
+        self.batch_window_ms: Optional[float] = None
 
     # -- request validation --------------------------------------------
     def validate_request(self, frame: TensorFrame) -> None:
@@ -227,6 +230,7 @@ class Endpoint:
         if cache_key is not None:
             _mat.store(
                 cache_key[0], cache_key[1], out_frame,
+                ledger_fp=self.fingerprint,
                 compute_s=time.perf_counter() - t0,
             )
         return out_frame
@@ -270,9 +274,7 @@ class Endpoint:
             "program": self.fingerprint,
             "batchable": self.batchable,
             "max_batch_rows": self.max_batch_rows,
-            # the JAX autotuner's per-endpoint window; the port's lanes
-            # read config.serve_batch_window_ms
-            "batch_window_ms": None,
+            "batch_window_ms": self.batch_window_ms,
             "warmed_rungs": list(self.warmed_rungs),
             "columns": {
                 ci.name: {

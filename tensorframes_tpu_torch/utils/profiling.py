@@ -26,15 +26,21 @@ The PyTorch counterpart of the counter surface of
   off any one-call plan (``while-under-vmap``, ``disabled``).
 
 Meta-device probes (`graph.analysis`) count nothing.
+
+`trace(logdir)` records a `torch.profiler` trace of the enclosed region
+(CPU and, on a card, CUDA activity) into ``logdir`` as Chrome trace JSON;
+`annotate(name)` labels a region on that timeline
+(`torch.profiler.record_function`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import Counter
 from typing import Dict
 
-__all__ = ["count", "stats", "reset_stats"]
+__all__ = ["count", "stats", "reset_stats", "trace", "annotate"]
 
 _counts: Counter = Counter()
 _lock = threading.Lock()
@@ -55,3 +61,30 @@ def stats() -> Dict[str, float]:
 def reset_stats() -> None:
     with _lock:
         _counts.clear()
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Capture a `torch.profiler` trace of the enclosed region into
+    ``logdir`` (one ``trace.json``, loadable in Perfetto): host activity,
+    and the card's kernels when CUDA is available. Yields the profiler."""
+    import os
+
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named region on the profiler timeline."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        yield

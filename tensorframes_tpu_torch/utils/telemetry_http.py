@@ -11,12 +11,11 @@ Routes:
   ``degraded: true`` when admission is overloaded (the port has no
   failover circuit yet), and ``ready: false`` while the serving front-end
   drains.
+- ``/diagnostics`` — the `telemetry.diagnostics_data` JSON payload.
 - ``/trace`` — the span ring as Chrome trace JSON (load it in Perfetto).
+- ``/profile`` — a live `runtime.profiler.snapshot()` of the workload
+  profile (the JSON `WorkloadProfile.save` writes).
 - ``/`` — the route listing.
-
-``/diagnostics`` and ``/profile`` of the JAX module read its cost model and
-workload profiler, which the port does not have yet: they answer 404 with
-the JSON error body like any unknown route.
 
 Concurrency: `ThreadingHTTPServer` (one thread per request) over
 registries that snapshot under their own locks. The server thread is a
@@ -57,7 +56,7 @@ _server: Optional["TelemetryServer"] = None
 MountHandler = Callable[..., Tuple[int, str, bytes, Optional[Dict[str, str]]]]
 _mounts: Dict[str, MountHandler] = {}
 
-_ROUTES = ("/metrics", "/healthz", "/trace")
+_ROUTES = ("/metrics", "/healthz", "/diagnostics", "/trace", "/profile")
 
 
 def mount(prefix: str, handler: MountHandler, replace: bool = False) -> None:
@@ -207,8 +206,16 @@ class _Handler(BaseHTTPRequestHandler):
                 )
             elif path == "/healthz":
                 self._send_json(_healthz_payload())
+            elif path == "/diagnostics":
+                self._send_json(_tele.diagnostics_data())
             elif path == "/trace":
                 self._send_json(_tele.export_chrome_trace())
+            elif path == "/profile":
+                from ..runtime import profiler as _prof
+
+                self._send_json(
+                    _prof.snapshot(note="telemetry_http:/profile").to_dict()
+                )
             elif path == "/":
                 self._send_json(
                     {

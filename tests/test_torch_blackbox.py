@@ -105,17 +105,35 @@ def test_deadline_bundle_keys_and_fault_section_match_jax(tmp_path):
     assert bt["scheduler"].keys() == bj["scheduler"].keys()
     assert bt["scheduler"]["devices"][0]["device"] == "cpu:0"
     assert bt["scheduler"]["circuits"] == []
-    # the sections that need the cost model and the autotuner
-    assert bt["memory"] == {"error": "not ported: runtime/costmodel.py"}
-    assert bt["autotune_decisions"] == {"error": "not ported: runtime/autotune.py"}
+    # the cost model's memory overview has one row per CUDA device: none on
+    # the CPU (the JAX package lists its CPU device, without statistics)
+    assert bt["memory"] == [] and isinstance(bj["memory"], list)
+    # the autotuner's decision ring, empty here in both packages' form
+    assert bt["autotune_decisions"] == [] and isinstance(bj["autotune_decisions"], list)
 
 
 def test_program_section_needs_the_cost_model(tmp_path):
+    """The program section carries the cost ledger's entry of the offending
+    program (None for a program the ledger never saw), as in JAX."""
+    from tensorframes_tpu_torch.runtime import costmodel as tcost
+
+    ttele.reset()
+    tcost.reset()
     with tconfig.override(incident_dir=str(tmp_path)):
+        # no span in the ring carries a program yet
+        plain = tft.incidents(tblackbox.capture("deadline", RuntimeError("y")))
+    df = tft.TensorFrame.from_dict({"x": np.arange(8.0)}, num_blocks=2)
+    z = (tft.block(df, "x") * 2.0).named("z")
+    tft.map_blocks(z, df, device="cpu")
+    fp = tft.dsl.build(z)[0].fingerprint()
+    with tconfig.override(incident_dir=str(tmp_path)):
+        known = tft.incidents(tblackbox.capture("fault", RuntimeError("k"), program=fp))
         iid = tblackbox.capture("fault", RuntimeError("x"), program="abc123")
         bundle = tft.incidents(iid)
-        plain = tft.incidents(tblackbox.capture("deadline", RuntimeError("y")))
-    assert bundle["program"] == {"error": "not ported: runtime/costmodel.py"}
+    assert known["program"]["fingerprint"] == fp
+    assert known["program"]["cost"]["execs"] == 2
+    assert known["program"]["cost"]["flops_per_exec"] == 4.0
+    assert bundle["program"] == {"fingerprint": "abc123", "cost": None, "residual_ratio": None}
     assert plain["program"] == {"fingerprint": None, "cost": None, "residual_ratio": None}
 
 

@@ -219,9 +219,10 @@ def test_import_guard_no_pandas_or_pyarrow():
 
 def test_import_guard_no_jax():
     """Importing the port (and running the verbs, imported graphs with
-    control flow and variables among them, and registering, serving and
-    calling one endpoint) loads neither jax nor any module of the JAX
-    package."""
+    control flow and variables among them, registering, serving and
+    calling one endpoint, and the runtime services: explain_analyze,
+    diagnostics, a profile snapshot and the autotuner) loads neither jax
+    nor any module of the JAX package."""
     code = textwrap.dedent(
         """
         import sys
@@ -267,6 +268,10 @@ def test_import_guard_no_jax():
         import tensorframes_tpu_torch.runtime.blackbox
         import tensorframes_tpu_torch.runtime.scheduler
         import tensorframes_tpu_torch.shape_policy
+        import tensorframes_tpu_torch.runtime.autotune
+        import tensorframes_tpu_torch.runtime.costmodel
+        import tensorframes_tpu_torch.runtime.profiler
+        import tensorframes_tpu_torch.utils.inspection
         df = tft.TensorFrame.from_dict(
             {"x": np.arange(6.0), "k": np.array([0, 1, 0, 1, 2, 2])}, num_blocks=2
         )
@@ -311,6 +316,9 @@ def test_import_guard_no_jax():
         )
         assert served.host_values("y").tolist() == [1.0, 3.0, 5.0]
         tft.serving.drain(timeout_s=10.0)
+        tft.explain_analyze(lf, format="json")
+        tft.diagnostics(format="json")
+        tft.autotune(tft.profile.snapshot(), apply_recommendations=False)
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"

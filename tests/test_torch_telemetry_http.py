@@ -286,16 +286,21 @@ def test_trace_route_spans_carry_request_ids(both_servers):
 
 
 def test_root_lists_existing_routes_and_unported_routes_404(both_servers):
+    """The port serves the JAX package's routes, /diagnostics and /profile
+    included; an unknown route answers 404 with a JSON error body."""
     url = both_servers["torch"].url
     root = json.loads(_get(url + "/")[2])
-    assert root["routes"][:3] == ["/metrics", "/healthz", "/trace"]
-    assert "/diagnostics" not in root["routes"] and "/profile" not in root["routes"]
+    jroot = json.loads(_get(both_servers["jax"].url + "/")[2])
+    assert root["routes"][:5] == jroot["routes"][:5] == [
+        "/metrics", "/healthz", "/diagnostics", "/trace", "/profile"
+    ]
     assert "/incidents" in root["routes"]
-    for path in ("/diagnostics", "/profile", "/nope"):
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            _get(url + path)
-        assert ei.value.code == 404
-        assert "error" in json.loads(ei.value.read().decode())
+    for path in ("/diagnostics", "/profile"):
+        assert _get(url + path)[0] == 200
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _get(url + "/nope")
+    assert ei.value.code == 404
+    assert "error" in json.loads(ei.value.read().decode())
 
 
 def test_mount_unmount_and_handler_errors(both_servers):
