@@ -22,7 +22,11 @@ main path through the entry points a user calls:
 5. keyed `aggregate`: BASELINE config 4 (mean and variance of 100,000,000
    rows x 8 float32 values over 16 int64 keys) through the segment plan,
    and a Div-rooted graph over 1,000,000 rows and 1,000 keys of uneven
-   size through the exact plan;
+   size through the exact plan; then a ``reduce_sum(x * 2)`` +
+   ``reduce_max(x)`` graph over 1,000,000 x 8 float32 rows in 1,000 groups
+   of all-distinct sizes with the segment plan off: the chunk plan (one
+   vmapped call a power-of-two chunk size) and the exact plan (one a
+   distinct size);
 6. `models.kmeans` at the k-means demo's widths (dim 100, k 10, 10
    iterations) over 10,000,000 float32 rows in 8 blocks, one iteration
    held against a numpy float64 Lloyd step;
@@ -41,7 +45,11 @@ main path through the entry points a user calls:
    that do not lift (a `Sum` predicate over a float32[3] cell, and branches
    that call `Fill`), each with a bound placeholder, through `map_rows`'
    vmap plan (one call per block) over 10,000,000 rows, exact against
-   numpy, and the first through the per-row plan over 2,000 rows;
+   numpy, and the first through the per-row plan over 2,000 rows; the
+   same for a per-row v1 loop that does not lift (``v = 2 v + w`` while
+   ``sum(v * v) < 10000`` over float32[3] cells, ``w`` bound: one batched
+   loop a block, one host read a trip); and the exact `aggregate` plan over
+   a per-group v1 cond (1,000,000 rows, 1,000 keys), one call a group size;
 10. variable freezing: a ``VariableV2`` and a ``VarHandleOp`` graph as TF
     wrote them, through `map_blocks` over phase 3's column, exact;
 11. frame breadth: ragged `map_rows` over 1,000,000 float32 rows of 1-64
@@ -73,7 +81,9 @@ main path through the entry points a user calls:
     10,000,000 x 1,000 keys with their device-to-host bytes; and
     `spark.reduce_blocks` / `map_blocks` / `aggregate` over a duck-typed
     Spark DataFrame of 16 partitions x 2,000,000 rows (``k`` int64 of 16
-    keys, ``x0``..``x7`` float64);
+    keys, ``x0``..``x7`` float64); and a second `force()` of the three maps
+    over a 20,000,000-row host base served by the materialization cache
+    (no block dispatch, equal to the first force);
 14. training and the expert FFN: `TransformerLM` at phase 7's widths
     trained by SGD (lr 0.1, `benchmarks/train_bench.py`'s) on 8 x 2,048
     tokens through the plain attention `full_attention`, one warm-up step
@@ -107,14 +117,21 @@ main path through the entry points a user calls:
     ``set_per_process_memory_fraction`` that `map_blocks` and
     `reduce_blocks` survive by splitting the block; and the numerics guard
     (one host sync a block, ``x / 0.0`` raising);
-17. one JSON line listing every kernel with its launches on the main path
-    (phases 3-16), its error and its times;
-18. as the last line, ``{"ok": true, "device": {...}}``.
+17. the mesh verbs on ``parallel.data_mesh()`` (every visible card):
+    phase 3's x+3 `map_blocks`, `reduce_blocks` sum / min and the
+    `reduce_rows` sum over 200,000,000 float32 rows, phase 4's MLP
+    `map_rows` over 1,000,000 rows, a keyed sum over 100,000,000 x 8
+    float32 rows and 16 keys and phase 5's mean / mean-of-squares graph,
+    both through per-shard segment tables combined by monoid, each against the
+    local verb on the same data, with the mesh's dispatch spans;
+18. one JSON line listing every kernel with its launches on the main path
+    (phases 3-17), its error and its times;
+19. as the last line, ``{"ok": true, "device": {...}}``.
 
-Phases 8-16 run after phase 6 and before phase 7. Phases 3-6 and 8-16 run
+Phases 8-17 run after phase 6 and before phase 7. Phases 3-6 and 8-17 run
 no hand-written kernel (their ops are ATen, cuBLAS and cuDNN calls, host
 numpy and the stream's copies; phase 14 trains through the plain
-attention; phases 15 and 16 run graphs of elementwise ops and products),
+attention; phases 15-17 run graphs of elementwise ops and products),
 so the script checks that the attention kernel's count is still 0 after
 them and counts its launches in phase 7 alone. Phase 15 needs pyarrow (the
 serving wire format is Arrow IPC). Phase 12 imports pyarrow for its dataset and durable parts, and
@@ -256,12 +273,19 @@ def _ptxas_line(log: str, d: int):
 # ---------------------------------------------------------------------------
 
 
+# the card's name and power limit as nvidia-smi gives them, set by phase 1
+# and printed beside the numbers of the later phases
+_CARD = None
+
+
 def phase_card_and_build() -> None:
+    global _CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    _CARD = smi.stdout.strip().splitlines()[0]
+    print(_CARD, flush=True)
 
     from tensorframes_tpu_torch.ops import _cuda_build
 
@@ -612,6 +636,82 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
         exact_rows_per_s=exact_rows / exact_s, exact_max_abs_err=exact_err,
         exact_rtol=_SUM_RTOL,
     )
+    del eout, edf, egrouped, ek, ev, u
+    _chunk_and_exact(tft)
+
+
+def _dispatches(name: str) -> int:
+    """Dispatch spans called ``name`` in the telemetry ring."""
+    from tensorframes_tpu_torch.utils import telemetry
+
+    return sum(1 for s in telemetry.spans() if s.kind == "dispatch" and s.name == name)
+
+
+def _chunk_and_exact(tft, rows: int = 1_000_000, dim: int = 8, nkeys: int = 1000) -> None:
+    """A ``reduce_sum(x * 2)`` + ``reduce_max(x)`` graph over ``rows`` x
+    ``dim`` float32 rows in ``nkeys`` groups of all-distinct sizes, with
+    the segment plan off: the chunk plan (one vmapped call a power-of-two
+    chunk size), then the exact plan (one a distinct size, with
+    ``aggregate_exact_size_limit`` raised above ``nkeys``). Sums rtol 1e-5
+    against numpy float64, the max exact."""
+    from tensorframes_tpu_torch.utils import telemetry
+    from tensorframes_tpu_torch.utils.profiling import reset_stats
+
+    dsl = tft.dsl
+    # sizes base .. base + nkeys - 1, the last grown to make ``rows``
+    base = (rows - nkeys * (nkeys - 1) // 2) // nkeys
+    sizes = base + np.arange(nkeys)
+    sizes[-1] += rows - int(sizes.sum())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    keys = torch.repeat_interleave(
+        torch.arange(nkeys, device="cuda"), torch.from_numpy(sizes).cuda()
+    )[torch.randperm(rows, device="cuda", generator=gen)]
+    # positive values: a group's float32 sum stays within rtol of float64
+    v = torch.rand(rows, dim, device="cuda", generator=gen) + 0.5
+    df = tft.TensorFrame([tft.Column("k", keys), tft.Column("v", v)]).repartition(8)
+    s2 = dsl.reduce_sum(dsl.block(df, "v", tf_name="s_input") * 2.0, axes=[0]).named("s")
+    mx = dsl.reduce_max(dsl.block(df, "v", tf_name="m_input"), axes=[0]).named("m")
+    feed = {"s_input": "v", "m_input": "v"}
+    grouped = tft.group_by(df, "k")
+
+    kh, vh = keys.cpu().numpy(), v.cpu().numpy()
+    want_s = np.stack([np.bincount(kh, weights=vh[:, j].astype(np.float64) * 2.0,
+                                   minlength=nkeys) for j in range(dim)], 1)
+    want_m = np.full((nkeys, dim), -np.inf, np.float32)
+    np.maximum.at(want_m, kh, vh)
+    out = {}
+    for plan, knobs, span in (
+        ("chunk", dict(aggregate_segment_fast=False), "aggregate.chunk"),
+        ("exact", dict(aggregate_segment_fast=False, aggregate_exact_size_limit=nkeys + 1),
+         "aggregate.size"),
+    ):
+        with tft.config.override(**knobs):
+            tft.aggregate([s2, mx], grouped, feed_dict=feed)  # lowers once
+            reset_stats()
+            telemetry.reset()
+            res, secs = _wall(lambda: tft.aggregate([s2, mx], grouped, feed_dict=feed))
+        _plan_ran(f"aggregate {plan} plan", f"aggregate.plan.{plan}")
+        calls = _dispatches(span)
+        want_calls = int(sizes.max()).bit_length() if plan == "chunk" else len(np.unique(sizes))
+        if calls != want_calls:
+            raise AssertionError(f"aggregate {plan} plan: {calls} vmapped calls, want {want_calls}")
+        if not np.array_equal(res.host_values("k"), np.arange(nkeys)):
+            raise AssertionError(f"aggregate {plan} plan: keys differ")
+        got_m = res.host_values("m")
+        if got_m.dtype != np.float32 or not np.array_equal(got_m, want_m):
+            raise AssertionError(f"aggregate {plan} plan: max differs from numpy")
+        s_err = _check_close(
+            f"aggregate {plan} plan sum", torch.from_numpy(res.host_values("s").astype(np.float64)),
+            torch.from_numpy(want_s), _SUM_RTOL, 0.0,
+        )
+        out[plan] = dict(seconds=secs, rows_per_s=rows / secs, vmapped_calls=calls,
+                         sum_max_abs_err=s_err, max_exact=True)
+        del res
+    _emit(
+        "aggregate_chunk_and_exact", card=_CARD, rows=rows, dim=dim, keys=nkeys,
+        distinct_sizes=len(np.unique(sizes)), largest_group=int(sizes.max()),
+        sum_rtol=_SUM_RTOL, **out,
+    )
 
 
 def _lloyd_step_f64(points: torch.Tensor, centers: np.ndarray, chunk: int = 1_000_000):
@@ -838,8 +938,11 @@ def phase_control_flow(tft, rows: int = 10_000_000, blocks: int = 8) -> None:
         raise AssertionError("map_blocks block_cond_while: differs from the numpy reference")
     del out, y, ydf
     one_call = _one_call_conds(tft, rows, blocks)
+    one_call["sum_loop"] = _one_call_loop(tft, rows, blocks)
+    group_cond = _group_cond_aggregate(tft)
     _emit(
-        "control_flow", rows=rows, blocks=blocks, map_rows=result, map_rows_one_call=one_call,
+        "control_flow", card=_CARD, rows=rows, blocks=blocks, map_rows=result,
+        map_rows_one_call=one_call, aggregate_group_cond=group_cond,
         block_level=dict(
             seconds=block_s, rows_per_s=rows / block_s,
             cond_host_syncs=counts.get("control.cond.host_syncs"),
@@ -941,6 +1044,112 @@ def _one_call_conds(tft, rows: int, blocks: int, per_row_rows: int = 2000) -> di
             )
         del x, df, res
     return out
+
+
+_W3 = np.array([1.5, -2.0, 0.5], np.float32)
+
+
+def _cell_loop_reference(xh: np.ndarray):
+    """`cell_while_v1.pb` over all rows in numpy: (y, trips). The values
+    are integers and halves in float32, so every sum is exact."""
+    v, trips = xh.copy(), np.zeros(len(xh), np.int32)
+    active = (v * v).sum(1) < 10000.0
+    while active.any():
+        v[active] = v[active] * np.float32(2.0) + _W3
+        trips[active] += 1
+        active &= (v * v).sum(1) < 10000.0
+    return v, trips
+
+
+def _one_call_loop(tft, rows: int, blocks: int, per_row_rows: int = 2000) -> dict:
+    """`cell_while_v1.pb` (TF's v1 loop: ``v = 2 v + w`` while ``sum(v *
+    v) < 10000`` over float32[3] cells, ``w`` bound): the loop's predicate
+    reduces the cell, so it does not lift; `map_rows`' vmap plan runs it as
+    one batched loop a block (one host read a trip). Exact against numpy;
+    beside it the per-row plan over ``per_row_rows`` rows."""
+    from tensorframes_tpu_torch.utils.profiling import reset_stats, stats
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    x = torch.randint(-8, 9, (rows, 3), device="cuda", generator=gen).float()
+    df = tft.TensorFrame([tft.Column("x", x)]).repartition(blocks)
+    graph, bound, fetches = _fixture("cell_while_v1.pb"), {"w": _W3}, ["trips", "y"]
+    tft.map_rows(graph, df, fetch_names=fetches, bindings=bound)  # lowers once
+    reset_stats()
+    res, secs = _wall(lambda: tft.map_rows(graph, df, fetch_names=fetches, bindings=bound))
+    counts = stats()
+    if counts.get("map_rows.plan.vmap") != 1.0 or counts.get("map_rows.plan.per_row", 0.0):
+        raise AssertionError(f"map_rows sum loop: expected the vmap plan, counters say {counts}")
+    want_y, want_trips = _cell_loop_reference(x.cpu().numpy())
+    if not (np.array_equal(res.host_values("y"), want_y)
+            and np.array_equal(res.host_values("trips"), want_trips)):
+        raise AssertionError("map_rows sum loop: differs from numpy")
+    head = tft.TensorFrame([tft.Column("x", x[:per_row_rows])])
+    with tft.config.override(row_vectorize=False):
+        reset_stats()
+        pr, pr_s = _wall(lambda: tft.map_rows(graph, head, fetch_names=fetches, bindings=bound))
+        pr_counts = stats()
+    if pr_counts.get("map_rows.plan.per_row") != 1.0:
+        raise AssertionError(f"per-row plan did not run: {pr_counts}")
+    if not np.array_equal(pr.host_values("y"), want_y[:per_row_rows]):
+        raise AssertionError("map_rows sum loop, per-row plan: differs from numpy")
+    del res, df, x
+    return dict(
+        seconds=secs, rows_per_s=rows / secs, plan="vmap",
+        map_rows_plan_per_row=counts.get("map_rows.plan.per_row", 0.0),
+        trips_per_block=counts.get("control.while.trips") / blocks,
+        host_syncs_per_block=counts.get("control.while.host_syncs") / blocks,
+        max_row_trips=int(want_trips.max()),
+        per_row_rows=per_row_rows, per_row_seconds=pr_s, per_row_rows_per_s=per_row_rows / pr_s,
+        per_row_host_syncs_per_row=pr_counts.get("control.while.host_syncs", 0) / per_row_rows,
+    )
+
+
+def _group_cond_aggregate(tft, rows: int = 1_000_000, nkeys: int = 1000) -> dict:
+    """`group_cond_v1.pb` (``x = sum(x) > 0 ? sum(x) : max(x)`` a group)
+    through the exact `aggregate` plan over ``rows`` float32 rows and
+    ``nkeys`` keys of uneven size: one vmapped call a distinct size, the
+    cond a select per group. Even keys hold positive values and odd keys
+    negative ones, so float32 rounding cannot flip a predicate; sums rtol
+    1e-5 against numpy float64, maxes exact."""
+    from tensorframes_tpu_torch.utils import telemetry
+    from tensorframes_tpu_torch.utils.profiling import reset_stats, stats
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    u = torch.rand(rows, device="cuda", generator=gen)
+    k = (u * u * nkeys).to(torch.int64)
+    sign = 1.0 - 2.0 * (k % 2).float()
+    x = (torch.rand(rows, device="cuda", generator=gen) + 0.5) * sign
+    df = tft.TensorFrame([tft.Column("k", k), tft.Column("x", x)]).repartition(8)
+    graph, grouped = _fixture("group_cond_v1.pb"), tft.group_by(df, "k")
+    tft.aggregate(graph, grouped, fetch_names=["x"])  # lowers once
+    reset_stats()
+    telemetry.reset()
+    out, secs = _wall(lambda: tft.aggregate(graph, grouped, fetch_names=["x"]))
+    counts = stats()
+    plans = {k: v for k, v in counts.items() if k.startswith("aggregate.plan.")}
+    if plans != {"aggregate.plan.exact": 1.0}:
+        raise AssertionError(f"aggregate group cond: expected the exact plan, counters say {counts}")
+    kh, xh = k.cpu().numpy(), x.cpu().numpy()
+    sizes = np.bincount(kh, minlength=nkeys)
+    present = np.nonzero(sizes)[0]
+    calls = _dispatches("aggregate.size")
+    if calls != len(np.unique(sizes[present])):
+        raise AssertionError(f"aggregate group cond: {calls} calls for "
+                             f"{len(np.unique(sizes[present]))} distinct sizes")
+    sums = np.bincount(kh, weights=xh.astype(np.float64), minlength=nkeys)
+    maxes = np.full(nkeys, -np.inf, np.float32)
+    np.maximum.at(maxes, kh, xh)
+    got = out.host_values("x")
+    if not np.array_equal(out.host_values("k"), present):
+        raise AssertionError("aggregate group cond: keys differ")
+    even = present % 2 == 0
+    if not np.array_equal(got[~even], maxes[present][~even]):
+        raise AssertionError("aggregate group cond: maxes differ from numpy")
+    err = _check_close("aggregate group cond sums", torch.from_numpy(got[even].astype(np.float64)),
+                       torch.from_numpy(sums[present][even]), _SUM_RTOL, 0.0)
+    return dict(rows=rows, keys=len(present), distinct_sizes=calls, seconds=secs,
+                rows_per_s=rows / secs, selects=counts.get("vectorize.lowered.cond"),
+                sum_max_abs_err=err, sum_rtol=_SUM_RTOL)
 
 
 def phase_freezing(tft, df) -> None:
@@ -1812,6 +2021,66 @@ def _fused_chain(tft, rows: int, blocks: int, stages: int = 3) -> None:
     )
     del ref, device_c, df, x
     torch.cuda.empty_cache()
+    _force_cache(tft, rows // 10, blocks, stages)
+
+
+def _force_cache(tft, rows: int, blocks: int, stages: int) -> None:
+    """A second `force()` of the fused chain over a host-resident base,
+    served by the materialization cache (``materialize_cache_bytes`` above
+    the result's size): a hit, no block dispatch, `torch.equal` to the
+    first force. The admission price first decides on its own (an
+    elementwise chain recomputes faster than its result is written, so it
+    is expected to refuse it); the hit path is then measured with the
+    admission held open, as the JAX package's cache tests hold it."""
+    from tensorframes_tpu_torch import config
+    from tensorframes_tpu_torch.runtime import materialize as mat
+    from tensorframes_tpu_torch.utils import telemetry
+
+    gen = torch.Generator().manual_seed(SEED + 15)
+    host_df = tft.TensorFrame([tft.Column("x", torch.rand(rows, generator=gen).numpy())])
+    host_df = host_df.repartition(blocks)
+    names = [f"c{k}" for k in range(stages)] + ["x"]
+
+    def force():
+        return _chain_maps(tft, host_df.lazy(), stages, False)[0].force()
+
+    mat.reset_state()
+    with config.override(materialize_cache_bytes=4 * rows * (stages + 1) * 2 + (1 << 20)):
+        first, first_s = _wall(force)
+        policy = mat.state()
+        miss, miss_s = first, first_s
+        if policy["stores"] == 0:
+            priced_out = mat._priced_out
+            mat._priced_out = lambda *a, **k: False
+            try:
+                miss, miss_s = _wall(force)
+            finally:
+                mat._priced_out = priced_out
+        stored = mat.state()
+        if stored["stores"] != 1:
+            raise AssertionError(f"force cache: the result was not stored: {stored}")
+        sid = telemetry.allocate_span_id()
+        hit, hit_s = _wall(force)
+        dispatched = sum(1 for s in telemetry.spans() if s.span_id > sid and s.kind == "dispatch")
+        st = mat.state()
+    if st["hits"] != 1 or dispatched:
+        raise AssertionError(f"force cache: {st['hits']} hits, {dispatched} block dispatches")
+    for c in names:
+        if not torch.equal(_as_host(hit.column(c).values), _as_host(miss.column(c).values)):
+            raise AssertionError(f"force cache: the hit's {c!r} differs from the first force")
+    _emit(
+        "lazy_force_cache", card=_CARD, rows=rows, blocks=blocks, maps=stages,
+        first_force_s=first_s, miss_s=miss_s, hit_s=hit_s, hit_over_miss=hit_s / miss_s,
+        hit_block_dispatches=dispatched, hit_equals_miss=True,
+        admission_policy_stored=policy["stores"], admission_policy_rejected=policy["rejected"],
+        entry_bytes=st["last_hit"]["bytes"], load_s=st["last_hit"]["load_seconds"],
+        store_s=stored["last_store"]["store_seconds"],
+    )
+    mat.reset_state()
+
+
+def _as_host(t):
+    return t.cpu() if isinstance(t, torch.Tensor) else torch.from_numpy(np.asarray(t))
 
 
 def _write_relational(tft, root: str, shards: int, groups: int, group_rows: int):
@@ -3034,6 +3303,172 @@ def phase_runtime_services(tft, rows: int = 200_000_000, blocks: int = 8,
     )
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the mesh verbs
+# ---------------------------------------------------------------------------
+
+
+def _mesh_dispatches():
+    """(name, shards) of every mesh dispatch span in the telemetry ring."""
+    from tensorframes_tpu_torch.utils import telemetry
+
+    return [(s.name, s.attrs.get("shards")) for s in telemetry.spans()
+            if s.kind == "dispatch" and s.name.startswith("mesh.")]
+
+
+def _mesh_and_local(what: str, local_call, mesh_call):
+    """(local result, local s, mesh result, mesh s, the mesh call's
+    dispatch spans): one warm-up call each way first."""
+    from tensorframes_tpu_torch.utils import telemetry
+
+    local_call()
+    mesh_call()
+    local, local_s = _wall(local_call)
+    telemetry.reset()
+    meshed, mesh_s = _wall(mesh_call)
+    spans = _mesh_dispatches()
+    if not spans or spans[0][1] != torch.cuda.device_count():
+        raise AssertionError(f"{what}: mesh dispatch spans {spans}")
+    return local, local_s, meshed, mesh_s, spans
+
+
+def phase_mesh_verbs(tft, rows: int = 200_000_000, blocks: int = 8, mlp_rows: int = 1_000_000,
+                     agg_rows: int = 100_000_000, dim: int = 8, nkeys: int = 16) -> None:
+    """Phase 17: the five verbs with ``mesh=data_mesh()`` (every visible
+    card), each against the local verb on the same data: phase 3's x+3
+    `map_blocks` and `reduce_blocks` sum / min over ``rows`` float32 rows,
+    phase 4's MLP `map_rows` over ``mlp_rows`` rows, a keyed sum over
+    ``agg_rows`` x ``dim`` float32 rows and ``nkeys`` keys through the
+    segment plan, and phase 5's mean / mean-of-squares graph through the
+    same plan (one segment table a shard, combined by each fetch's monoid,
+    a mean over the group counts); `reduce_rows` folds phase
+    3's column on the mesh. Maps, min and max `torch.equal` the local verb;
+    sums rtol 1e-5 against numpy float64."""
+    from tensorframes_tpu_torch.models import MLP
+    from tensorframes_tpu_torch.parallel import data_mesh
+
+    dsl = tft.dsl
+    mesh = data_mesh()
+    ndev = int(mesh.devices.size)
+    if ndev != torch.cuda.device_count():
+        raise AssertionError(f"data_mesh() holds {ndev} devices, the machine {torch.cuda.device_count()}")
+    out = dict(devices=ndev, mesh=repr(mesh))
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    x = torch.rand(rows, device="cuda", generator=gen)
+    df = tft.TensorFrame([tft.Column("x", x)]).repartition(blocks)
+    z = (tft.block(df, "x") + 3.0).named("z")
+    local, local_s, meshed, mesh_s, spans = _mesh_and_local(
+        "map_blocks", lambda: tft.map_blocks(z, df), lambda: tft.map_blocks(z, df, mesh=mesh))
+    mz = meshed.column("z").values
+    if not (torch.equal(mz, local.column("z").values) and torch.equal(mz, x + 3.0)):
+        raise AssertionError("mesh map_blocks x+3 differs from the local verb")
+    out["map_blocks"] = dict(rows=rows, local_s=local_s, mesh_s=mesh_s,
+                             local_rows_per_s=rows / local_s, mesh_rows_per_s=rows / mesh_s,
+                             dispatch_spans=spans)
+    del local, meshed, mz
+
+    xh = x.cpu().numpy()
+    for name, op in (("reduce_sum", dsl.reduce_sum), ("reduce_min", dsl.reduce_min)):
+        g = op(tft.block(df, "x", tf_name="x_input")).named("x")
+        local, local_s, meshed, mesh_s, spans = _mesh_and_local(
+            name, lambda: tft.reduce_blocks(g, df), lambda: tft.reduce_blocks(g, df, mesh=mesh))
+        if name == "reduce_min":
+            if not (torch.equal(meshed, local) and meshed.item() == xh.min()):
+                raise AssertionError("mesh reduce_min differs from the local verb or numpy")
+            err = 0.0
+        else:
+            want = float(xh.sum(dtype=np.float64))
+            err = abs(meshed.item() - want) / want
+            if meshed.dtype != torch.float32 or err > _SUM_RTOL:
+                raise AssertionError(f"mesh reduce_sum rel err {err:.3e} > {_SUM_RTOL}")
+        out[name] = dict(rows=rows, local_s=local_s, mesh_s=mesh_s, rel_err=err,
+                         mesh_rows_per_s=rows / mesh_s, local_rows_per_s=rows / local_s,
+                         dispatch_spans=spans)
+
+    pair = _pair_graph(tft, dsl.add)
+    local, local_s, meshed, mesh_s, spans = _mesh_and_local(
+        "reduce_rows", lambda: tft.reduce_rows(pair, df), lambda: tft.reduce_rows(pair, df, mesh=mesh))
+    want = float(xh.sum(dtype=np.float64))
+    err = abs(meshed.item() - want) / want
+    if err > _SUM_RTOL:
+        raise AssertionError(f"mesh reduce_rows sum rel err {err:.3e} > {_SUM_RTOL}")
+    out["reduce_rows"] = dict(rows=rows, local_s=local_s, mesh_s=mesh_s, rel_err=err,
+                              mesh_rows_per_s=rows / mesh_s, dispatch_spans=spans)
+    del df, x, xh
+
+    sizes = [512, 512, 512, 10]
+    rng = np.random.default_rng(SEED)
+    params = [
+        ((rng.standard_normal((a, b)) * math.sqrt(2.0 / a)).astype(np.float32),
+         (rng.standard_normal(b) * 0.1).astype(np.float32))
+        for a, b in zip(sizes[:-1], sizes[1:])
+    ]
+    probs = MLP.from_jax_params(params).scoring_graph("features", block=False)
+    feats = torch.rand(mlp_rows, sizes[0], device="cuda", generator=gen)
+    fdf = tft.TensorFrame([tft.Column("features", feats)])
+    local, local_s, meshed, mesh_s, spans = _mesh_and_local(
+        "map_rows", lambda: tft.map_rows(probs, fdf), lambda: tft.map_rows(probs, fdf, mesh=mesh))
+    mp, lp = meshed.column("probs").values, local.column("probs").values
+    if ndev == 1 and not torch.equal(mp, lp):
+        raise AssertionError("mesh map_rows MLP differs from the local verb")
+    # over several cards each shard's products run at its own row count,
+    # for which cuBLAS may pick another kernel: the MLP's float tolerance
+    mlp_err = _check_close("mesh map_rows MLP", mp.to(lp.device), lp, _MLP_RTOL, _MLP_ATOL)
+    out["map_rows_mlp"] = dict(rows=mlp_rows, local_s=local_s, mesh_s=mesh_s,
+                               mesh_rows_per_s=mlp_rows / mesh_s,
+                               local_rows_per_s=mlp_rows / local_s, max_abs_err=mlp_err,
+                               dispatch_spans=spans)
+    del local, meshed, fdf, feats
+
+    v = torch.rand(agg_rows, dim, device="cuda", generator=gen)
+    keys = torch.arange(agg_rows, device="cuda") % nkeys
+    adf = tft.TensorFrame([tft.Column("k", keys), tft.Column("v", v)])
+    grouped = tft.group_by(adf, "k")
+    kh, vh = keys.cpu().numpy(), v.cpu().numpy()
+    counts = np.bincount(kh, minlength=nkeys).astype(np.float64)
+    want_s = np.stack([np.bincount(kh, weights=vh[:, j].astype(np.float64), minlength=nkeys)
+                       for j in range(dim)], 1)
+    want_q = np.stack([np.bincount(kh, weights=vh[:, j].astype(np.float64) ** 2,
+                                   minlength=nkeys) for j in range(dim)], 1)
+    del vh
+    total = dsl.reduce_sum(dsl.block(adf, "v", tf_name="v_input"), axes=[0]).named("v")
+    local, local_s, meshed, mesh_s, spans = _mesh_and_local(
+        "aggregate sum", lambda: tft.aggregate(total, grouped),
+        lambda: tft.aggregate(total, grouped, mesh=mesh))
+    if spans[0][0] != "mesh.aggregate.segment":
+        raise AssertionError(f"mesh aggregate sum took {spans}")
+    errs = [_check_close(f"{w} aggregate sum",
+                         torch.from_numpy(r.host_values("v").astype(np.float64)),
+                         torch.from_numpy(want_s), _SUM_RTOL, 0.0)
+            for w, r in (("mesh", meshed), ("local", local))]
+    out["aggregate_segment"] = dict(rows=agg_rows, dim=dim, keys=nkeys, local_s=local_s,
+                                    mesh_s=mesh_s, mesh_rows_per_s=agg_rows / mesh_s,
+                                    local_rows_per_s=agg_rows / local_s,
+                                    max_abs_err=errs[0], dispatch_spans=spans)
+    m = dsl.reduce_mean(dsl.block(adf, "v", tf_name="m_input"), axes=[0]).named("m")
+    q = dsl.reduce_mean(dsl.square(dsl.block(adf, "v", tf_name="q_input")), axes=[0]).named("q")
+    feed = {"m_input": "v", "q_input": "v"}
+    local, local_s, meshed, mesh_s, spans = _mesh_and_local(
+        "aggregate general", lambda: tft.aggregate([m, q], grouped, feed_dict=feed),
+        lambda: tft.aggregate([m, q], grouped, feed_dict=feed, mesh=mesh))
+    if spans != [("mesh.aggregate.segment", ndev)]:
+        raise AssertionError(f"mesh aggregate general took {spans}")
+    errs = [
+        _check_close(f"mesh aggregate {c}", torch.from_numpy(meshed.host_values(c).astype(np.float64)),
+                     torch.from_numpy(w / counts[:, None]), _SUM_RTOL, 0.0)
+        for c, w in (("m", want_s), ("q", want_q))
+    ]
+    out["aggregate_general"] = dict(rows=agg_rows, dim=dim, keys=nkeys, local_s=local_s,
+                                    mesh_s=mesh_s, mesh_rows_per_s=agg_rows / mesh_s,
+                                    local_rows_per_s=agg_rows / local_s,
+                                    max_abs_err=max(errs), local_plan="segment",
+                                    dispatch_spans=spans)
+    del local, meshed, adf, grouped, v, keys
+    torch.cuda.empty_cache()
+    _emit("mesh_verbs", card=_CARD, sum_rtol=_SUM_RTOL, **out)
+
+
 def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int) -> float:
     from tensorframes_tpu_torch.models import TransformerLM
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention_reference
@@ -3096,11 +3531,12 @@ def main() -> int:
     phase_training_and_moe(tft, cfg)
     phase_serving(tft)
     phase_runtime_services(tft)
+    phase_mesh_verbs(tft)
     if flash_attention.launches:
         raise AssertionError(
             f"the verb, aggregate, k-means, Inception, control-flow, freezing, "
-            f"frame-breadth, streaming, lazy-plan, training, serving and runtime-services "
-            f"phases launched flash_attention {flash_attention.launches} times; none of "
+            f"frame-breadth, streaming, lazy-plan, training, serving, runtime-services "
+            f"and mesh phases launched flash_attention {flash_attention.launches} times; none of "
             f"their graphs holds attention"
         )
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)

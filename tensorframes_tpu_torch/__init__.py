@@ -60,6 +60,10 @@ memory (`runtime.faults`). ``tft.profile.snapshot()`` captures a
 schema), and ``tft.autotune()`` recommends and applies knob changes from
 one; ``config.autotune`` runs that loop in the background.
 
+Meshes: every verb takes ``mesh=`` (`parallel.data_mesh()` holds every
+visible card, ``data_mesh(devices=["cpu"] * 8)`` runs the shards on the
+CPU); the rows shard across the mesh's devices (`parallel.verbs`).
+
 Float32 matrix products run in full float32: TF32 is turned off here for
 cuBLAS and cuDNN, because the parity bars against the JAX package assume
 it.

@@ -1,22 +1,27 @@
-"""Keyed-aggregation planner: the two execution plans behind
+"""Keyed-aggregation planner: the three execution plans behind
 `api.aggregate`.
 
-The PyTorch counterpart of `tensorframes_tpu/aggregate.py`, with the plans
-the JAX package runs under its default config:
+The PyTorch counterpart of `tensorframes_tpu/aggregate.py`:
 
 - `_aggregate_segment`: the row-wise transform of every fetch runs over
   all rows in one call, then one segment sum / min / max / prod per fetch
   (a mean is the segment sum over the group counts). Taken by graphs
-  `_chunk_combiners` classifies.
+  `_chunk_combiners` classifies while ``config.aggregate_segment_fast`` is
+  on (the default).
 - `_aggregate_exact`: rows sorted by group id once; for each distinct
   group size, the groups of that size are gathered to
   ``(groups, size, *cell)`` on the device and run through the lowered
-  callable under `torch.func.vmap` (one call a group for a graph with
-  control flow, whose predicates `vmap` cannot read). Taken by every
-  other graph.
+  callable under `torch.func.vmap`, control flow included (a cond selects
+  per group, a loop runs masked: `graph.vectorize`). Taken by every other
+  graph.
+- `_aggregate_chunked`: power-of-two chunks of each sorted group, one
+  vmapped call per chunk size, then a monoid combine of each group's
+  partials. Taken instead of the exact plan by a classified graph with
+  more distinct group sizes than ``config.aggregate_exact_size_limit``.
 
-Not ported: the chunked plan (unreachable under the JAX package's default
-config) and the TPU-only one-hot segment sum.
+`parallel.verbs.aggregate` runs the segment plan once a shard. Not ported:
+the block scheduler's fan-out of the per-size calls (item 12.2) and the
+TPU-only one-hot segment sum.
 """
 
 from __future__ import annotations
@@ -253,20 +258,11 @@ def _aggregate_segment(
     return _keyed_output(key_out, results, bases)
 
 
-def _aggregate_exact(
-    ex,
-    graph: Graph,
-    fetch_list: List[str],
-    summary: GraphSummary,
-    feed_names: List[str],
-    mapping: Dict[str, str],
-    grouped,
-    device: torch.device,
-) -> TensorFrame:
-    """Whole groups through the lowered graph, one vmapped call per
-    distinct group size: no associativity assumed."""
-    from .api import _empty_output
-
+def _group_plan(grouped, mapping: Dict[str, str], feed_names: List[str], device: torch.device):
+    """The sorted plans' prologue: keys factorized, rows sorted by group
+    id once on ``device``. Returns ``(key_out, num_groups, counts,
+    starts, col_data)``: host group sizes and start offsets, and every
+    feed column in sorted row order on ``device``."""
     frame = grouped.frame
     key_out, inverse, num_groups = _factorized(grouped, device)
     order = torch.argsort(inverse, stable=True)
@@ -275,30 +271,41 @@ def _aggregate_exact(
     col_data = {
         n: as_tensor(frame.column(mapping[n]).values, device)[order] for n in feed_names
     }
-    if any(n.op in _vec.CONTROL_OPS for n in graph.toposort(fetch_list)):
-        # torch.func.vmap cannot read a batched predicate: one call a group
-        fn = ex.callable_for(graph, fetch_list, feed_names, device)
+    return key_out, num_groups, counts, starts, col_data
 
-        def vfn(*cols):
-            outs = [fn(*[c[g] for c in cols]) for g in range(cols[0].shape[0])]
-            return tuple(torch.stack(o) for o in zip(*outs))
-    else:
-        vfn = ex.cached(
-            "vmap-agg", graph, fetch_list, feed_names, device,
-            lambda d: torch.func.vmap(build_callable(graph, fetch_list, feed_names, d)),
-        )
-    bases = [_base(f) for f in fetch_list]
-    results: Dict[str, Optional[torch.Tensor]] = {b: None for b in bases}
+
+def _vmapped(ex, graph: Graph, fetch_list: List[str], feed_names: List[str], device):
+    """The block graph under `torch.func.vmap` over a lead axis of groups
+    (or chunks): ``(n, size, *cell)`` feeds, ``(n, *out)`` outputs. Control
+    flow selects and loops per group (`graph.vectorize`)."""
+    return ex.cached(
+        "vmap-agg", graph, fetch_list, feed_names, device,
+        lambda d: torch.func.vmap(build_callable(graph, fetch_list, feed_names, d)),
+    )
+
+
+def _gather_rows(col_data, feed_names, starts: np.ndarray, size: int, device):
+    """``(len(starts), size, *cell)`` feeds: ``size`` sorted rows from each
+    start (the row index is built on ``device``)."""
+    rows = (torch.from_numpy(starts).to(device)[:, None]
+            + torch.arange(size, device=device)[None, :])
+    return [col_data[n][rows] for n in feed_names]
+
+
+def _aggregate_exact(
+    vfn, feed_names, col_data, counts, starts, num_groups, bases, device, program,
+) -> Dict[str, torch.Tensor]:
+    """Whole groups through the vmapped graph, one call per distinct group
+    size: no associativity assumed."""
+    results: Dict[str, torch.Tensor] = {}
     fscope = _flt.scope("aggregate")
-    fp = graph.fingerprint()
     for size in np.unique(counts[counts > 0]):
         gids = np.nonzero(counts == size)[0]
-        rows = torch.from_numpy(starts[gids][:, None] + np.arange(size)[None, :]).to(device)
-        feeds = [col_data[n][rows] for n in feed_names]  # (g, size, *cell) each
+        feeds = _gather_rows(col_data, feed_names, starts[gids], int(size), device)
 
         def thunk(feeds=feeds, size=size, g=len(gids)):
             with _tele.dispatch_span(
-                "aggregate.size", program=fp, rows=int(size) * g, size=int(size),
+                "aggregate.size", program=program, rows=int(size) * g, size=int(size),
                 torch_device=device,
             ):
                 return vfn(*feeds)
@@ -307,12 +314,147 @@ def _aggregate_exact(
         _flt.maybe_check_numerics(bases, outs, f"aggregate groups of size {size}")
         gids_t = torch.from_numpy(gids).to(device)
         for b, o in zip(bases, outs):
-            if results[b] is None:
+            if b not in results:
                 results[b] = torch.zeros(
                     (num_groups,) + tuple(o.shape[1:]), dtype=o.dtype, device=device
                 )
             results[b][gids_t] = o
+    return results
+
+
+def _chunks(counts: np.ndarray, starts: np.ndarray):
+    """Binary decomposition of every sorted group into power-of-two chunks,
+    largest first, in row order. Returns ``(by_size, group_of_slot,
+    slot_size)``: ``by_size[p] = (chunk starts, slots)`` for each chunk
+    size ``p``; a group's chunks take consecutive slots."""
+    nchunks = np.zeros(len(counts), np.int64)
+    top = int(counts.max()).bit_length() if len(counts) else 0
+    for k in range(top):
+        nchunks += (counts >> k) & 1
+    base = np.concatenate([[0], np.cumsum(nchunks)[:-1]]).astype(np.int64)
+    seen = np.zeros(len(counts), np.int64)
+    by_size = {}
+    slot_size = np.zeros(int(nchunks.sum()), np.int64)
+    for k in reversed(range(top)):
+        p = 1 << k
+        gs = np.nonzero(counts & p)[0]
+        if not len(gs):
+            continue
+        st = starts[gs] + (counts[gs] & ~(2 * p - 1))  # the higher chunks first
+        slots = base[gs] + seen[gs]
+        seen[gs] += 1
+        by_size[p] = (st, slots)
+        slot_size[slots] = p
+    return by_size, np.repeat(np.arange(len(counts)), nchunks), slot_size
+
+
+def _monoid_combine(tab: torch.Tensor, group_of_slot: torch.Tensor, num_groups: int,
+                    comb: str, weights: torch.Tensor) -> torch.Tensor:
+    """Each group's chunk partials combined by the fetch's derived monoid;
+    a mean is weighted by its chunks' row counts (in float64, as the JAX
+    package's ``reduceat``)."""
+    if comb != "mean":
+        return segment_reduce(tab, group_of_slot, num_groups, _SEGMENT_OF[comb])
+    w = weights.reshape((-1,) + (1,) * (tab.dim() - 1))
+    num = segment_reduce(tab.to(torch.float64) * w, group_of_slot, num_groups, "sum")
+    den = segment_reduce(weights, group_of_slot, num_groups, "sum")
+    return (num / den.reshape((-1,) + (1,) * (tab.dim() - 1))).to(tab.dtype)
+
+
+def _aggregate_chunked(
+    vfn, feed_names, col_data, counts, starts, num_groups, bases, combiners, device,
+    program=None,
+) -> Dict[str, torch.Tensor]:
+    """Keyed aggregation by power-of-two chunks and a monoid combine.
+
+    The exact plan makes one call per distinct group size: a distribution
+    of all-distinct sizes makes one a group. Here each sorted group splits
+    into power-of-two chunks (the binary digits of its size, in row order);
+    all chunks of one size run as ONE call of the vmapped graph over
+    ``(n, size, *cell)`` feeds, every size dispatched before any result is
+    read; then each group's partials combine by its fetch's monoid
+    (`_chunk_combiners`), size-weighted for a mean. O(log max size) calls,
+    whatever the distribution."""
+    if num_groups == 0:
+        return {}
+    by_size, group_of_slot, slot_size = _chunks(counts, starts)
+    nslots = len(slot_size)
+    fscope = _flt.scope("aggregate")
+    pending = []
+    for p in sorted(by_size, reverse=True):
+        st, slots = by_size[p]
+        feeds = _gather_rows(col_data, feed_names, st, p, device)
+
+        def thunk(feeds=feeds, p=p, n=len(slots)):
+            with _tele.dispatch_span(
+                "aggregate.chunk", program=program, rows=n * p, size=p, torch_device=device,
+            ):
+                return vfn(*feeds)
+
+        outs = fscope.dispatch(thunk, what=f"aggregate chunks of size {p}")
+        _flt.maybe_check_numerics(bases, outs, f"aggregate chunks of size {p}")
+        pending.append((slots, outs))
+    partials: Dict[str, torch.Tensor] = {}
+    for slots, outs in pending:
+        idx = torch.from_numpy(slots).to(device)
+        for b, o in zip(bases, outs):
+            o = o.to(device)
+            if b not in partials:
+                partials[b] = torch.empty(
+                    (nslots,) + tuple(o.shape[1:]), dtype=o.dtype, device=device
+                )
+            partials[b][idx] = o
+    gos = torch.from_numpy(group_of_slot).to(device)
+    weights = torch.from_numpy(slot_size.astype(np.float64)).to(device)
+    return {
+        b: _monoid_combine(partials[b], gos, num_groups, combiners[b], weights)
+        for b in bases
+    }
+
+
+def _aggregate_sorted(
+    ex,
+    graph: Graph,
+    fetch_list: List[str],
+    summary: GraphSummary,
+    feed_names: List[str],
+    mapping: Dict[str, str],
+    grouped,
+    device: torch.device,
+    classified: Optional[Dict[str, str]],
+) -> TensorFrame:
+    """The plans over rows sorted by group: the exact plan, or, for a
+    classified graph with more distinct group sizes than
+    ``config.aggregate_exact_size_limit``, the chunk plan. Counted as
+    ``aggregate.plan.exact`` / ``aggregate.plan.chunk``."""
+    from . import config as _config
+    from .api import _empty_output
+    from .utils.profiling import count as _count
+
+    key_out, num_groups, counts, starts, col_data = _group_plan(
+        grouped, mapping, feed_names, device
+    )
+    vfn = _vmapped(ex, graph, fetch_list, feed_names, device)
+    bases = [_base(f) for f in fetch_list]
+    combiners = None
+    if len(np.unique(counts[counts > 0])) > _config.get().aggregate_exact_size_limit:
+        # only a provably chunk-safe graph chunks; any other keeps the
+        # exact plan, at one call a distinct size
+        combiners = classified
+    plan = "exact" if combiners is None else "chunk"
+    _count(f"aggregate.plan.{plan}")
+    fp = graph.fingerprint()
+    with _tele.span(f"aggregate.plan.{plan}", kind="stage", program=fp):
+        if combiners is None:
+            results = _aggregate_exact(
+                vfn, feed_names, col_data, counts, starts, num_groups, bases, device, fp
+            )
+        else:
+            results = _aggregate_chunked(
+                vfn, feed_names, col_data, counts, starts,
+                num_groups, bases, combiners, device, program=fp,
+            )
     for b in bases:
-        if results[b] is None:  # empty frame: zero groups
+        if b not in results:  # empty frame: zero groups
             results[b] = _empty_output(summary, b, False, device)
     return _keyed_output(key_out, results, bases)

@@ -34,9 +34,16 @@ placeholders, `map_blocks` defers; `reduce_blocks` fuses the pending chain
 with the reduce; `map_rows`, `reduce_rows` and `aggregate` force the plan
 first. `scan` opens a dataset as a relational plan (`RelationalFrame`).
 
-Not in the port yet: the mesh/scheduler/global routes and the chunked
-aggregate plan; shape bucketing is left out on purpose (eager PyTorch has
-no per-shape compile to bound).
+Every verb takes ``mesh=`` (`parallel.data_mesh()`: every visible card;
+an explicit device list, ``data_mesh(devices=["cpu"] * 8)``, on the CPU):
+the rows shard across the mesh's devices (`parallel.verbs`). ``mesh=``
+and ``device=`` together raise ``ValueError``; ``mesh=`` on a lazy plan
+raises ``NotImplementedError``.
+
+Not in the port yet: ``devices=`` and the block scheduler, the global-frame
+routes and the mesh routes of lazy plans (ROADMAP Queue 1 items 12.2 and
+12.3); shape bucketing is left out on purpose (eager PyTorch has no
+per-shape compile to bound).
 """
 
 from __future__ import annotations
@@ -48,8 +55,8 @@ import numpy as np
 import torch
 
 from .aggregate import (
-    _aggregate_exact,
     _aggregate_segment,
+    _aggregate_sorted,
     _chunk_combiners,
     _rowwise_transform,
 )
@@ -281,6 +288,23 @@ def _prepare(
         validate(summary, fetch_list)
     mapping = _match_columns(summary, frame, feed_dict, block_level, bindings)
     return summary, mapping
+
+
+def _check_mesh_args(verb: str, mesh, device) -> None:
+    if mesh is not None and device is not None:
+        raise ValueError(
+            f"{verb}: pass mesh= or device=, not both; a mesh places each "
+            "shard on its own device"
+        )
+
+
+def _mesh_on_lazy(verb: str):
+    raise NotImplementedError(
+        f"{verb}: mesh= on a lazy plan (a LazyFrame, or a map under "
+        "tft.lazy()) is not in the port yet (ROADMAP Queue 1 item 12.3, the "
+        "mesh routes of LazyFrame.force); call .force() first, or run the "
+        "verb outside lazy mode"
+    )
 
 
 def _require_dense(frame: TensorFrame, cols: Sequence[str], verb: str) -> None:
@@ -603,9 +627,11 @@ def map_blocks(
     executor: Optional[Executor] = None,
     bindings: Bindings = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> TensorFrame:
     """Apply a graph, or a plain function of columns returning a dict of
-    named outputs, to each block on ``device``.
+    named outputs, to each block on ``device``, or with ``mesh=`` one
+    block a device of the mesh (`parallel.verbs.map_blocks`).
 
     Without ``trim`` every output keeps the block's row count and the
     input columns ride along; with ``trim=True`` the row count may change
@@ -621,7 +647,10 @@ def map_blocks(
     """
     from .lazy import LazyFrame, lazy_active
 
+    _check_mesh_args("map_blocks", mesh, device)
     if isinstance(frame, LazyFrame):
+        if mesh is not None:
+            _mesh_on_lazy("map_blocks")
         return frame.map_blocks(
             fetches, feed_dict=feed_dict, trim=trim, fetch_names=fetch_names,
             executor=executor, bindings=bindings, device=device,
@@ -637,31 +666,46 @@ def map_blocks(
         if not any(
             ph.dtype_attr is ScalarType.string for ph in lazy_graph.placeholders()
         ):
+            if mesh is not None:
+                _mesh_on_lazy("map_blocks")
             # _fuse_stage directly: the graph is already normalized
             return LazyFrame(frame, executor=executor, device=device)._fuse_stage(
                 "map_blocks", lazy_graph, lazy_fetches, feed_dict
             )
         # bytes pass-through cannot splice: stays eager under the mode
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else None
     bindings = _normalize_bindings(bindings)
     if callable(fetches) and not isinstance(fetches, dsl.Tensor):
+        if mesh is not None:
+            from .parallel import verbs as _pverbs
+
+            return _pverbs.map_blocks(fetches, frame, mesh, trim=trim, bindings=bindings)
         from .fn_frontend import _map_blocks_fn
 
         return _map_blocks_fn(fetches, frame, trim, dev, bindings)
     graph, fetch_list = _as_graph(fetches, fetch_names)
     graph, fetch_list, str_pass = _split_string_passthrough(graph, fetch_list)
+
+    def run_graph(trim):
+        if mesh is not None:
+            from .parallel import verbs as _pverbs
+
+            return _pverbs.map_blocks(
+                graph, frame, mesh, feed_dict, trim, fetch_list, executor, bindings
+            )
+        return _map_blocks_graph(graph, fetch_list, frame, feed_dict, trim, executor, bindings, dev)
+
     if str_pass:
+        # bytes columns ride on the host in every topology
         if trim:
             raise ValueError(
                 "map_blocks(trim): bytes pass-through requires a row-preserving map"
             )
         return _with_string_passthrough(
             str_pass, frame, feed_dict, fetch_list, bindings, "map_blocks",
-            lambda: _map_blocks_graph(
-                graph, fetch_list, frame, feed_dict, False, executor, bindings, dev
-            ),
+            lambda: run_graph(False),
         )
-    return _map_blocks_graph(graph, fetch_list, frame, feed_dict, trim, executor, bindings, dev)
+    return run_graph(trim)
 
 
 def _map_blocks_graph(graph, fetch_list, frame, feed_dict, trim, executor, bindings, dev):
@@ -717,21 +761,27 @@ def _map_blocks_graph(graph, fetch_list, frame, feed_dict, trim, executor, bindi
 # ---------------------------------------------------------------------------
 
 
-def _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev):
-    """`map_rows`' plan for this graph, counted: ``run(feeds, rows)`` gives
-    one block's outputs, each with the row axis (see `map_rows`)."""
-    control = any(n.op in _vec.CONTROL_OPS for n in graph.toposort(fetch_list))
-    if not control:
-        return _vmap_plan(ex, graph, fetch_list, feed_names, bindings, dev)
-
+def _row_plan_kind(graph, fetch_list, feed_names, summary, bindings) -> str:
+    """`map_rows`' plan for this graph (see `map_rows`): ``vmap``,
+    ``lifted`` or ``per_row``; a fallback's reason is counted."""
+    if not any(n.op in _vec.CONTROL_OPS for n in graph.toposort(fetch_list)):
+        return "vmap"
     if not _vec.enabled():
         _vec.note_fallback("disabled")
-        return _per_row_plan(ex, graph, fetch_list, feed_names, bindings, dev)
+        return "per_row"
     block_rank = {n: summary.inputs[n].shape.rank + 1 for n in feed_names}
     if not bindings and _rowwise_transform(graph, fetch_list, block_rank.get):
-        _count("map_rows.plan.lifted")
+        return "lifted"
+    return "vmap"
+
+
+def _row_runner(plan, ex, graph, fetch_list, feed_names, summary, bindings, dev, prefix=""):
+    """``run(feeds, rows)`` of ``plan`` on ``dev``: one block's outputs,
+    each with the row axis. ``prefix`` namespaces the executor cache kinds
+    (a mesh's shard programs)."""
+    if plan == "lifted":
         fn = ex.cached(
-            "lifted-rows", graph, fetch_list, feed_names, dev,
+            prefix + "lifted-rows", graph, fetch_list, feed_names, dev,
             lambda d: build_callable(
                 _vec.lift_to_block_level(graph.clone()), fetch_list, feed_names, d,
                 row_axis=True,
@@ -748,31 +798,22 @@ def _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev):
             )
 
         return lifted
-
-    if _vec.vmap_eligible(graph):
-        return _vmap_plan(ex, graph, fetch_list, feed_names, bindings, dev)
-    return _per_row_plan(ex, graph, fetch_list, feed_names, bindings, dev)
-
-
-def _vmap_plan(ex, graph, fetch_list, feed_names, bindings, dev):
-    """The per-row callable under `torch.func.vmap` over the block's
-    rows, bound placeholders whole (``in_dims`` None)."""
-    _count("map_rows.plan.vmap")
-    in_dims = tuple(None if n in bindings else 0 for n in feed_names)
-    vfn = ex.cached(
-        f"vmap-rows-[{','.join(sorted(bindings))}]" if bindings else "vmap-rows",
-        graph, fetch_list, feed_names, dev,
-        lambda d: torch.func.vmap(
-            build_callable(graph, fetch_list, feed_names, d), in_dims=in_dims
-        ),
+    if plan == "vmap":
+        # bound placeholders whole (in_dims None)
+        in_dims = tuple(None if n in bindings else 0 for n in feed_names)
+        kind = f"vmap-rows-[{','.join(sorted(bindings))}]" if bindings else "vmap-rows"
+        vfn = ex.cached(
+            prefix + kind, graph, fetch_list, feed_names, dev,
+            lambda d: torch.func.vmap(
+                build_callable(graph, fetch_list, feed_names, d), in_dims=in_dims
+            ),
+        )
+        return lambda feeds, rows: vfn(*feeds)
+    # per_row: the callable once a row, bound placeholders whole
+    fn = ex.cached(
+        prefix + "block", graph, fetch_list, feed_names, dev,
+        lambda d: build_callable(graph, list(fetch_list), list(feed_names), d),
     )
-    return lambda feeds, rows: vfn(*feeds)
-
-
-def _per_row_plan(ex, graph, fetch_list, feed_names, bindings, dev):
-    """The callable once per row, bound placeholders whole."""
-    _count("map_rows.plan.per_row")
-    fn = ex.callable_for(graph, fetch_list, feed_names, dev)
     per_row = [n not in bindings for n in feed_names]
 
     def rows_one_by_one(feeds, rows):
@@ -782,6 +823,14 @@ def _per_row_plan(ex, graph, fetch_list, feed_names, bindings, dev):
         return tuple(torch.stack(col) for col in zip(*outs))
 
     return rows_one_by_one
+
+
+def _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev):
+    """`map_rows`' plan for this graph on ``dev``, counted
+    (``map_rows.plan.<plan>``)."""
+    plan = _row_plan_kind(graph, fetch_list, feed_names, summary, bindings)
+    _count(f"map_rows.plan.{plan}")
+    return _row_runner(plan, ex, graph, fetch_list, feed_names, summary, bindings, dev)
 
 
 @_pandas_in_out
@@ -795,25 +844,24 @@ def map_rows(
     executor: Optional[Executor] = None,
     bindings: Bindings = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> TensorFrame:
     """Apply a per-row graph, or a plain function of row cells returning
-    a dict of named outputs, to every row, one call per block where the
-    graph allows it (the reference ran one session per row). Three plans:
+    a dict of named outputs, to every row, one call per block (the
+    reference ran one session per row). Three plans:
 
     - ``lifted``, for a graph with `_Cond`/`_While` that is row-local
       (`aggregate._rowwise_transform`) and has no bindings: the graph
       lifted to block level, so its predicates carry the row axis and
       `graph.vectorize` selects per row and loops under a per-row mask,
       as JAX's batching rules do under `vmap`;
-    - ``vmap``, for any other graph whose control flow is only `_Cond`
-      (and for a graph without control flow): the per-row callable
-      vectorized over the block's rows with `torch.func.vmap`, a cond
-      evaluating both branches and selecting per row;
-    - ``per_row``, for a graph with a `_While` it cannot lift, or any
-      graph with control flow when ``config.row_vectorize`` is off: the
-      callable once per row (`torch.func.vmap` cannot read a batched loop
-      predicate on the host). The reason is counted
-      (``vectorize.fallback.<reason>``).
+    - ``vmap``, for any other graph: the per-row callable vectorized over
+      the block's rows with `torch.func.vmap`, a cond evaluating both
+      branches and selecting per row, a loop running while any row's
+      predicate holds (`graph.vectorize.vmap_while`);
+    - ``per_row``, for a graph with control flow when
+      ``config.row_vectorize`` is off: the callable once per row (the
+      reason is counted, ``vectorize.fallback.disabled``).
 
     Bound placeholders are the same for every row. The plan taken is
     counted (``map_rows.plan.<plan>``). Over ragged columns the rows are
@@ -825,22 +873,34 @@ def map_rows(
     first (one fused callable per block)."""
     from .lazy import LazyFrame
 
+    _check_mesh_args("map_rows", mesh, device)
     if isinstance(frame, LazyFrame):
+        if mesh is not None:
+            _mesh_on_lazy("map_rows")
         frame = frame.force(device=device)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else None
     bindings = _normalize_bindings(bindings)
+    if mesh is not None:
+        from .parallel import verbs as _pverbs
     if callable(fetches) and not isinstance(fetches, dsl.Tensor):
+        if mesh is not None:
+            return _pverbs.map_rows(fetches, frame, mesh, bindings=bindings)
         from .fn_frontend import _map_rows_fn
 
         return _map_rows_fn(fetches, frame, dev, bindings)
     graph, fetch_list = _as_graph(fetches, fetch_names)
     graph, fetch_list, str_pass = _split_string_passthrough(graph, fetch_list)
+
+    def run_graph():
+        if mesh is not None:
+            return _pverbs.map_rows(graph, frame, mesh, feed_dict, fetch_list, executor, bindings)
+        return _map_rows_graph(graph, fetch_list, frame, feed_dict, executor, bindings, dev)
+
     if str_pass:
         return _with_string_passthrough(
-            str_pass, frame, feed_dict, fetch_list, bindings, "map_rows",
-            lambda: _map_rows_graph(graph, fetch_list, frame, feed_dict, executor, bindings, dev),
+            str_pass, frame, feed_dict, fetch_list, bindings, "map_rows", run_graph
         )
-    return _map_rows_graph(graph, fetch_list, frame, feed_dict, executor, bindings, dev)
+    return run_graph()
 
 
 def _map_rows_graph(graph, fetch_list, frame, feed_dict, executor, bindings, dev):
@@ -991,6 +1051,7 @@ def reduce_blocks(
     fetch_names: Optional[Sequence[str]] = None,
     executor: Optional[Executor] = None,
     device: DeviceLike = None,
+    mesh=None,
 ):
     """Per-block reduce, then one combine over the stacked partials.
     Returns one tensor for one fetch, a dict of tensors for several; the
@@ -999,10 +1060,17 @@ def reduce_blocks(
     whole pipeline runs as ONE callable per block."""
     from .lazy import LazyFrame
 
+    _check_mesh_args("reduce_blocks", mesh, device)
     if isinstance(frame, LazyFrame):
+        if mesh is not None:
+            _mesh_on_lazy("reduce_blocks")
         return frame.reduce_blocks(
             fetches, feed_dict, fetch_names, executor, device=device
         )
+    if mesh is not None:
+        from .parallel import verbs as _pverbs
+
+        return _pverbs.reduce_blocks(fetches, frame, mesh, feed_dict, fetch_names, executor)
     dev = resolve_device(device)
     graph, fetch_list = _as_graph(fetches, fetch_names)
     summary, mapping = _prepare(
@@ -1111,6 +1179,35 @@ def _monoid_reductions(graph: Graph, bases: List[str], summary: GraphSummary):
     return out
 
 
+def _fold_columns(mapping: Dict[str, str], bases: List[str]) -> List[str]:
+    """The column each fetch folds: its ``x_1`` and ``x_2`` must read the
+    same one."""
+    for b in bases:
+        c1, c2 = mapping[b + "_1"], mapping[b + "_2"]
+        if c1 != c2:
+            raise ValueError(
+                f"reduce_rows: {b}_1 reads column {c1!r} but {b}_2 reads "
+                f"{c2!r}; a fold's carry and next-row must come from the "
+                "same column"
+            )
+    return [mapping[b + "_1"] for b in bases]
+
+
+def _pair_feeds(bases: List[str]) -> List[str]:
+    return [b + s for b in bases for s in ("_1", "_2")]
+
+
+def _fold(rows: List[torch.Tensor], monoid, pair) -> Tuple[torch.Tensor, ...]:
+    """Left fold of the lead axis of each base's tensor: one reduction a
+    fetch for a monoid, else the pair callable row by row."""
+    if monoid is not None:
+        return tuple(r(x) for r, x in zip(monoid, rows))
+    carry = tuple(x[0] for x in rows)
+    for i in range(1, len(rows[0])):
+        carry = pair(*[v for c, x in zip(carry, rows) for v in (c, x[i])])
+    return carry
+
+
 @_pandas_in_out
 @torch.no_grad()
 def reduce_rows(
@@ -1120,6 +1217,7 @@ def reduce_rows(
     fetch_names: Optional[Sequence[str]] = None,
     executor: Optional[Executor] = None,
     device: DeviceLike = None,
+    mesh=None,
 ):
     """Pairwise fold over all rows: ``x = f(x_1, x_2)`` with the carry in
     ``x_1`` and the next row in ``x_2``.
@@ -1139,8 +1237,15 @@ def reduce_rows(
     """
     from .lazy import LazyFrame
 
+    _check_mesh_args("reduce_rows", mesh, device)
     if isinstance(frame, LazyFrame):
+        if mesh is not None:
+            _mesh_on_lazy("reduce_rows")
         frame = frame.force(device=device)
+    if mesh is not None:
+        from .parallel import verbs as _pverbs
+
+        return _pverbs.reduce_rows(fetches, frame, mesh, feed_dict, fetch_names, executor)
     dev = resolve_device(device)
     graph, fetch_list = _as_graph(fetches, fetch_names)
     summary, mapping = _prepare(
@@ -1148,30 +1253,16 @@ def reduce_rows(
     )
     _require_dense(frame, list(mapping.values()), "reduce_rows")
     bases = [base_name(f) for f in fetch_list]
-    for b in bases:
-        c1, c2 = mapping[b + "_1"], mapping[b + "_2"]
-        if c1 != c2:
-            raise ValueError(
-                f"reduce_rows: {b}_1 reads column {c1!r} but {b}_2 reads "
-                f"{c2!r}; a fold's carry and next-row must come from the "
-                "same column"
-            )
+    cols = _fold_columns(mapping, bases)
     monoid = _monoid_reductions(graph, bases, summary)
     _count("reduce_rows.plan.monoid" if monoid else "reduce_rows.plan.general")
+    pair = None
     if monoid is None:
         ex = executor or default_executor()
-        pair = ex.callable_for(
-            graph, fetch_list, [b + s for b in bases for s in ("_1", "_2")], dev
-        )
+        pair = ex.callable_for(graph, fetch_list, _pair_feeds(bases), dev)
 
     def fold(rows: List[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-        """Left fold of the lead axis of each base's tensor."""
-        if monoid is not None:
-            return tuple(r(x) for r, x in zip(monoid, rows))
-        carry = tuple(x[0] for x in rows)
-        for i in range(1, len(rows[0])):
-            carry = pair(*[v for c, x in zip(carry, rows) for v in (c, x[i])])
-        return carry
+        return _fold(rows, monoid, pair)
 
     # classified transient retries only: the verb's contract is a LEFT
     # FOLD in row order, so an OOM cannot split the block (regrouping
@@ -1183,7 +1274,7 @@ def reduce_rows(
         lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
         if lo == hi:
             continue
-        rows = [as_tensor(frame.column(mapping[b + "_1"]).values[lo:hi], dev) for b in bases]
+        rows = [as_tensor(frame.column(c).values[lo:hi], dev) for c in cols]
         if hi - lo == 1:  # a single-row block's partial is its row
             partials.append(tuple(x[0] for x in rows))
             continue
@@ -1271,6 +1362,7 @@ def aggregate(
     fetch_names: Optional[Sequence[str]] = None,
     executor: Optional[Executor] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> TensorFrame:
     """Keyed aggregation with the `reduce_blocks` naming conventions: the
     key columns (distinct keys in sorted order), then one row per group of
@@ -1278,14 +1370,27 @@ def aggregate(
 
     A graph `_chunk_combiners` classifies (a Sum/Min/Max/Prod/float Mean
     over axis 0 of a row-wise transform of its placeholder) takes the
-    segment plan; any other graph the exact plan, whole groups through the
-    graph (`DebugRowOps.aggregate`, `DebugRowOps.scala:554-599`). A string
-    key's column comes back as host strings.
+    segment plan while ``config.aggregate_segment_fast`` is on; otherwise
+    rows are sorted by group and whole groups run through the graph, one
+    vmapped call per distinct group size (the exact plan,
+    `DebugRowOps.aggregate`, `DebugRowOps.scala:554-599`), or, for a
+    classified graph with more than ``config.aggregate_exact_size_limit``
+    distinct sizes, in power-of-two chunks combined per group (the chunk
+    plan). A string key's column comes back as host strings. With
+    ``mesh=`` the rows shard across the mesh's devices
+    (`parallel.verbs.aggregate`).
     """
     from .lazy import LazyFrame
 
+    _check_mesh_args("aggregate", mesh, device)
     if isinstance(grouped.frame, LazyFrame):
+        if mesh is not None:
+            _mesh_on_lazy("aggregate")
         grouped = GroupedFrame(grouped.frame.force(device=device), grouped.keys)
+    if mesh is not None:
+        from .parallel import verbs as _pverbs
+
+        return _pverbs.aggregate(fetches, grouped, mesh, feed_dict, fetch_names, executor)
     dev = resolve_device(device)
     frame = grouped.frame
     graph, fetch_list = _as_graph(fetches, fetch_names)
@@ -1295,15 +1400,17 @@ def aggregate(
     _require_dense(frame, list(mapping.values()), "aggregate")
     ex = executor or default_executor()
     feed_names = sorted(summary.inputs)
+    # one classification serves the segment plan and the chunk plan
     classified = _chunk_combiners(graph, fetch_list, summary)
-    if frame.nrows > 0 and classified is not None:
+    from . import config as _config
+
+    if _config.get().aggregate_segment_fast and frame.nrows > 0 and classified is not None:
         _count("aggregate.plan.segment")
         return _aggregate_segment(
             ex, graph, fetch_list, classified, feed_names, mapping, grouped, dev
         )
-    _count("aggregate.plan.exact")
-    return _aggregate_exact(
-        ex, graph, fetch_list, summary, feed_names, mapping, grouped, dev
+    return _aggregate_sorted(
+        ex, graph, fetch_list, summary, feed_names, mapping, grouped, dev, classified
     )
 
 

@@ -10,10 +10,13 @@ the JAX package's: `get`, `update`, `override`, pin tracking
 the ``_env_*`` helpers. The port carries only the knobs its own code reads
 (the streaming reduce, the ingest pipeline, durable checkpoints, the fault
 layer, deadlines and admission, telemetry and its HTTP endpoint, the
-numerics flag, the lazy plans, per-row vectorization, the serving
-runtime's bucket ladder and batching lanes, the materialization cache and
-the flight recorder), each with the JAX package's name, ``TFS_*`` env var
-and default.
+numerics flag, the lazy plans, per-row vectorization, the aggregate plans,
+the executor's LRU bound, the serving runtime's bucket ladder and batching
+lanes, the materialization cache and the flight recorder), each with the
+JAX package's name, ``TFS_*`` env var and default. The JAX package's
+``default_num_blocks`` and ``aggregate_buffer_rows`` are read nowhere there,
+so the port leaves them out: setting either raises, as for any unknown
+key.
 
 Pin tracking: every knob set EXPLICITLY — through `update()`, inside an
 `override()` scope, or seeded from a well-formed ``TFS_*`` env var at
@@ -153,10 +156,49 @@ class Config:
             "TFS_INGEST_DECODE_WORKERS", 0, "ingest_decode_workers"
         )
     )
+    # aggregate: above this many DISTINCT group sizes, a graph
+    # `aggregate._chunk_combiners` classifies leaves the exact plan (one
+    # vmapped call per distinct size) for the power-of-two chunk plan
+    # (`aggregate._aggregate_chunked`): O(log max size) calls, whatever the
+    # size distribution. Unclassified graphs always take the exact plan.
+    aggregate_exact_size_limit: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_AGGREGATE_EXACT_SIZE_LIMIT", 32,
+            "aggregate_exact_size_limit", minimum=0,
+        )
+    )
+    # aggregate: the sort-free segment plan for classified graphs (the
+    # row-wise transform over all rows in one call, one segment reduce a
+    # fetch). Float sums differ from the exact plan's by order only. Off =
+    # the exact and chunk plans.
+    aggregate_segment_fast: bool = dataclasses.field(
+        default_factory=lambda: _env_bool(
+            "TFS_AGGREGATE_SEGMENT_FAST", True, "aggregate_segment_fast"
+        )
+    )
+    # Bound of the executor's LRU of lowered callables, read at every
+    # insert: a long-lived process whose graphs drift keeps at most this
+    # many.
+    executor_cache_entries: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_EXECUTOR_CACHE_ENTRIES", 512, "executor_cache_entries",
+            minimum=1,
+        )
+    )
     # Telemetry master switch (`utils.telemetry`): span recording and
     # histogram observation. Counters stay live either way.
     telemetry: bool = dataclasses.field(
         default_factory=lambda: _env_bool("TFS_TELEMETRY", True, "telemetry")
+    )
+    # Span ring bound (`utils.telemetry`): the freshest N spans are kept
+    # and the ones that fall off are counted. Applied when the ring is
+    # rebuilt (`telemetry.reset()`), so a scoped override takes effect
+    # there.
+    telemetry_ring_entries: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_TELEMETRY_RING_ENTRIES", 8192, "telemetry_ring_entries",
+            minimum=1,
+        )
     )
     # Classified retries (`runtime.faults`): extra attempts per dispatch
     # (or pipeline stage call) for TRANSIENT errors only.

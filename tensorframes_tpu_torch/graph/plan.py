@@ -24,9 +24,12 @@ Three layers live here:
   and compaction, `np.lexsort`, `pandas.merge`): a device column crosses
   to the host once (`Column.host_values`), observed as ``d2h_bytes``.
 
+`data_fingerprint` digests the DAG's leaves' data (a host frame's content,
+a dataset's metadata identity): with `plan_fingerprint` it keys the
+materialization cache of a relational force (`lazy.RelationalFrame.force`).
+
 Not in the port yet: the `GlobalFrame` route (``filter_global`` and the
-counted fallbacks to the local path, ROADMAP Queue 1 item 12) and the
-data fingerprint that keys the materialization cache (item 11).
+counted fallbacks to the local path, ROADMAP Queue 1 item 12).
 
 Process-global accounting (rewrites / fallbacks / pushdown rows) lives
 behind `_LOCK` with the standard `state()` / `reset_state()` pair.
@@ -48,6 +51,7 @@ __all__ = [
     "execute",
     "render",
     "plan_fingerprint",
+    "data_fingerprint",
     "map_outputs",
     "map_feeds",
     "note_fallback",
@@ -371,7 +375,7 @@ class PlanNode:
     ``select``, ``sort``, ``groupby``, ``join``.
     """
 
-    __slots__ = ("op", "inputs", "payload", "_plan_fp")
+    __slots__ = ("op", "inputs", "payload", "_plan_fp", "_data_fp")
 
     def __init__(self, op: str, inputs: Sequence["PlanNode"] = (),
                  payload: Optional[Dict[str, Any]] = None):
@@ -379,6 +383,8 @@ class PlanNode:
         self.inputs = tuple(inputs)
         self.payload = dict(payload or {})
         self._plan_fp: Optional[str] = None
+        # (computed, frame fingerprint or None) of a source leaf
+        self._data_fp: Optional[Tuple[bool, Optional[str]]] = None
 
     # -- payload digests ------------------------------------------------
     def _payload_canonical(self) -> str:
@@ -525,6 +531,50 @@ def plan_fingerprint(root: PlanNode) -> str:
         return fp
 
     return rec(root)
+
+
+def data_fingerprint(root: PlanNode) -> Optional[str]:
+    """Digest of every leaf's DATA in DFS order (a source frame's content
+    fingerprint, a scanned dataset's fingerprint), or None when a leaf
+    cannot be fingerprinted (a frame with a column on the card, a dataset
+    that cannot be read): the caller then skips the materialization cache."""
+    h = hashlib.sha256()
+    seen: Dict[int, bool] = {}
+
+    def rec(node: PlanNode) -> bool:
+        cached = seen.get(id(node))
+        if cached is not None:
+            return cached
+        ok = True
+        if node.op == "source":
+            fp = _source_data_fp(node)
+            if fp is None:
+                ok = False
+            else:
+                h.update(fp.encode())
+        elif node.op == "scan":
+            try:
+                h.update(node.payload["dataset"].fingerprint().encode())
+            except Exception:
+                ok = False
+        else:
+            ok = all(rec(i) for i in node.inputs)
+        seen[id(node)] = ok
+        return ok
+
+    return h.hexdigest() if rec(root) else None
+
+
+def _source_data_fp(node: PlanNode) -> Optional[str]:
+    if node._data_fp is None:
+        from ..runtime import materialize as _mat
+
+        try:
+            fp = _mat.frame_fingerprint(node.payload["frame"])
+        except Exception:
+            fp = None
+        node._data_fp = (True, fp)
+    return node._data_fp[1]
 
 
 # ---------------------------------------------------------------------------

@@ -15,11 +15,17 @@ pseudo-nodes (`graph.control_flow`). Run at block level (the graph lifted by
   so each trip reads ``active.any()`` on the host once.
 
 * `vmap_select_cond`: a `_Cond` whose predicate is batched under
-  `torch.func.vmap` (a per-row graph vectorized over the block's rows):
-  both branches evaluated, then `torch.where` per row. That is JAX's
-  batching rule for `lax.cond`, and it lets `api.map_rows` run any per-row
-  graph whose control flow is only `_Cond` in one call per block, bound
-  placeholders included (`vmap_eligible`).
+  `torch.func.vmap` (a per-row graph vectorized over the block's rows, or
+  a block graph over an aggregate's groups): both branches evaluated, then
+  `torch.where` per row. That is JAX's batching rule for `lax.cond`.
+* `vmap_while`: a `_While` whose predicate is batched under `vmap`: the
+  body runs over all rows while any row's predicate holds, and rows that
+  finished keep their carry by a select, one host read a trip. That is
+  JAX's batching rule for `lax.while_loop`, carried by a
+  `torch.autograd.Function` whose ``vmap`` rule runs one level below the
+  batching. With both, `api.map_rows` runs any per-row graph in one call
+  per block, bound placeholders included, and the exact `aggregate` plan
+  one call per group size.
 
 `subgraphs_row_local` is the classification hook `aggregate._rowwise_transform`
 calls for control-flow nodes: a `_Cond`/`_While` is row-local exactly when
@@ -30,12 +36,15 @@ enclosing graph's lead rank. `api.map_rows` uses it to pick the lifted plan.
 device (where the JAX package uses `jax.eval_shape`) and name the offending
 branch output or carry.
 
-Everything is gated behind ``config.row_vectorize`` (env
+The lifted route is gated behind ``config.row_vectorize`` (env
 ``TFS_ROW_VECTORIZE``, default on), as in the JAX package: off, `map_rows`
-runs every per-row graph with control flow once per row, and a batched
-predicate raises. Decisions are counted in `utils.profiling`
-(``vectorize.lowered.<kind>``, ``vectorize.fallback.<reason>``,
-``vectorize.while.trips``, ``vectorize.while.host_syncs``) and in the
+runs every per-row graph with control flow once per row, and a predicate
+with a row axis raises. A predicate batched by `vmap` selects and loops
+whatever the knob, as JAX's `vmap` of `lax.cond` and `lax.while_loop`
+do. Decisions are counted in `utils.profiling` (``vectorize.lowered.
+<kind>``, ``vectorize.fallback.<reason>``, ``vectorize.while.trips``,
+``vectorize.while.host_syncs``; a loop under `vmap` counts
+``control.while.trips`` and ``control.while.host_syncs``) and in the
 telemetry registry as the JAX package's ``row_vectorize_lowered{kind=}`` /
 ``row_vectorize_fallbacks{reason=}``.
 """
@@ -58,8 +67,8 @@ __all__ = [
     "enabled",
     "note_fallback",
     "note_lowered",
-    "vmap_eligible",
     "vmap_select_cond",
+    "vmap_while",
     "lift_to_block_level",
     "subgraphs_row_local",
     "select_cond",
@@ -150,32 +159,6 @@ def subgraphs_row_local(graph, node, lead_rank: int) -> bool:
         if not _rowwise_transform(sub.graph, list(sub.fetches), lambda _name: lead_rank):
             note_fallback(f"{label}-not-row-local")
             return False
-    return True
-
-
-def _control_ops(graph, seen=None):
-    """Ops of every control-flow node in ``graph`` and, recursively, in
-    its subgraphs (a branch may hold a loop)."""
-    seen = set() if seen is None else seen
-    if id(graph) in seen:
-        return set()
-    seen.add(id(graph))
-    ops = {n.op for n in graph.nodes if n.op in CONTROL_OPS}
-    for sub in getattr(graph, "subgraphs", {}).values():
-        ops |= _control_ops(sub.graph, seen)
-    return ops
-
-
-def vmap_eligible(graph) -> bool:
-    """True when `torch.func.vmap` can run this per-row graph: its only
-    control flow, nested bodies included, is `_Cond`, which selects per
-    row under `vmap` (`vmap_select_cond`). A `_While` reads its predicate
-    on the host every trip, which `vmap` cannot do for a batched
-    predicate. Counts ``while-under-vmap`` when a loop keeps the graph
-    out."""
-    if "_While" in _control_ops(graph):
-        note_fallback("while-under-vmap")
-        return False
     return True
 
 
@@ -360,6 +343,92 @@ def vmap_select_cond(ctx, pred, then_outs, else_outs) -> Tuple:
     )
     note_lowered("cond")
     return outs
+
+
+class _Loop:
+    """One `_While` to batch: its node, lowered cond and body callables,
+    and its loop-variable count. Rides `_BatchedWhile.apply` as a
+    non-tensor argument."""
+
+    __slots__ = ("node", "cond_fn", "body_fn", "n_vars")
+
+    def __init__(self, node, cond_fn: Callable, body_fn: Callable, n_vars: int):
+        self.node, self.cond_fn, self.body_fn, self.n_vars = node, cond_fn, body_fn, n_vars
+
+    def run_batched(self, n: int, in_dims, carry) -> Tuple[torch.Tensor, ...]:
+        """The loop over a batch of ``n`` rows, JAX's batching of
+        ``while_loop``: the body runs (vmapped) while any row's predicate
+        holds, and a row whose predicate went false keeps its carry by a
+        select. One host read a trip. Loop variables all get the batch
+        axis (the body may make one per-row); invariant captures keep
+        theirs."""
+        carry = [c if d is None else c.movedim(d, 0) for c, d in zip(carry, in_dims)]
+        dims = [None if d is None else 0 for d in in_dims]
+        for i in range(self.n_vars):
+            if dims[i] is None:
+                carry[i] = carry[i].expand((n,) + tuple(carry[i].shape)).contiguous()
+                dims[i] = 0
+        dims = tuple(dims)
+        vcond = torch.func.vmap(lambda *c: torch.as_tensor(self.cond_fn(*c)[0]), in_dims=dims)
+        vbody = torch.func.vmap(
+            lambda *c: tuple(torch.as_tensor(v) for v in self.body_fn(*c))[: self.n_vars],
+            in_dims=dims,
+        )
+
+        def active_rows(c) -> torch.Tensor:
+            p = vcond(*c)
+            if p.numel() != n:
+                raise GraphLoweringError(
+                    f"_While (node {self.node.name!r}) predicate has shape "
+                    f"{tuple(p.shape[1:])} a row under vmap; a loop predicate "
+                    "must be one value a row"
+                )
+            return p.reshape(n).to(torch.bool)
+
+        active, trips = active_rows(carry), 0
+        while bool(active.any()):
+            new = vbody(*carry)
+            for i in range(self.n_vars):
+                keep = active.reshape((n,) + (1,) * (carry[i].dim() - 1))
+                carry[i] = torch.where(keep, new[i], carry[i])
+            active = torch.logical_and(active, active_rows(carry))
+            trips += 1
+        note_lowered("while")
+        _count("control.while.trips", trips)
+        _count("control.while.host_syncs", trips + 1)
+        return tuple(carry[: self.n_vars]), (0,) * self.n_vars
+
+
+class _BatchedWhile(torch.autograd.Function):
+    """A `_While` that `torch.func.vmap` batches: its ``vmap`` rule runs
+    `_Loop.run_batched` one level below the batching, where the
+    predicate's per-row values can be read. `vmap_while` applies it only
+    to a batched carry, so ``forward`` never runs."""
+
+    @staticmethod
+    def forward(loop, *carry):
+        raise GraphLoweringError(
+            f"_While (node {loop.node.name!r}): the batched loop runs under "
+            "torch.func.vmap only"
+        )
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, loop, *carry):
+        return loop.run_batched(info.batch_size, in_dims[1:], carry)
+
+
+def vmap_while(ctx, node, carry: Sequence, n_vars: int, cond_fn: Callable,
+               body_fn: Callable) -> Tuple:
+    """Lower a `_While` whose predicate `torch.func.vmap` batched (a per-row
+    graph vectorized over the block's rows, or a block graph over the
+    groups of an aggregate): the loop runs over all rows at once, rows that
+    finished kept by a select (`_Loop.run_batched`)."""
+    loop = _Loop(node, cond_fn, body_fn, n_vars)
+    return tuple(_BatchedWhile.apply(loop, *[ctx.tensor(c) for c in carry]))
 
 
 def _broadcast_lead(ctx, c, n: int) -> torch.Tensor:

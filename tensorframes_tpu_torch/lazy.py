@@ -54,16 +54,24 @@ chain concatenates the halves; the fused reduce combines classified
 monoid halves) and the numerics guard. `explain_analyze` executes a plan
 and joins its spans with the cost ledger.
 
+With the materialization cache on (``config.materialize_cache_bytes``
+> 0, `runtime.materialize`), `force` and `RelationalFrame.force` consult it
+under the data fingerprint of a host-resident base (`graph.plan.
+data_fingerprint` for a relational DAG) and the plan's fingerprint with
+its device: a hit records the ``materialize.load`` span and dispatches no
+block program; a whole computed result is offered back (a failed force
+commits nothing).
+
 Not in the port yet: the mesh, ``devices=`` and scheduler routes and the
-global-frame route (a ``mesh=`` or ``devices=`` argument raises as it
-does on the eager verbs), and the materialization cache on `force`. Shape
-bucketing is not in the port on purpose: eager PyTorch compiles nothing
-per shape.
+global-frame route (``mesh=`` on a lazy plan raises NotImplementedError,
+ROADMAP Queue 1 item 12.3). Shape bucketing is not in the port on purpose:
+eager PyTorch compiles nothing per shape.
 """
 
 from __future__ import annotations
 
 import contextvars
+import time
 from contextlib import closing, contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -376,8 +384,11 @@ class LazyFrame:
         executor=None,
         bindings=None,
         device: DeviceLike = None,
+        mesh=None,
     ) -> "LazyFrame":
         """Defer a row-preserving block map onto the fused plan."""
+        if mesh is not None:
+            _api._mesh_on_lazy("map_blocks")
         if trim:
             raise ValueError(
                 "map_blocks(trim=True) is not supported on a LazyFrame: "
@@ -409,7 +420,7 @@ class LazyFrame:
 
     def map_rows(self, fetches, **kw):
         """Terminal in effect: forces the pending plan, then runs eagerly."""
-        return _api.map_rows(fetches, self.force(device=kw.get("device")), **kw)
+        return _api.map_rows(fetches, self, **kw)
 
     @_deadline_entry("reduce_blocks")
     @torch.no_grad()
@@ -420,11 +431,14 @@ class LazyFrame:
         fetch_names=None,
         executor=None,
         device: DeviceLike = None,
+        mesh=None,
     ):
         """Terminal action: fuse the reduce's per-block stage into the
         pending graph and run the whole chain as ONE callable per block;
         the combine over stacked partials runs the plain reduce graph,
         exactly like the eager verb."""
+        if mesh is not None:
+            _api._mesh_on_lazy("reduce_blocks")
         executor = executor if executor is not None else self._executor
         device = device if device is not None else self._device
         if callable(fetches) and not isinstance(fetches, _api.dsl.Tensor):
@@ -537,7 +551,7 @@ class LazyFrame:
     def reduce_rows(self, fetches, **kw):
         """Terminal: forces the plan (one fused callable per block), then
         runs the eager fold on the device-resident result."""
-        return _api.reduce_rows(fetches, self.force(device=kw.get("device")), **kw)
+        return _api.reduce_rows(fetches, self, **kw)
 
     def group_by(self, *keys: str) -> "_api.GroupedFrame":
         """Terminal: `aggregate` forces the plan on its device, since
@@ -547,11 +561,13 @@ class LazyFrame:
     # -- terminal actions ----------------------------------------------
     @_deadline_entry("lazy.force")
     @torch.no_grad()
-    def force(self, executor=None, device: DeviceLike = None) -> TensorFrame:
+    def force(self, executor=None, device: DeviceLike = None, mesh=None) -> TensorFrame:
         """Lower the whole fused plan as ONE callable per block on
         ``device`` (default: the frame's device) and return the concrete
         `TensorFrame` (device-resident outputs + base passthrough). The
         result of a call without ``executor=`` is memoized per device."""
+        if mesh is not None:
+            _api._mesh_on_lazy("lazy.force")
         if not self._sources:
             return self._base
         dev = resolve_device(device if device is not None else self._device)
@@ -569,6 +585,31 @@ class LazyFrame:
         _api._require_dense(
             frame, [self._feed_map[n] for n in feed_names], "lazy.force"
         )
+        # materialization cache (off by default): a repeated (data, plan,
+        # device) triple under the same numerics config returns the
+        # committed result and dispatches nothing. Only for the default
+        # executor (an explicit one is a one-off, like the memo) and a
+        # host-resident base (fingerprinting a card's column would copy it
+        # to the host behind the caller's back).
+        from .runtime import materialize as _mat
+
+        cache_key = None
+        if executor is None and self._executor is None and _mat.enabled():
+            data_fp = _mat.frame_fingerprint(frame)
+            if data_fp is not None:
+                from .runtime.scheduler import device_label
+
+                plan_fp = _mat.plan_fingerprint(
+                    self._graph.fingerprint(), self._feed_map, out_names,
+                    device=device_label(dev),
+                )
+                hit = _mat.lookup(data_fp, plan_fp)
+                if hit is not None:
+                    out = _cached_result(hit, frame, out_names, dev)
+                    self._forced = (dev, out)
+                    return out
+                cache_key = (data_fp, plan_fp)
+        t_compute0 = time.perf_counter()
         fn = ex.callable_for(self._graph, fetch_edges, feed_names, dev)
         acc: Dict[str, List[torch.Tensor]] = {n: [] for n in out_names}
         from .runtime import faults as _flt
@@ -646,6 +687,12 @@ class LazyFrame:
                 frame.column(c) for c in frame.columns if c not in shadow
             ]
             out = TensorFrame(cols, frame.offsets)
+        if cache_key is not None:
+            # a failed force raised above: only a whole result is offered
+            _mat.store(
+                cache_key[0], cache_key[1], out, ledger_fp=self._graph.fingerprint(),
+                compute_s=time.perf_counter() - t_compute0,
+            )
         if executor is None:
             self._forced = (dev, out)
         return out
@@ -816,6 +863,16 @@ class LazyFrame:
 # ---------------------------------------------------------------------------
 
 
+def _cached_result(hit: TensorFrame, base: TensorFrame, out_names, dev) -> TensorFrame:
+    """A materialization-cache hit as `LazyFrame.force` returns a computed
+    result: the plan's outputs on ``dev``, then the base's own passthrough
+    columns (the hit's copies are equal: the data fingerprint matched)."""
+    shadow = set(out_names)
+    cols = [Column(n, as_tensor(hit.column(n).values, dev)) for n in out_names]
+    cols += [base.column(c) for c in base.columns if c not in shadow]
+    return TensorFrame(cols, base.offsets)
+
+
 def _as_plan_node(obj):
     """Coerce a frame-like object to a plan-DAG node (join inputs)."""
     from .graph import plan as _plan
@@ -967,10 +1024,32 @@ class RelationalFrame:
         if executor is None and self._forced is not None and self._forced[0] == dev:
             return self._forced[1]
         from .graph import plan as _plan
+        from .runtime import materialize as _mat
 
         _plan._note_force()
         node, _ = self.optimize()
-        out = _plan.execute(node, executor=executor or self._executor, device=dev)
+        ex = executor or self._executor
+        cache_key = None
+        if ex is None and _mat.enabled():
+            data_fp = _plan.data_fingerprint(node)
+            if data_fp is not None:
+                from .runtime.scheduler import device_label
+
+                plan_fp = _mat.relational_fingerprint(
+                    _plan.plan_fingerprint(node), device=device_label(dev)
+                )
+                hit = _mat.lookup(data_fp, plan_fp)
+                if hit is not None:
+                    # host columns, as the JAX package's hit: a plan's
+                    # filter, sort and join results are host columns too
+                    _plan.note_cache_hit()
+                    self._forced = (dev, hit)
+                    return hit
+                cache_key = (data_fp, plan_fp)
+        t0 = time.perf_counter()
+        out = _plan.execute(node, executor=ex, device=dev)
+        if cache_key is not None:
+            _mat.store(cache_key[0], cache_key[1], out, compute_s=time.perf_counter() - t0)
         if executor is None:
             self._forced = (dev, out)
         return out

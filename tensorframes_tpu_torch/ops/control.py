@@ -18,8 +18,10 @@ Eager PyTorch runs control flow on the host, where the JAX package compiles
 - a predicate with one value per row (a per-row graph run at block level)
   goes to `graph.vectorize`: both branches and a select, or one masked
   dense loop;
-- a cond predicate batched by `torch.func.vmap` (`map_rows`' ``vmap``
-  plan) also selects per row after both branches.
+- a predicate batched by `torch.func.vmap` (`map_rows`' ``vmap`` plan,
+  the exact `aggregate` plan) selects per row after both branches, or runs
+  the loop over all rows while any row's predicate holds
+  (`graph.vectorize.vmap_while`: one host read a trip).
 
 On the ``meta`` device (the shape probes of `graph.analysis`) nothing can be
 read back: `_Cond` runs both branches and checks that their shapes and
@@ -94,7 +96,7 @@ def _cond(ctx, node, inputs):
     tfn = _body(ctx, node, "cond_then")
     efn = _body(ctx, node, "cond_else")
     lifted, vmapped = _vec.is_batched(pred), _vec.is_vmapped(pred)
-    if (lifted or vmapped) and not _vec.enabled():
+    if lifted and not vmapped and not _vec.enabled():
         raise GraphLoweringError(
             f"_Cond (node {node.name!r}) has a batched predicate of shape "
             f"{tuple(pred.shape)} but row vectorization is disabled "
@@ -132,6 +134,12 @@ def _while(ctx, node, inputs):
         carry = _vec.grow_row_axis(ctx, node, meta_body_fn, carry, n_vars)
     pred = cond_fn(*carry)[0]
     if _vec.is_batched(pred):
+        if _vec.is_vmapped(pred):
+            raise GraphLoweringError(
+                f"_While (node {node.name!r}) has a predicate of shape "
+                f"{tuple(pred.shape)} a row under vmap; a loop predicate must "
+                "be one value a row"
+            )
         if not _vec.enabled():
             raise GraphLoweringError(
                 f"_While (node {node.name!r}) has a batched predicate of shape "
@@ -150,6 +158,13 @@ def _while(ctx, node, inputs):
         _vec.check_while_carry(node, meta_body_fn, carry, n_vars)
     trips = syncs = 0
     while True:
+        if _vec.is_vmapped(pred):
+            # a predicate batched by torch.func.vmap (at entry, or once a
+            # trip made the carry per-row): every row took the same trips
+            # so far, and the batched loop goes on from here
+            _count("control.while.trips", trips)
+            _count("control.while.host_syncs", syncs)
+            return _vec.vmap_while(ctx, node, carry, n_vars, cond_fn, body_fn)
         syncs += isinstance(pred, torch.Tensor)
         if not _host_bool(pred):
             break

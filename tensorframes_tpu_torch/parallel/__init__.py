@@ -1,5 +1,16 @@
-"""Parallel layer of the PyTorch port: `ring.full_attention` so far."""
+"""Parallel layer of the PyTorch port: device meshes (`mesh`), the mesh
+verbs (`verbs`, reached through ``mesh=`` on the five verbs) and
+`ring.full_attention`."""
 
+from .mesh import Mesh, data_mesh, mesh_2d, shard_to_mesh
 from .ring import full_attention
+from . import verbs
 
-__all__ = ["full_attention"]
+__all__ = [
+    "Mesh",
+    "data_mesh",
+    "mesh_2d",
+    "shard_to_mesh",
+    "verbs",
+    "full_attention",
+]

@@ -51,12 +51,13 @@ def set_fault_injector(hook) -> None:
 
 
 class Executor:
-    """LRU of lowered callables. A miss builds OUTSIDE the lock (lowering
-    folds constants and uploads them); a lost insert race keeps the
-    winner's callable and costs only the redundant build."""
+    """LRU of lowered callables, bounded by
+    ``config.executor_cache_entries`` (read at every insert). A miss builds
+    OUTSIDE the lock (lowering folds constants and uploads them); a lost
+    insert race keeps the winner's callable and costs only the redundant
+    build."""
 
-    def __init__(self, max_entries: int = 256):
-        self.max_entries = max_entries
+    def __init__(self):
         self._cache: "OrderedDict[Tuple, Callable]" = OrderedDict()
         self._lock = threading.Lock()
         self.compile_count = 0  # distinct lowered callables built
@@ -188,7 +189,7 @@ class Executor:
             self._cache[key] = fn
             self.compile_count += 1
             self.cache_misses += 1
-            while len(self._cache) > max(1, self.max_entries):
+            while len(self._cache) > max(1, int(_config.get().executor_cache_entries)):
                 self._cache.popitem(last=False)
         return fn
 

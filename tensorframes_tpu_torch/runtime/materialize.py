@@ -21,8 +21,9 @@ cost ledger first, which the port does not have yet). Eviction is LRU
 under ``config.materialize_cache_bytes``, a hard bound.
 
 The cache is OFF by default (``materialize_cache_bytes = 0``). When on,
-serving `Endpoint.run_frame` consults it: a hit records a
-``materialize.load`` stage span and dispatches nothing. A frame with a
+serving `Endpoint.run_frame`, `LazyFrame.force` and
+`RelationalFrame.force` consult it: a hit records a ``materialize.load``
+stage span and dispatches nothing. A frame with a
 column on the card fingerprints to ``None`` (never cached): hashing it
 would force a device-to-host copy behind the caller's back.
 
@@ -47,6 +48,7 @@ __all__ = [
     "enabled",
     "frame_fingerprint",
     "plan_fingerprint",
+    "relational_fingerprint",
     "lookup",
     "store",
     "state",
@@ -198,6 +200,15 @@ def plan_fingerprint(
     if device is not None:
         fields["device"] = device
     blob = json.dumps(fields, sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def relational_fingerprint(dag_fp: str, device: Optional[str] = None) -> str:
+    """The program half of the key for a relational plan: the canonical
+    DAG fingerprint (`graph.plan.plan_fingerprint`), namespaced so it never
+    collides with a fused chain's key, and the computing device's label
+    as in `plan_fingerprint`."""
+    blob = f"relational:{dag_fp}" + ("" if device is None else f"@{device}")
     return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
 

@@ -3,27 +3,30 @@
 The PyTorch counterpart of the counter surface of
 `tensorframes_tpu/utils/profiling.py` (``count`` / ``stats`` /
 ``reset_stats``), with the same keys: ``aggregate.plan.segment``,
-``aggregate.plan.exact``, and the port's own keys:
+``aggregate.plan.exact``, ``aggregate.plan.chunk``, and the port's own
+keys:
 
 - ``reduce_rows.plan.monoid`` / ``reduce_rows.plan.general``;
-- ``map_rows.plan.vmap`` (no control flow, or only `_Cond`),
-  ``map_rows.plan.lifted`` (a row-local graph with control flow, run once
-  per block) and ``map_rows.plan.per_row`` (a `_While` that cannot be
-  lifted, or ``config.row_vectorize`` off);
+- ``map_rows.plan.vmap`` (a graph that does not lift: conds select and
+  loops run batched under `torch.func.vmap`), ``map_rows.plan.lifted`` (a
+  row-local graph with control flow, run once per block) and
+  ``map_rows.plan.per_row`` (control flow with ``config.row_vectorize``
+  off);
 - ``map_rows.plan.ragged``: a `map_rows` over ragged columns, one plan
   run per shape bucket; ``map_rows.ragged.buckets``: those buckets;
 - ``host_sync``: a device column's first copy to the host
   (`Column.host_values`);
 - ``control.cond.host_syncs``: host reads of a scalar `_Cond` predicate;
   ``control.while.trips`` / ``control.while.host_syncs``: trips of a
-  scalar `_While` and host reads of its predicate;
+  scalar `_While`, or of one batched under `vmap` (the trips of its
+  longest row), and host reads of its predicate;
 - ``vectorize.lowered.cond`` / ``vectorize.lowered.while``: masked dense
   lowerings run (one per call of the rule, not per compile as in the JAX
   package); ``vectorize.while.trips`` / ``vectorize.while.host_syncs``:
   dense trips of a masked `_While` and its ``active.any()`` reads;
   ``vectorize.fallback.<reason>``: graphs kept off the row-local path
   (``cond-branch-not-row-local``, ``while-body-not-row-local``, ...) or
-  off any one-call plan (``while-under-vmap``, ``disabled``).
+  off any one-call plan (``disabled``).
 
 Meta-device probes (`graph.analysis`) count nothing.
 

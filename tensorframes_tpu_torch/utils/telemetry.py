@@ -143,7 +143,9 @@ class Span:
         )
 
 
-_RING_ENTRIES = 8192
+def _ring_size() -> int:
+    """``config.telemetry_ring_entries``, read when the ring is built."""
+    return int(_config.get().telemetry_ring_entries)
 
 
 class _SpanRing:
@@ -174,7 +176,7 @@ class _SpanRing:
 
 
 _ids = itertools.count(1)  # next() is GIL-atomic in CPython
-_ring = _SpanRing(_RING_ENTRIES)
+_ring = _SpanRing(_ring_size())
 
 # CUDA timing events of resolved timings, reused by later dispatches:
 # recording an event that exists skips its creation (list pop/extend are
@@ -975,6 +977,18 @@ def histogram_observe(name: str, value: float, **labels) -> None:
     _registry.histogram_observe(name, value, **labels)
 
 
+def _gauge_executor_cache_entries() -> float:
+    """Live entries of the process-default executor's LRU; reads the
+    module global only, never constructs an executor."""
+    from ..runtime import executor as _exmod
+
+    ex = _exmod._default
+    return float(len(ex._cache)) if ex is not None else 0.0
+
+
+gauge_register("executor_cache_entries", _gauge_executor_cache_entries)
+
+
 def flat_counters() -> Dict[str, float]:
     return _registry.flat_counters()
 
@@ -1001,9 +1015,11 @@ def reset_counters() -> None:
 
 def reset() -> None:
     """Full reset: spans, counters, gauges, histograms (registered gauge
-    callables survive)."""
+    callables survive). The ring is rebuilt at the current
+    ``config.telemetry_ring_entries``, so a scoped override takes effect
+    here."""
     global _ring
-    _ring = _SpanRing(_RING_ENTRIES)
+    _ring = _SpanRing(_ring_size())
     _registry.reset()
 
 
@@ -1211,6 +1227,7 @@ _PROM_HELP: Dict[str, str] = {
     "materialize_misses": "Materialization-cache lookups that missed",
     "materialize_evictions": "Materialization-cache entries evicted (LRU)",
     "materialize_bytes": "Bytes held by the materialization cache",
+    "executor_cache_entries": "Live compiled-program cache entries",
     "admission_wait_seconds": "Time spent queued for a verb slot",
     "admission_queue_depth": "Verbs queued for admission right now",
     "admission_in_flight": "Admitted top-level verbs in flight",

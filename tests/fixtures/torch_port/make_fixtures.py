@@ -20,6 +20,11 @@ Every graph is built in a `tf.compat.v1.Graph` and serialised with
 - ``block_cond_while.pb`` (v1): a block-level graph over a float32 vector
   ``x``: ``y = sum(x) > 0 ? 2x : -x``; a scalar loop doubles ``s`` from
   1.0 until ``s * max|x| >= 1000``; ``out = y * s``.
+- ``cell_while_v1.pb`` (v1): a per-row loop that does not lift: ``x``
+  and a bound ``w``, both float32[3]; ``v = x`` doubled plus ``w`` while
+  ``sum(v * v) < 10000``; ``y = v`` and ``trips`` (int32).
+- ``group_cond_v1.pb`` (v1): a block-level graph over ``x_input`` float32
+  ``[?]`` for `aggregate`: ``x = sum(x) > 0 ? sum(x) : max(x)``.
 - ``var_ref.pb``: a TF 1.x ref variable (``VariableV2`` + ``Assign``)
   ``v = 3.0`` (float32) and ``z = x + v`` over a float32 vector ``x``.
 - ``var_resource.pb``: resource variables (``VarHandleOp`` +
@@ -85,6 +90,31 @@ def block_cond_while() -> bytes:
     return g.as_graph_def().SerializeToString()
 
 
+def cell_while() -> bytes:
+    g = tf1.Graph()
+    with g.as_default():
+        x = tf1.placeholder(tf.float32, shape=(3,), name="x")
+        w = tf1.placeholder(tf.float32, shape=(3,), name="w")
+        i, v = tf.while_loop(
+            lambda i, v: tf.reduce_sum(v * v) < 10000.0, lambda i, v: (i + 1, v * 2.0 + w),
+            [tf.constant(0), x],
+        )
+        tf.identity(v, name="y")
+        tf.identity(i, name="trips")
+    return g.as_graph_def().SerializeToString()
+
+
+def group_cond() -> bytes:
+    g = tf1.Graph()
+    with g.as_default():
+        x = tf1.placeholder(tf.float32, shape=(None,), name="x_input")
+        tf.identity(
+            tf.cond(tf.reduce_sum(x) > 0.0, lambda: tf.reduce_sum(x), lambda: tf.reduce_max(x)),
+            name="x",
+        )
+    return g.as_graph_def().SerializeToString()
+
+
 def var_ref() -> bytes:
     g = tf1.Graph()
     with g.as_default():
@@ -110,6 +140,8 @@ FIXTURES = {
     "cond_while_v1.pb": lambda: _v1(cond_while),
     "cond_while_v2.pb": cond_while,
     "block_cond_while.pb": lambda: _v1(block_cond_while),
+    "cell_while_v1.pb": lambda: _v1(cell_while),
+    "group_cond_v1.pb": lambda: _v1(group_cond),
     "var_ref.pb": var_ref,
     "var_resource.pb": var_resource,
 }

@@ -121,9 +121,12 @@ def test_fixture_map_rows_runs_lifted_and_matches_jax(name, fetches):
     assert "map_rows.plan.per_row" not in stats()
 
 
-@pytest.mark.parametrize("name", [n for n, _ in _PER_ROW] + ["block_cond_while.pb"])
+@pytest.mark.parametrize(
+    "name", [n for n, _ in _PER_ROW] + ["block_cond_while.pb", "cell_while_v1.pb",
+                                        "group_cond_v1.pb"]
+)
 def test_fixture_functionalizes_like_the_jax_package(name):
-    fetches = ["out"]
+    fetches = {"cell_while_v1.pb": ["y", "trips"], "group_cond_v1.pb": ["x"]}.get(name, ["out"])
     g = Graph.from_bytes(_fixture(name))
     assert has_control_flow(g)
     g2, f2 = functionalize(g, fetches)
@@ -132,7 +135,9 @@ def test_fixture_functionalizes_like_the_jax_package(name):
     assert g2.to_bytes() == j2.to_bytes()
     assert sorted(g2.subgraphs) == sorted(j2.subgraphs)
     assert not {n.op for n in g2.nodes} & _CONTROL_OPS
-    assert {"_Cond", "_While"} <= {n.op for n in g2.nodes}
+    want = {"cell_while_v1.pb": {"_While"}, "group_cond_v1.pb": {"_Cond"}}.get(
+        name, {"_Cond", "_While"})
+    assert want <= {n.op for n in g2.nodes}
 
 
 def _block_reference(x: np.ndarray) -> np.ndarray:
@@ -158,6 +163,75 @@ def test_fixture_block_level_scalar_cond_and_while(sign):
     # of the loop plus its last test
     assert s["control.cond.host_syncs"] == 3.0
     assert s["control.while.host_syncs"] == s["control.while.trips"] + 3
+
+
+_W3 = np.array([1.5, -2.0, 0.5], np.float32)
+
+
+def _cell_while_reference(x: np.ndarray):
+    """`cell_while_v1.pb` over all rows at once in numpy: (y, trips)."""
+    v, trips = x.copy(), np.zeros(len(x), np.int32)
+    active = (v * v).sum(1) < 10000.0
+    while active.any():
+        v[active] = v[active] * np.float32(2.0) + _W3
+        trips[active] += 1
+        active &= (v * v).sum(1) < 10000.0
+    return v, trips
+
+
+@pytest.mark.parametrize("num_blocks", [1, 3])
+def test_fixture_cell_while_runs_one_call_per_block(num_blocks):
+    """The loop of chip_smoke's phase 9: its predicate reduces the row's
+    cell and ``w`` is bound, so it does not lift; it runs under vmap, one
+    batched loop a block, equal to the JAX package, the per-row plan and
+    numpy (integer-valued float32 and halves: exact in any order)."""
+    x = np.random.default_rng(5).integers(-8, 9, (50, 3)).astype(np.float32)
+    fetches = ["trips", "y"]
+    reset_stats()
+    ref, got = _both("map_rows", _fixture("cell_while_v1.pb"), {"x": x}, fetches,
+                     num_blocks=num_blocks, bindings={"w": _W3})
+    counts = stats()
+    assert counts["map_rows.plan.vmap"] == 1.0 and "map_rows.plan.per_row" not in counts
+    assert counts["control.while.host_syncs"] == counts["control.while.trips"] + num_blocks
+    _assert_same(ref, got)
+    want_y, want_trips = _cell_while_reference(x)
+    np.testing.assert_array_equal(got["y"], want_y)
+    np.testing.assert_array_equal(got["trips"], want_trips)
+    with tft.config.override(row_vectorize=False):
+        reset_stats()
+        per_row = tft.map_rows(_fixture("cell_while_v1.pb"),
+                               tft.TensorFrame.from_dict({"x": x}, num_blocks=num_blocks),
+                               fetch_names=fetches, bindings={"w": _W3}, device=CPU)
+        assert stats()["map_rows.plan.per_row"] == 1.0
+    for f in fetches:
+        np.testing.assert_array_equal(per_row.host_values(f), got[f])
+
+
+def test_fixture_group_cond_aggregate_runs_one_call_a_size():
+    """`group_cond_v1.pb` through the exact aggregate plan: one vmapped call
+    a distinct group size, against the JAX package's exact plan."""
+    rng = np.random.default_rng(6)
+    keys = (rng.random(400) ** 2 * 40).astype(np.int64)
+    x = ((rng.random(400) + 0.5) * np.where(keys % 2, -1.0, 1.0)).astype(np.float32)
+    cols = {"k": keys, "x": x}
+    ref = tfs.aggregate(_fixture("group_cond_v1.pb"),
+                        tfs.group_by(tfs.TensorFrame.from_dict(cols), "k"), fetch_names=["x"])
+    from tensorframes_tpu_torch.utils import telemetry
+
+    telemetry.reset()
+    reset_stats()
+    got = tft.aggregate(_fixture("group_cond_v1.pb"),
+                        tft.group_by(tft.TensorFrame.from_dict(cols, num_blocks=2), "k"),
+                        fetch_names=["x"], device=CPU)
+    assert stats()["aggregate.plan.exact"] == 1.0
+    sizes = np.bincount(keys)
+    calls = [s for s in telemetry.spans() if s.name == "aggregate.size"]
+    assert len(calls) == len(np.unique(sizes[sizes > 0]))
+    np.testing.assert_array_equal(got.host_values("k"), np.asarray(ref["k"].values))
+    np.testing.assert_allclose(got.host_values("x"), np.asarray(ref["x"].values), rtol=1e-5)
+    want = [x[keys == k].sum(dtype=np.float64) if k % 2 == 0 else x[keys == k].max()
+            for k in got.host_values("k")]
+    np.testing.assert_allclose(got.host_values("x"), want, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +284,9 @@ def test_map_blocks_vector_cond():
 
 def test_while_loop_vector_carry_runs_per_row():
     # the loop's predicate reduces the row's vector: not row-local, so
-    # map_rows runs the graph once per row
+    # map_rows runs the per-row graph under vmap (one call per block, the
+    # loop batched over the rows); the per-row plan (row_vectorize off)
+    # gives the same rows
     def build(tf, tf1):
         x = tf1.placeholder(tf.float32, shape=(4,), name="x")
         out = tf.while_loop(lambda v: tf.reduce_sum(v) < 100.0, lambda v: v * 2.0, [x])
@@ -221,7 +297,18 @@ def test_while_loop_vector_carry_runs_per_row():
     reset_stats()
     ref, got = _both("map_rows", data, {"x": xs}, ["y"])
     _assert_same(ref, got)
-    assert stats()["map_rows.plan.per_row"] == 1.0
+    counts = stats()
+    assert counts["map_rows.plan.vmap"] == 1.0 and "map_rows.plan.per_row" not in counts
+    # the batched loop reads one host scalar a trip: the first row's sum
+    # doubles 10 -> 160 in 4 trips, the longest
+    assert counts["control.while.trips"] == 4.0
+    assert counts["control.while.host_syncs"] == 5.0
+    with tft.config.override(row_vectorize=False):
+        reset_stats()
+        per_row = tft.map_rows(data, tft.TensorFrame.from_dict({"x": xs}), fetch_names=["y"],
+                               device=CPU)
+        assert stats()["map_rows.plan.per_row"] == 1.0
+    np.testing.assert_array_equal(per_row.host_values("y"), got["y"])
     v = xs[0].copy()
     while v.sum() < 100.0:
         v *= 2.0

@@ -220,9 +220,10 @@ def test_import_guard_no_pandas_or_pyarrow():
 def test_import_guard_no_jax():
     """Importing the port (and running the verbs, imported graphs with
     control flow and variables among them, registering, serving and
-    calling one endpoint, and the runtime services: explain_analyze,
-    diagnostics, a profile snapshot and the autotuner) loads neither jax
-    nor any module of the JAX package."""
+    calling one endpoint, the runtime services: explain_analyze,
+    diagnostics, a profile snapshot and the autotuner, the mesh verbs and
+    the chunk aggregate plan) loads neither jax nor any module of the JAX
+    package."""
     code = textwrap.dedent(
         """
         import sys
@@ -272,6 +273,8 @@ def test_import_guard_no_jax():
         import tensorframes_tpu_torch.runtime.costmodel
         import tensorframes_tpu_torch.runtime.profiler
         import tensorframes_tpu_torch.utils.inspection
+        import tensorframes_tpu_torch.parallel.mesh
+        import tensorframes_tpu_torch.parallel.verbs
         df = tft.TensorFrame.from_dict(
             {"x": np.arange(6.0), "k": np.array([0, 1, 0, 1, 2, 2])}, num_blocks=2
         )
@@ -319,6 +322,11 @@ def test_import_guard_no_jax():
         tft.explain_analyze(lf, format="json")
         tft.diagnostics(format="json")
         tft.autotune(tft.profile.snapshot(), apply_recommendations=False)
+        mesh = tensorframes_tpu_torch.parallel.data_mesh(devices=["cpu"] * 4)
+        tft.map_blocks((tft.block(df, "x") + 1.0).named("y"), df, mesh=mesh)
+        tft.aggregate(s.named("x"), tft.group_by(df, "k"), mesh=mesh)
+        with tft.config.override(aggregate_segment_fast=False, aggregate_exact_size_limit=0):
+            tft.aggregate(s.named("x"), tft.group_by(df, "k"), device="cpu")
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"

@@ -300,3 +300,164 @@ def test_corrupt_entry_dropped_and_recomputed(tmp_path, always_admit):
 def test_materialize_bytes_gauge_and_counters():
     text = ttele.export_prometheus()
     assert "tfs_materialize_bytes 0" in text
+
+
+# ---------------------------------------------------------------------------
+# LazyFrame.force and RelationalFrame.force through the cache (mirrors
+# tests/test_materialize.py::TestCachePath / TestIntegrity)
+# ---------------------------------------------------------------------------
+
+
+def _chain_frames(seed=0, n=64, blocks=4):
+    rng = np.random.RandomState(seed)
+    data = {"x": rng.rand(n).astype(np.float32), "k": rng.randint(0, 5, n).astype(np.int64)}
+    return (
+        tfs.TensorFrame.from_dict(data, num_blocks=blocks),
+        tft.TensorFrame.from_dict(data, num_blocks=blocks),
+    )
+
+
+def _chain(pkg, df):
+    """A fused map chain over ``df`` (tanh(x) * 0.5 + x), then x * 3."""
+    xi = pkg.block(df, "x", tf_name="x_input")
+    z = (pkg.dsl.tanh(xi) * pkg.dsl.constant(np.float32(0.5)) + xi).named("z")
+    dev = {"device": CPU} if pkg is tft else {}
+    lf = df.lazy(**dev).map_blocks(z, feed_dict={"x_input": "x"})
+    return lf.map_blocks((pkg.block(lf, "z") * 3.0).named("w"))
+
+
+def _dispatches(since_id):
+    return [s for s in ttele.spans() if s.span_id > since_id and s.kind == "dispatch"]
+
+
+def test_force_disabled_by_default_never_stores():
+    _jdf, tdf = _chain_frames()
+    _chain(tft, tdf).force()
+    _chain(tft, tdf).force()
+    st = tmat.state()
+    assert st["enabled"] is False and st["stores"] == 0 and st["hits"] == 0
+
+
+def test_force_hit_dispatches_nothing_and_equals_the_miss(tmp_path, always_admit):
+    jdf, tdf = _chain_frames()
+    with tconfig.override(materialize_cache_bytes=10_000_000,
+                          materialize_cache_dir=str(tmp_path)):
+        cold = _chain(tft, tdf).force()
+        assert tmat.state()["stores"] == 1
+        sid = ttele.allocate_span_id()
+        warm = _chain(tft, tdf).force()
+        assert _dispatches(sid) == []  # no block program ran
+        stages = [s.name for s in ttele.spans() if s.span_id > sid and s.kind == "stage"]
+        assert "materialize.load" in stages and "lazy.force.blocks" not in stages
+        assert tmat.state()["hits"] == 1
+    assert warm.columns == cold.columns and warm.offsets == cold.offsets
+    for c in ("w", "z", "x", "k"):
+        assert torch.equal(torch.as_tensor(warm.host_values(c)),
+                           torch.as_tensor(cold.host_values(c)))
+    # the outputs come back on the force's device; the base's columns are
+    # the base's own
+    assert warm.column("w").values.device == torch.device("cpu")
+    assert warm.column("x") is tdf.column("x")
+    # and the JAX package's force of the same chain
+    ref = _chain(tfs, jdf).force()
+    np.testing.assert_allclose(warm.host_values("w"), np.asarray(ref.column("w").values),
+                               rtol=1e-6)
+
+
+def test_force_keys_data_program_and_device(tmp_path, always_admit):
+    with tconfig.override(materialize_cache_bytes=10_000_000,
+                          materialize_cache_dir=str(tmp_path)):
+        _chain(tft, _chain_frames(seed=0)[1]).force()
+        _chain(tft, _chain_frames(seed=1)[1]).force()  # same program, new data
+        st = tmat.state()
+        assert st["hits"] == 0 and st["stores"] == 2
+        _jdf, tdf = _chain_frames(seed=0)
+        xi = tft.block(tdf, "x", tf_name="x_input")
+        other = tdf.lazy(device=CPU).map_blocks((xi + 1.0).named("z"), feed_dict={"x_input": "x"})
+        other.force()  # same data, another program
+        assert tmat.state()["hits"] == 0
+        # a device-resident base is never fingerprinted (meta stands in for
+        # the card): no lookup, no store
+        meta = tft.TensorFrame([Column("x", torch.empty(8, device="meta"))])
+        assert tmat.frame_fingerprint(meta) is None
+
+
+def test_force_with_an_explicit_executor_bypasses_the_cache(tmp_path, always_admit):
+    _jdf, tdf = _chain_frames()
+    with tconfig.override(materialize_cache_bytes=10_000_000,
+                          materialize_cache_dir=str(tmp_path)):
+        _chain(tft, tdf).force(executor=tft.Executor())
+        assert tmat.state()["stores"] == 0
+
+
+def test_failed_force_commits_nothing(tmp_path, always_admit):
+    _jdf, tdf = _chain_frames()
+    with tconfig.override(materialize_cache_bytes=10_000_000,
+                          materialize_cache_dir=str(tmp_path)):
+        with tchaos.inject(nth=[1], fault="deterministic"):
+            with pytest.raises(tchaos.InjectedFault):
+                _chain(tft, tdf).force()
+        st = tmat.state()
+        assert st["stores"] == 0 and st["entries"] == 0
+        assert list(tmp_path.glob("*.tfsmat")) == []
+        _chain(tft, tdf).force()
+        assert tmat.state()["stores"] == 1
+
+
+def test_corrupt_force_entry_is_recomputed(tmp_path, always_admit):
+    _jdf, tdf = _chain_frames()
+    with tconfig.override(materialize_cache_bytes=10_000_000,
+                          materialize_cache_dir=str(tmp_path)):
+        cold = _chain(tft, tdf).force()
+        path = next(iter(tmat._index.values()))["path"]
+        blob = open(path, "rb").read()
+        with open(path, "wb") as f:
+            f.write(blob[: len(blob) // 2])
+        tmat.reset_state()
+        out = _chain(tft, tdf).force()
+        st = tmat.state()
+        assert st["corrupt_dropped"] == 1 and st["hits"] == 0 and st["stores"] == 1
+        _chain(tft, tdf).force()
+        assert tmat.state()["hits"] == 1
+    np.testing.assert_array_equal(out.host_values("w"), cold.host_values("w"))
+
+
+def _relational(pkg, df):
+    dev = {"device": CPU} if pkg is tft else {}
+    lf = df.lazy(**dev)
+    return lf.filter(pkg.col("x") > 0.3).group_by("k").agg(s=("sum", "x"), m=("max", "x"))
+
+
+def test_relational_force_hit_and_data_fingerprint(tmp_path, always_admit):
+    from tensorframes_tpu.graph import plan as jplan
+    from tensorframes_tpu_torch.graph import plan as tplan
+
+    jdf, tdf = _chain_frames(n=200)
+    # the DAG's data fingerprint is the JAX package's over the same frame
+    assert tplan.data_fingerprint(_relational(tft, tdf).optimize()[0]) == jplan.data_fingerprint(
+        _relational(tfs, jdf).optimize()[0]
+    )
+    with tconfig.override(materialize_cache_bytes=10_000_000,
+                          materialize_cache_dir=str(tmp_path)):
+        tplan.reset_state()
+        cold = _relational(tft, tdf).force()
+        assert tmat.state()["stores"] == 1
+        sid = ttele.allocate_span_id()
+        warm = _relational(tft, tdf).force()
+        assert _dispatches(sid) == []
+        assert tmat.state()["hits"] == 1 and tplan.state()["cache_hits"] == 1
+    ref = _relational(tfs, jdf).force()
+    assert warm.columns == cold.columns
+    for c in warm.columns:
+        np.testing.assert_array_equal(warm.host_values(c), cold.host_values(c))
+        np.testing.assert_allclose(warm.host_values(c), np.asarray(ref.column(c).host_values()),
+                                   rtol=1e-6)
+
+
+def test_relational_force_over_a_device_frame_is_not_cached(tmp_path, always_admit):
+    from tensorframes_tpu_torch.graph import plan as tplan
+
+    meta = tft.TensorFrame([Column("x", torch.empty(8, device="meta")),
+                            Column("k", torch.empty(8, dtype=torch.int64, device="meta"))])
+    rel = meta.lazy(device=CPU).filter(tft.col("x") > 0.3)
+    assert tplan.data_fingerprint(rel.optimize()[0]) is None

@@ -371,8 +371,10 @@ def test_cond_only_graph_runs_one_call_per_block(kind, bound):
 
 
 def test_a_loop_stays_per_row_under_bindings_counted_by_reason():
-    """A bound placeholder keeps the graph off the lifted plan, and its
-    `_While` keeps it out of vmap: one call per row, with the reason."""
+    """A bound placeholder keeps the graph off the lifted plan; its
+    `_While` runs under vmap (one call per block, the loop batched over the
+    rows), with no fallback counted. The per-row plan is the
+    ``row_vectorize=False`` one, counted by its reason."""
 
     def build(tf, tf1):
         x = tf1.placeholder(tf.float32, shape=(), name="x")
@@ -385,9 +387,21 @@ def test_a_loop_stays_per_row_under_bindings_counted_by_reason():
     reset_stats()
     got = tft.map_rows(data, tft.TensorFrame.from_dict({"x": x}), fetch_names=["y"],
                        device=CPU, bindings={"w": np.float32(1.0)})
-    assert stats()["map_rows.plan.per_row"] == 1.0
-    assert stats()["vectorize.fallback.while-under-vmap"] == 1.0
+    counts = stats()
+    assert counts["map_rows.plan.vmap"] == 1.0 and "map_rows.plan.per_row" not in counts
+    assert not any(k.startswith("vectorize.fallback") for k in counts)
+    assert counts["control.while.trips"] == 6.0  # 40 -> 0.625: six halvings
     np.testing.assert_array_equal(got.host_values("y"), [1.0, -0.5, 0.625])
+    with tft.config.override(row_vectorize=False):
+        reset_stats()
+        per_row = tft.map_rows(data, tft.TensorFrame.from_dict({"x": x}), fetch_names=["y"],
+                               device=CPU, bindings={"w": np.float32(1.0)})
+        assert stats()["map_rows.plan.per_row"] == 1.0
+        assert stats()["vectorize.fallback.disabled"] == 1.0
+    np.testing.assert_array_equal(per_row.host_values("y"), got.host_values("y"))
+    ref = tfs.map_rows(data, tfs.TensorFrame.from_dict({"x": x}), fetch_names=["y"],
+                       bindings={"w": np.float32(1.0)})
+    np.testing.assert_array_equal(got.host_values("y"), np.asarray(ref["y"].values))
 
 
 def test_row_vectorize_knob_counts_in_telemetry_and_gates_the_lifted_plan():
@@ -408,3 +422,131 @@ def test_row_vectorize_knob_counts_in_telemetry_and_gates_the_lifted_plan():
         with pytest.raises(GraphLoweringError, match="row vectorization is disabled"):
             tft.map_blocks(_lifted(), df, fetch_names=["out", "trips"], device=CPU)
     assert telemetry.labeled_counters()[("row_vectorize_fallbacks", (("reason", "disabled"),))] == 1.0
+
+
+# ---------------------------------------------------------------------------
+# one call per block for graphs with a `_While` that does not lift
+# (torch.func.vmap, the loop batched over the rows: `vectorize.vmap_while`)
+# ---------------------------------------------------------------------------
+
+
+def _sum_loop_bytes(bound: bool) -> bytes:
+    """Phase 9's form: ``v = x`` float32[3]; while ``sum(v * v) < 10000``:
+    ``v = v * 2 + w``, ``w`` a bound [3] vector or a constant; the trips as
+    an int32 output."""
+
+    def build(tf, tf1):
+        x = tf1.placeholder(tf.float32, shape=(3,), name="x")
+        w = tf1.placeholder(tf.float32, shape=(3,), name="w") if bound else tf.constant(_W3)
+        i, v = tf.while_loop(
+            lambda i, v: tf.reduce_sum(v * v) < 10000.0, lambda i, v: (i + 1, v * 2.0 + w),
+            [tf.constant(0), x],
+        )
+        tf.identity(v, name="y")
+        tf.identity(i, name="trips")
+
+    return _tf_bytes(build)
+
+
+def _cond_in_loop_bytes() -> bytes:
+    """A cond inside the body of a loop whose predicate reduces the cell:
+    the select and the batched loop nest."""
+
+    def build(tf, tf1):
+        x = tf1.placeholder(tf.float32, shape=(2,), name="x")
+        out = tf.while_loop(
+            lambda v: tf.reduce_max(tf.abs(v)) < 64.0,
+            lambda v: tf.cond(tf.reduce_sum(v) > 0.0, lambda: v * 3.0, lambda: v - 5.0),
+            [x],
+        )
+        tf.identity(out[0], name="y")
+
+    return _tf_bytes(build)
+
+
+def _np_sum_loop(x, w):
+    i, v = 0, x.copy()
+    while (v * v).sum(dtype=np.float32) < 10000.0:
+        i, v = i + 1, v * np.float32(2.0) + w
+    return v, i
+
+
+def _np_cond_in_loop(x):
+    v = x.copy()
+    while np.abs(v).max() < 64.0:
+        v = v * np.float32(3.0) if v.sum(dtype=np.float32) > 0 else v - np.float32(5.0)
+    return v
+
+
+_WHILE_CASES = ["sum-const", "sum-bound", "cond-in-loop"]
+
+
+@pytest.mark.parametrize("case", _WHILE_CASES)
+def test_while_graph_runs_one_call_per_block(case):
+    rng = np.random.default_rng(21)
+    if case == "cond-in-loop":
+        data, fetches, bindings = _cond_in_loop_bytes(), ["y"], {}
+        x = rng.integers(-8, 9, (40, 2)).astype(np.float32)
+        want = {"y": np.stack([_np_cond_in_loop(r) for r in x])}
+    else:
+        bound = case == "sum-bound"
+        data, fetches = _sum_loop_bytes(bound), ["trips", "y"]
+        bindings = {"w": _W3} if bound else {}
+        x = rng.integers(-8, 9, (40, 3)).astype(np.float32)
+        rows = [_np_sum_loop(r, _W3) for r in x]
+        want = {"y": np.stack([v for v, _ in rows]), "trips": np.array([i for _, i in rows], np.int32)}
+    df = tft.TensorFrame.from_dict({"x": x}, num_blocks=3)
+    reset_stats()
+    got = tft.map_rows(data, df, fetch_names=fetches, device=CPU, bindings=bindings)
+    counts = stats()
+    assert counts["map_rows.plan.vmap"] == 1.0 and "map_rows.plan.per_row" not in counts
+    # the lifted plan's classifier counts why the graph does not lift;
+    # nothing keeps it off the one-call plan
+    assert "vectorize.fallback.disabled" not in counts
+    # one batched loop a block: a host read a trip and one to start
+    assert counts["control.while.host_syncs"] == counts["control.while.trips"] + 3
+    with tft.config.override(row_vectorize=False):
+        reset_stats()
+        per_row = tft.map_rows(data, df, fetch_names=fetches, device=CPU, bindings=bindings)
+        assert stats()["map_rows.plan.per_row"] == 1.0
+    ref = tfs.map_rows(data, tfs.TensorFrame.from_dict({"x": x}, num_blocks=3),
+                       fetch_names=fetches, bindings=bindings or None)
+    for f in fetches:
+        np.testing.assert_array_equal(got.host_values(f), per_row.host_values(f))
+        np.testing.assert_array_equal(got.host_values(f), np.asarray(ref[f].values))
+        np.testing.assert_array_equal(got.host_values(f), want[f])
+
+
+def test_while_whose_predicate_turns_per_row_after_a_trip():
+    """The accumulator starts as one constant for every row, so the first
+    predicate is not batched; after a trip it is, and the batched loop
+    takes over from the carry the rows share. The bound limit keeps the
+    graph off the lifted plan."""
+
+    def build(tf, tf1):
+        x = tf1.placeholder(tf.float32, shape=(), name="x")
+        lim = tf1.placeholder(tf.float32, shape=(), name="lim")
+        acc = tf.while_loop(lambda a: a < lim, lambda a: a + x, [tf.constant(1.0)])
+        tf.identity(acc[0], name="y")
+
+    data = _tf_bytes(build)
+    x = np.array([1.0, 2.0, 5.0, 19.0, 30.0, 7.0], np.float32)
+    bound = {"lim": np.float32(20.0)}
+    reset_stats()
+    got = tft.map_rows(data, tft.TensorFrame.from_dict({"x": x}), fetch_names=["y"], device=CPU,
+                       bindings=bound)
+    counts = stats()
+    assert counts["map_rows.plan.vmap"] == 1.0
+    # one unbatched trip, then the batched loop: 19 in all for the row of
+    # 1.0 (1 -> 20)
+    assert counts["control.while.trips"] == 19.0
+    want = []
+    for v in x:
+        a = np.float32(1.0)
+        while a < 20.0:
+            a += v
+        want.append(a)
+    np.testing.assert_array_equal(got.host_values("y"), np.array(want, np.float32))
+    ref = tfs.map_rows(data, tfs.TensorFrame.from_dict({"x": x}), fetch_names=["y"],
+                       bindings=bound)
+    np.testing.assert_array_equal(got.host_values("y"), np.asarray(ref["y"].values))
