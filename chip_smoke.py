@@ -124,14 +124,32 @@ main path through the entry points a user calls:
     float32 rows and 16 keys and phase 5's mean / mean-of-squares graph,
     both through per-shard segment tables combined by monoid, each against the
     local verb on the same data, with the mesh's dispatch spans;
-18. one JSON line listing every kernel with its launches on the main path
-    (phases 3-17), its error and its times;
-19. as the last line, ``{"ok": true, "device": {...}}``.
+18. the block scheduler, failover and `GlobalFrame` on every visible
+    card: phase 3's x+3 `map_blocks`, `reduce_blocks` sum / min and the
+    `reduce_rows` sum over 200,000,000 float32 rows in 8 blocks, phase 4's
+    MLP `map_rows` over 1,000,000 rows and an exact-plan keyed sum over
+    1,000,000 rows and 1,000 keys, each with ``devices=[0, ...]`` under
+    ``block_scheduler="on"`` against the local verb (every dispatch span
+    labelled with its card, the per-card dispatch ledger summing to the
+    items); a transient fault injected on cuda:0 (one card: retried in
+    place, nothing evicted; several: the block moves, one eviction,
+    /healthz ``degraded``, one ``eviction`` incident bundle); `to_global()`
+    of the 200,000,000 rows, x+3 -> x*2 -> `reduce_sum` with the outputs
+    left on their shards (timed beside the local and the ``mesh=`` map),
+    the ``"global"`` auto-route, a `LazyFrame.force` and `filter_global` on
+    the shards, and a stream of 4 x 128,000,000 rows through the
+    double-buffered accumulator; on two or more cards, after phase 7, a
+    ``devices=`` `TransformerLM` scoring of 16 sequences, its kernel
+    launches counted apart from the main path's;
+19. one JSON line listing every kernel with its launches on the main path
+    (phases 3-18), its error and its times;
+20. as the last line, ``{"ok": true, "device": {...}}``.
 
-Phases 8-17 run after phase 6 and before phase 7. Phases 3-6 and 8-17 run
+Phases 3-17 run with ``block_scheduler="off"``: they measure one card.
+Phases 8-18 run after phase 6 and before phase 7. Phases 3-6 and 8-18 run
 no hand-written kernel (their ops are ATen, cuBLAS and cuDNN calls, host
 numpy and the stream's copies; phase 14 trains through the plain
-attention; phases 15-17 run graphs of elementwise ops and products),
+attention; phases 15-18 run graphs of elementwise ops and products),
 so the script checks that the attention kernel's count is still 0 after
 them and counts its launches in phase 7 alone. Phase 15 needs pyarrow (the
 serving wire format is Arrow IPC). Phase 12 imports pyarrow for its dataset and durable parts, and
@@ -3469,6 +3487,393 @@ def phase_mesh_verbs(tft, rows: int = 200_000_000, blocks: int = 8, mlp_rows: in
     _emit("mesh_verbs", card=_CARD, sum_rtol=_SUM_RTOL, **out)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the block scheduler, device failover and GlobalFrame
+# ---------------------------------------------------------------------------
+
+
+def _sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _wall_all(fn):
+    """(result, seconds) of ``fn()`` ending when every card is done."""
+    _sync_all()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync_all()
+    return out, time.perf_counter() - t0
+
+
+def _best_wall(fn, calls: int = 3):
+    """(result of the last call, least seconds of ``calls`` calls) after one
+    warm-up call."""
+    fn()
+    best, out = math.inf, None
+    for _ in range(calls):
+        out, s = _wall_all(fn)
+        best = min(best, s)
+    return out, best
+
+
+def _lies_on(t: torch.Tensor, i: int) -> bool:
+    """Whether ``t`` is on card ``i``: a shard that fell to the host fails."""
+    return t.device == torch.device("cuda", i)
+
+
+def _span_labels(prefix: str):
+    """The device label of every dispatch span named ``prefix...``."""
+    from tensorframes_tpu_torch.utils import telemetry
+
+    return [s.attrs.get("device") for s in telemetry.spans()
+            if s.kind == "dispatch" and s.name.startswith(prefix)]
+
+
+def _scheduled(tft, ex, what: str, call, span: str, items: int, ndev: int):
+    """One scheduled call (a warm-up first): its result and seconds, each
+    dispatch span labelled with a card, and the executor's per-card
+    dispatch ledger summing to ``items``."""
+    from tensorframes_tpu_torch.utils import telemetry
+
+    call()
+    ex.device_dispatches.clear()
+    telemetry.reset()
+    out, secs = _wall_all(call)
+    labels = _span_labels(span)
+    cards = {f"cuda:{i}" for i in range(ndev)}
+    if len(labels) != items or not set(labels) <= cards:
+        raise AssertionError(f"{what}: dispatch span labels {labels}, cards {sorted(cards)}")
+    if sum(ex.device_dispatches.values()) != items:
+        raise AssertionError(f"{what}: device_dispatches {ex.device_dispatches} for {items} items")
+    return out, secs, dict(ex.device_dispatches)
+
+
+def _scheduled_verbs(tft, ndev: int, rows: int, blocks: int, mlp_rows: int,
+                     agg_rows: int, nkeys: int) -> dict:
+    """Phase 3's x+3 map and sum / min reduces, the reduce_rows sum, phase
+    4's MLP and an exact-plan keyed sum, with ``devices=[0, ...]`` under
+    ``block_scheduler="on"``, against the local verb on cuda:0."""
+    from tensorframes_tpu_torch.models import MLP
+    from tensorframes_tpu_torch.runtime.executor import Executor
+
+    dsl = tft.dsl
+    devices = list(range(ndev))
+    ex = Executor()
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    x = torch.rand(rows, device="cuda:0", generator=gen)
+    df = tft.TensorFrame([tft.Column("x", x)]).repartition(blocks)
+    z = (tft.block(df, "x") + 3.0).named("z")
+    with tft.config.override(block_scheduler="on"):
+        local, local_s = _best_wall(lambda: tft.map_blocks(z, df, device="cuda:0"))
+        got, secs, ledger = _scheduled(
+            tft, ex, "map_blocks", lambda: tft.map_blocks(z, df, devices=devices, executor=ex),
+            "map_blocks.block", blocks, ndev)
+        if not torch.equal(got.column("z").values, local.column("z").values):
+            raise AssertionError("scheduled map_blocks x+3 differs from the local verb")
+        out["map_blocks"] = dict(rows=rows, blocks=blocks, seconds=secs, local_s=local_s,
+                                 device_dispatches=ledger)
+        del got, local
+        xh = x.cpu().numpy()
+        want = float(xh.sum(dtype=np.float64))
+        for name, op in (("reduce_sum", dsl.reduce_sum), ("reduce_min", dsl.reduce_min)):
+            g = op(tft.block(df, "x", tf_name="x_input"), axes=[0]).named("x")
+            local = tft.reduce_blocks(g, df, device="cuda:0")
+            got, secs, ledger = _scheduled(
+                tft, ex, name, lambda: tft.reduce_blocks(g, df, devices=devices, executor=ex),
+                "reduce_blocks.block", blocks, ndev)
+            if name == "reduce_min":
+                if not (torch.equal(got.cpu(), local.cpu()) and got.item() == xh.min()):
+                    raise AssertionError("scheduled reduce_min differs from the local verb")
+                err = 0.0
+            else:
+                err = abs(got.item() - want) / want
+                if err > _SUM_RTOL:
+                    raise AssertionError(f"scheduled reduce_sum rel err {err:.3e} > {_SUM_RTOL}")
+            out[name] = dict(rows=rows, seconds=secs, rel_err=err, device_dispatches=ledger)
+        pair = _pair_graph(tft, dsl.add)
+        got, secs, ledger = _scheduled(
+            tft, ex, "reduce_rows", lambda: tft.reduce_rows(pair, df, devices=devices, executor=ex),
+            "reduce_rows.block", blocks, ndev)
+        err = abs(got.item() - want) / want
+        if err > _SUM_RTOL:
+            raise AssertionError(f"scheduled reduce_rows sum rel err {err:.3e} > {_SUM_RTOL}")
+        out["reduce_rows"] = dict(rows=rows, seconds=secs, rel_err=err, device_dispatches=ledger)
+        del df, x, xh
+
+        sizes = [512, 512, 512, 10]
+        rng = np.random.default_rng(SEED)
+        params = [
+            ((rng.standard_normal((a, b)) * math.sqrt(2.0 / a)).astype(np.float32),
+             (rng.standard_normal(b) * 0.1).astype(np.float32))
+            for a, b in zip(sizes[:-1], sizes[1:])
+        ]
+        probs = MLP.from_jax_params(params).scoring_graph("features", block=False)
+        feats = torch.rand(mlp_rows, sizes[0], device="cuda:0", generator=gen)
+        fdf = tft.TensorFrame([tft.Column("features", feats)]).repartition(blocks)
+        local = tft.map_rows(probs, fdf, device="cuda:0").column("probs").values
+        got, secs, ledger = _scheduled(
+            tft, ex, "map_rows MLP", lambda: tft.map_rows(probs, fdf, devices=devices, executor=ex),
+            "map_rows.block", blocks, ndev)
+        gp = got.column("probs").values
+        if ndev == 1 and not torch.equal(gp, local):
+            raise AssertionError("scheduled map_rows MLP differs from the local verb")
+        err = _check_close("scheduled map_rows MLP", gp, local, _MLP_RTOL, _MLP_ATOL)
+        out["map_rows_mlp"] = dict(rows=mlp_rows, seconds=secs, max_abs_err=err,
+                                   device_dispatches=ledger)
+        del fdf, feats, got, gp, local
+
+        v = torch.rand(agg_rows, device="cuda:0", generator=gen)
+        keys = torch.randint(0, nkeys, (agg_rows,), device="cuda:0", generator=gen)
+        adf = tft.TensorFrame([tft.Column("k", keys), tft.Column("v", v)])
+        total = dsl.reduce_sum(dsl.block(adf, "v", tf_name="v_input"), axes=[0]).named("v")
+        kh, vh = keys.cpu().numpy(), v.cpu().numpy().astype(np.float64)
+        counts = np.bincount(kh, minlength=nkeys)
+        nsizes = len(np.unique(counts[counts > 0]))
+        with tft.config.override(aggregate_segment_fast=False,
+                                 aggregate_exact_size_limit=agg_rows):
+            local = tft.aggregate(total, tft.group_by(adf, "k"), device="cuda:0")
+            got, secs, ledger = _scheduled(
+                tft, ex, "aggregate exact",
+                lambda: tft.aggregate(total, tft.group_by(adf, "k"), devices=devices, executor=ex),
+                "aggregate.size", nsizes, ndev)
+        want_v = np.bincount(kh, weights=vh, minlength=nkeys)
+        err = _check_close("scheduled exact aggregate",
+                           torch.from_numpy(got.host_values("v").astype(np.float64)),
+                           torch.from_numpy(want_v), _SUM_RTOL, 0.0)
+        if not np.array_equal(got.host_values("v"), local.host_values("v")):
+            raise AssertionError("scheduled exact aggregate differs from the local verb")
+        out["aggregate_exact"] = dict(rows=agg_rows, keys=nkeys, sizes=nsizes, seconds=secs,
+                                      max_abs_err=err, device_dispatches=ledger)
+    return out
+
+
+def _healthz() -> dict:
+    import urllib.request
+
+    from tensorframes_tpu_torch.utils import telemetry
+
+    srv = telemetry.serve(port=0)
+    try:
+        with urllib.request.urlopen(srv.url + "/healthz", timeout=10) as r:
+            return json.loads(r.read().decode())
+    finally:
+        srv.close()
+
+
+def _failover_drill(tft, ndev: int, rows: int = 16_000_000, blocks: int = 8) -> dict:
+    """One transient fault injected into a block on cuda:0 under
+    ``block_scheduler="on"``: with one card the block retries in place and
+    nothing is evicted; with more the block moves, cuda:0's circuit opens
+    (``device_evictions`` 1, /healthz ``degraded``, one ``eviction``
+    incident bundle), then the circuit is reset. The result is exact."""
+    import tempfile
+
+    from tensorframes_tpu_torch.runtime import faults
+    from tensorframes_tpu_torch.runtime.executor import Executor
+    from tensorframes_tpu_torch.runtime.scheduler import device_health
+    from tensorframes_tpu_torch.testing import faults as chaos
+    from tensorframes_tpu_torch.utils import telemetry
+
+    ex = Executor()
+    x = torch.arange(rows, device="cuda:0", dtype=torch.float32)
+    df = tft.TensorFrame([tft.Column("x", x)]).repartition(blocks)
+    z = (tft.block(df, "x") * 2.0).named("z")
+    faults.reset_ledger()
+    telemetry.reset()
+    with tempfile.TemporaryDirectory() as incident_dir, tft.config.override(
+        block_scheduler="on", block_retry_attempts=4, verb_retry_budget=20,
+        retry_backoff_base_s=0.001, retry_backoff_max_s=0.002, incident_dir=incident_dir,
+    ):
+        with chaos.inject(rate=1.0, fault="transient", device="cuda:0", max_faults=1) as plan:
+            got, secs = _wall_all(lambda: tft.map_blocks(z, df, executor=ex))
+        bundles = [r["trigger"] for r in tft.incidents()]
+        health = _healthz()
+    if not torch.equal(got.column("z").values.to("cuda:0"), x * 2.0):
+        raise AssertionError("failover drill: the map's result is not exact")
+    led = faults.ledger_snapshot()
+    evictions = telemetry.flat_counters().get("device_evictions{device=cuda:0}", 0.0)
+    labels = _span_labels("map_blocks.block")
+    if plan.injected != 1 or led["retries"] != 1:
+        raise AssertionError(f"failover drill: injected {plan.injected}, ledger {led}")
+    if ndev == 1:
+        if led["evictions"] or evictions or device_health().table() or health["degraded"]:
+            raise AssertionError(f"one card: evicted anyway ({led}, {health})")
+        if labels.count("cuda:0") != blocks + 1:
+            raise AssertionError(f"one card: labels {labels}")
+    else:
+        if led["evictions"] != 1 or evictions != 1.0:
+            raise AssertionError(f"failover drill: evictions {led['evictions']} / {evictions}")
+        if not health["degraded"] or health["status"] != "degraded":
+            raise AssertionError(f"failover drill: /healthz {health}")
+        if bundles != ["eviction"]:
+            raise AssertionError(f"failover drill: incident bundles {bundles}")
+        if labels[0] != "cuda:0" or labels[1] == "cuda:0" or len(labels) != blocks + 1:
+            raise AssertionError(f"failover drill: the failed block did not move: {labels}")
+    circuits = device_health().table()
+    device_health().reset()
+    return dict(rows=rows, blocks=blocks, seconds=secs, retries=led["retries"],
+                evictions=led["evictions"], device_evictions=evictions, span_labels=labels,
+                healthz_status=health["status"], incident_bundles=bundles, circuits=circuits)
+
+
+def _global_frame(tft, ndev: int, rows: int, blocks: int, chunk_rows: int, chunks: int) -> dict:
+    """`to_global()` of ``rows`` float32 rows; x+3 -> x*2 -> reduce_sum with
+    the outputs left on their shards; the ``"global"`` auto-route; a
+    `LazyFrame.force` over the global base; `filter_global`; a stream of
+    ``chunks`` x ``chunk_rows`` rows through the double-buffered
+    accumulator. Seconds beside the local verb on cuda:0 and ``mesh=``."""
+    from tensorframes_tpu_torch import globalframe
+    from tensorframes_tpu_torch.graph.plan import col
+    from tensorframes_tpu_torch.parallel import data_mesh
+    from tensorframes_tpu_torch.utils import telemetry
+
+    dsl = tft.dsl
+    globalframe.reset_state()
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    x = torch.rand(rows, device="cuda:0", generator=gen)
+    df = tft.TensorFrame([tft.Column("x", x)]).repartition(blocks)
+    gf, to_global_s = _wall_all(lambda: df.to_global())
+    if gf.data_size != ndev or not all(
+            _lies_on(s, i) for i, s in enumerate(gf.shards("x"))):
+        raise AssertionError(f"to_global: {gf!r} on {[s.device for s in gf.shards('x')]}")
+    z = (tft.block(df, "x") + 3.0).named("y")
+    telemetry.reset()
+    m1, map_s = _best_wall(lambda: gf.map_blocks(z))
+    spans = [(s.name, s.attrs.get("sharding")) for s in telemetry.spans() if s.kind == "dispatch"]
+    if spans[-1] != ("map_blocks.global", f"data:{ndev}"):
+        raise AssertionError(f"global map dispatch spans {spans[-3:]}")
+    _, local_s = _best_wall(lambda: tft.map_blocks(z, df, device="cuda:0"))
+    mesh = data_mesh()
+    _, mesh_s = _best_wall(lambda: tft.map_blocks(z, df, mesh=mesh))
+    m2 = m1.map_blocks((tft.block(m1, "y") * 2.0).named("w"))
+    for i, s in enumerate(m2.shards("w")):
+        if not _lies_on(s, i):
+            raise AssertionError(f"global map output shard {i} left its card: {s.device}")
+    w = m2.to_frame().column("w").values
+    if not torch.equal(w, (x + 3.0) * 2.0):
+        raise AssertionError("global x+3 -> x*2 differs from the local arithmetic")
+    g = dsl.reduce_sum(tft.block(m2, "w", tf_name="w_input"), axes=[0]).named("w")
+    total, reduce_s = _best_wall(lambda: m2.reduce_blocks(g))
+    want = float(((x.cpu().numpy().astype(np.float64) + 3.0) * 2.0).sum())
+    err = abs(total.item() - want) / want
+    if err > _SUM_RTOL:
+        raise AssertionError(f"global reduce_sum rel err {err:.3e} > {_SUM_RTOL}")
+    out["chain"] = dict(rows=rows, shards=gf.data_size, pad_rows=gf.pad_rows,
+                        to_global_s=to_global_s, map_s=map_s, local_map_s=local_s,
+                        mesh_map_s=mesh_s, reduce_sum_s=reduce_s, rel_err=err)
+    del m1, m2, w
+
+    telemetry.reset()
+    with tft.config.override(block_scheduler="global"):
+        routed, route_s = _wall_all(lambda: tft.map_blocks(z, df))
+        rmin = tft.reduce_blocks(
+            dsl.reduce_min(tft.block(df, "x", tf_name="x_input"), axes=[0]).named("x"), df)
+    names = [s.name for s in telemetry.spans() if s.kind == "dispatch"]
+    if "map_blocks.global" not in names or "reduce_blocks.global" not in names:
+        raise AssertionError(f"global auto-route took {names}")
+    if not torch.equal(routed.column("y").values, x + 3.0) or rmin.item() != x.min().item():
+        raise AssertionError("global auto-route results differ")
+    out["auto_route"] = dict(map_s=route_s, dispatches=names)
+    del routed
+
+    telemetry.reset()
+    forced, force_s = _wall_all(lambda: gf.lazy().map_blocks(z).force())
+    if [s.name for s in telemetry.spans() if s.kind == "dispatch"] != ["lazy.force.global"]:
+        raise AssertionError("LazyFrame.force did not take the global route")
+    if not torch.equal(forced.column("y").values, x + 3.0):
+        raise AssertionError("global LazyFrame.force differs")
+    out["lazy_force"] = dict(seconds=force_s)
+    del forced
+
+    kept, filter_s = _wall_all(lambda: gf.filter(col("x") > 0.5).force())
+    want_rows = x[x > 0.5]
+    if kept.nrows != want_rows.shape[0] or not torch.equal(
+            kept.to_frame().column("x").values, want_rows):
+        raise AssertionError("filter_global differs from the mask on the card")
+    out["filter"] = dict(seconds=filter_s, rows_kept=kept.nrows)
+    del kept, want_rows, gf, df, x
+
+    parts = [torch.rand(chunk_rows, device="cuda:0", generator=gen) for _ in range(chunks)]
+    frames = [tft.TensorFrame([tft.Column("x", p)]) for p in parts]
+    sg = dsl.reduce_sum(tft.block(frames[0], "x", tf_name="x_input"), axes=[0]).named("x")
+    want = sum(float(p.cpu().numpy().sum(dtype=np.float64)) for p in parts)
+    local_stream = lambda: tft.reduce_blocks_stream(sg, iter(frames), device="cuda:0")  # noqa: E731
+    local_stream()  # warm: the transfer stage's stream, the pipeline threads
+    with tft.config.override(block_scheduler="global"):
+        tft.reduce_blocks_stream(sg, iter(frames))
+        globalframe.reset_state()
+        got, stream_s = _wall_all(lambda: tft.reduce_blocks_stream(sg, iter(frames)))
+    st = globalframe.state()
+    local, local_stream_s = _wall_all(local_stream)
+    errs = [abs(v.item() - want) / want for v in (got, local)]
+    if max(errs) > _SUM_RTOL:
+        raise AssertionError(f"global stream sum rel errs {errs} > {_SUM_RTOL}")
+    if st["stream_folds"] < 1 or st["dispatches"] < chunks:
+        raise AssertionError(f"global stream state {st}")
+    out["stream"] = dict(chunks=chunks, chunk_rows=chunk_rows, seconds=stream_s,
+                         local_seconds=local_stream_s, rel_err=errs[0], state=st)
+    del parts, frames
+    return out
+
+
+def phase_scheduler_and_global(tft, rows: int = 200_000_000, blocks: int = 8,
+                               mlp_rows: int = 1_000_000, agg_rows: int = 1_000_000,
+                               nkeys: int = 1000, chunk_rows: int = 128_000_000,
+                               chunks: int = 4) -> None:
+    """Phase 18: the scheduled verbs over every card, the failover drill,
+    and `GlobalFrame` (see `_scheduled_verbs`, `_failover_drill`,
+    `_global_frame`)."""
+    ndev = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    sched = _scheduled_verbs(tft, ndev, rows, blocks, mlp_rows, agg_rows, nkeys)
+    torch.cuda.empty_cache()
+    drill = _failover_drill(tft, ndev)
+    torch.cuda.empty_cache()
+    gfr = _global_frame(tft, ndev, rows, blocks, chunk_rows, chunks)
+    torch.cuda.empty_cache()
+    _emit("scheduler_and_global", card=_CARD, devices=ndev, sum_rtol=_SUM_RTOL,
+          scheduled=sched, failover=drill, global_frame=gfr,
+          seconds=time.perf_counter() - t0)
+
+
+def phase_scheduled_lm(tft, cfg, n_seqs: int = 16, block_seqs: int = 4) -> int:
+    """On two or more cards: `TransformerLM` scoring of ``n_seqs`` sequences
+    with ``devices=`` over every card, a copy of the model a card (the same
+    seed), the flash-attention kernel launching on each card's stream; one
+    warm-up call, then the timed one. Each block's logits equal cuda:0's
+    for the same tokens within the logit tolerance. Returns the kernel's
+    launches in the timed call."""
+    from tensorframes_tpu_torch.models import TransformerLM
+    from tensorframes_tpu_torch.ops.flash_attention import flash_attention
+
+    ndev = torch.cuda.device_count()
+    models = [TransformerLM(**cfg, seed=SEED, device=f"cuda:{i}") for i in range(ndev)]
+    tokens = np.random.default_rng(SEED + 31).integers(
+        0, cfg["vocab"], (n_seqs, cfg["max_seq"])).astype(np.int32)
+    df = tft.TensorFrame.from_dict({"tokens": tokens}, num_blocks=n_seqs // block_seqs)
+
+    def score(tokens):
+        return {"logits": models[tokens.device.index or 0](tokens)}
+
+    want = models[0](torch.from_numpy(tokens).cuda())
+    tft.map_blocks(score, df, devices=list(range(ndev)))  # warm every card
+    before = flash_attention.launches
+    out, secs = _wall_all(lambda: tft.map_blocks(score, df, devices=list(range(ndev))))
+    launches = flash_attention.launches - before
+    logits = out.column("logits").values
+    err = _check_close("devices= LM logits", logits.to("cuda:0"), want, _LOGIT_RTOL, _LOGIT_ATOL)
+    expected = cfg["n_layers"] * (n_seqs // block_seqs)
+    if launches != expected:
+        raise AssertionError(f"devices= LM: {launches} launches, expected {expected}")
+    _emit("scheduled_lm_scoring", devices=ndev, sequences=n_seqs, block_sequences=block_seqs,
+          seconds=secs, tokens_per_s=n_seqs * cfg["max_seq"] / secs, launches=launches,
+          max_abs_err=err)
+    return launches
+
+
 def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int) -> float:
     from tensorframes_tpu_torch.models import TransformerLM
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention_reference
@@ -3514,6 +3919,9 @@ def main() -> int:
 
     phase_card_and_build()
     attn = phase_kernel_vs_plain(lm_shape)
+    # phases 3-17 and 7 measure one card, as their checks and numbers
+    # assume; phase 18 places its blocks itself (devices=, "on", "global")
+    tft.config.update(block_scheduler="off")
 
     # the main path: every launch counter starts at 0 here
     flash_attention.launches = 0
@@ -3532,12 +3940,13 @@ def main() -> int:
     phase_serving(tft)
     phase_runtime_services(tft)
     phase_mesh_verbs(tft)
+    phase_scheduler_and_global(tft)
     if flash_attention.launches:
         raise AssertionError(
             f"the verb, aggregate, k-means, Inception, control-flow, freezing, "
-            f"frame-breadth, streaming, lazy-plan, training, serving, runtime-services "
-            f"and mesh phases launched flash_attention {flash_attention.launches} times; none of "
-            f"their graphs holds attention"
+            f"frame-breadth, streaming, lazy-plan, training, serving, runtime-services, "
+            f"mesh and scheduler phases launched flash_attention {flash_attention.launches} "
+            f"times; none of their graphs holds attention"
         )
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)
     launches = flash_attention.launches
@@ -3547,6 +3956,9 @@ def main() -> int:
             f"flash_attention launched {launches} times on the main path, "
             f"expected n_layers x blocks = {expected}"
         )
+    if torch.cuda.device_count() >= 2:
+        # counted apart from the main path's launches read above
+        phase_scheduled_lm(tft, cfg)
     # every launch of the main path is in the scoring call: the kernel's
     # event time x its launches over that call's wall time
     _emit(

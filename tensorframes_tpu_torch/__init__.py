@@ -101,6 +101,7 @@ from .frame import Column, TensorFrame  # noqa: E402
 from .graph import Graph, ShapeHints  # noqa: E402
 from .graph import builder as dsl  # noqa: E402
 from .graph.plan import col  # noqa: E402
+from .globalframe import GlobalFrame  # noqa: E402
 from .lazy import LazyFrame, RelationalFrame, explain_analyze, lazy  # noqa: E402
 from .models import InceptionLite  # noqa: E402
 from .io import stream_dataset  # noqa: E402
@@ -137,6 +138,7 @@ __all__ = [
     "DeadlineExceeded",
     "Executor",
     "FrameInfo",
+    "GlobalFrame",
     "GroupedFrame",
     "Graph",
     "InceptionLite",

@@ -19,9 +19,11 @@ The PyTorch counterpart of `tensorframes_tpu/aggregate.py`:
   partials. Taken instead of the exact plan by a classified graph with
   more distinct group sizes than ``config.aggregate_exact_size_limit``.
 
-`parallel.verbs.aggregate` runs the segment plan once a shard. Not ported:
-the block scheduler's fan-out of the per-size calls (item 12.2) and the
-TPU-only one-hot segment sum.
+Under the block scheduler the exact and chunk plans' per-size calls spread
+over the cards, weighted by their rows (`_fan_out`): each call's feeds are
+gathered on the anchor and copied to its card, and its outputs come back to
+the anchor. `parallel.verbs.aggregate` runs the segment plan once a shard.
+Not ported: the TPU-only one-hot segment sum.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from .graph.ir import Graph, base_name as _base
 from .ops.lowering import build_callable
 from .ops.standard import segment_reduce
 from .runtime import faults as _flt
+from .runtime import scheduler as _rs
 from .schema import ScalarType
 from .utils import telemetry as _tele
 
@@ -292,26 +295,62 @@ def _gather_rows(col_data, feed_names, starts: np.ndarray, size: int, device):
     return [col_data[n][rows] for n in feed_names]
 
 
+def _fan_out(calls, vfn_for, device, devs, ex, span: str, program, bases) -> List:
+    """Dispatch the independent per-size calls ``calls`` (``(rows, size,
+    feeds_for)``, in order; ``feeds_for()`` gathers the call's feeds on
+    ``device`` when it dispatches, so one size's gathered feeds are alive
+    at a time), each through a fault scope: on ``device``, or under a
+    block schedule over ``devs`` (weighted by rows, each call's feeds
+    copied to its card at call time, so a failover retry runs where the
+    call was re-placed). Every call is issued before any output is read;
+    outputs come back on ``device``."""
+    fscope = _flt.scope("aggregate")
+    sched = None
+    if devs is not None:
+        weights = [r for r, _, _ in calls]
+        sched = _rs.BlockSchedule(devs, _rs.plan(weights, len(devs)), executor=ex, weights=weights)
+    outs_all = []
+    for si, (rows, size, feeds_for) in enumerate(calls):
+
+        def thunk(si=si, rows=rows, size=size, feeds_for=feeds_for):
+            dev = device if sched is None else sched.device(si)
+            feeds = feeds_for()
+            if sched is None:
+                with _tele.dispatch_span(
+                    span, program=program, rows=rows, size=size, torch_device=dev,
+                ):
+                    return vfn_for(dev)(*feeds)
+            with _tele.dispatch_span(
+                span, program=program, rows=rows, size=size, torch_device=dev,
+                device=sched.label(si),
+            ):
+                return sched.bind(si, vfn_for(dev))(*feeds)
+
+        what = "groups" if span == "aggregate.size" else "chunks"
+        outs = fscope.dispatch(
+            thunk, what=f"aggregate {what} of size {int(size)}", sched=sched, index=si,
+        )
+        _flt.maybe_check_numerics(bases, outs, f"aggregate {what} of size {size}")
+        outs_all.append(tuple(outs) if sched is None else tuple(as_tensor(o, device) for o in outs))
+    return outs_all
+
+
 def _aggregate_exact(
-    vfn, feed_names, col_data, counts, starts, num_groups, bases, device, program,
+    vfn_for, feed_names, col_data, counts, starts, num_groups, bases, device, program,
+    devs=None, ex=None,
 ) -> Dict[str, torch.Tensor]:
     """Whole groups through the vmapped graph, one call per distinct group
     size: no associativity assumed."""
     results: Dict[str, torch.Tensor] = {}
-    fscope = _flt.scope("aggregate")
-    for size in np.unique(counts[counts > 0]):
-        gids = np.nonzero(counts == size)[0]
-        feeds = _gather_rows(col_data, feed_names, starts[gids], int(size), device)
-
-        def thunk(feeds=feeds, size=size, g=len(gids)):
-            with _tele.dispatch_span(
-                "aggregate.size", program=program, rows=int(size) * g, size=int(size),
-                torch_device=device,
-            ):
-                return vfn(*feeds)
-
-        outs = fscope.dispatch(thunk, what=f"aggregate groups of size {int(size)}")
-        _flt.maybe_check_numerics(bases, outs, f"aggregate groups of size {size}")
+    sizes = np.unique(counts[counts > 0])
+    gid_sets = [np.nonzero(counts == size)[0] for size in sizes]
+    calls = [
+        (int(size) * len(gids), int(size),
+         lambda st=starts[gids], n=int(size): _gather_rows(col_data, feed_names, st, n, device))
+        for size, gids in zip(sizes, gid_sets)
+    ]
+    outs_all = _fan_out(calls, vfn_for, device, devs, ex, "aggregate.size", program, bases)
+    for gids, outs in zip(gid_sets, outs_all):
         gids_t = torch.from_numpy(gids).to(device)
         for b, o in zip(bases, outs):
             if b not in results:
@@ -362,8 +401,8 @@ def _monoid_combine(tab: torch.Tensor, group_of_slot: torch.Tensor, num_groups: 
 
 
 def _aggregate_chunked(
-    vfn, feed_names, col_data, counts, starts, num_groups, bases, combiners, device,
-    program=None,
+    vfn_for, feed_names, col_data, counts, starts, num_groups, bases, combiners, device,
+    program=None, devs=None, ex=None,
 ) -> Dict[str, torch.Tensor]:
     """Keyed aggregation by power-of-two chunks and a monoid combine.
 
@@ -372,33 +411,25 @@ def _aggregate_chunked(
     into power-of-two chunks (the binary digits of its size, in row order);
     all chunks of one size run as ONE call of the vmapped graph over
     ``(n, size, *cell)`` feeds, every size dispatched before any result is
-    read; then each group's partials combine by its fetch's monoid
-    (`_chunk_combiners`), size-weighted for a mean. O(log max size) calls,
-    whatever the distribution."""
+    read (spread over ``devs`` under the block scheduler); then each
+    group's partials combine by its fetch's monoid (`_chunk_combiners`),
+    size-weighted for a mean. O(log max size) calls, whatever the
+    distribution."""
     if num_groups == 0:
         return {}
     by_size, group_of_slot, slot_size = _chunks(counts, starts)
     nslots = len(slot_size)
-    fscope = _flt.scope("aggregate")
-    pending = []
-    for p in sorted(by_size, reverse=True):
-        st, slots = by_size[p]
-        feeds = _gather_rows(col_data, feed_names, st, p, device)
-
-        def thunk(feeds=feeds, p=p, n=len(slots)):
-            with _tele.dispatch_span(
-                "aggregate.chunk", program=program, rows=n * p, size=p, torch_device=device,
-            ):
-                return vfn(*feeds)
-
-        outs = fscope.dispatch(thunk, what=f"aggregate chunks of size {p}")
-        _flt.maybe_check_numerics(bases, outs, f"aggregate chunks of size {p}")
-        pending.append((slots, outs))
+    ps = sorted(by_size, reverse=True)
+    calls = [
+        (len(by_size[p][1]) * p, p,
+         lambda st=by_size[p][0], n=p: _gather_rows(col_data, feed_names, st, n, device))
+        for p in ps
+    ]
+    outs_all = _fan_out(calls, vfn_for, device, devs, ex, "aggregate.chunk", program, bases)
     partials: Dict[str, torch.Tensor] = {}
-    for slots, outs in pending:
-        idx = torch.from_numpy(slots).to(device)
+    for p, outs in zip(ps, outs_all):
+        idx = torch.from_numpy(by_size[p][1]).to(device)
         for b, o in zip(bases, outs):
-            o = o.to(device)
             if b not in partials:
                 partials[b] = torch.empty(
                     (nslots,) + tuple(o.shape[1:]), dtype=o.dtype, device=device
@@ -422,11 +453,13 @@ def _aggregate_sorted(
     grouped,
     device: torch.device,
     classified: Optional[Dict[str, str]],
+    devs=None,
 ) -> TensorFrame:
-    """The plans over rows sorted by group: the exact plan, or, for a
-    classified graph with more distinct group sizes than
-    ``config.aggregate_exact_size_limit``, the chunk plan. Counted as
-    ``aggregate.plan.exact`` / ``aggregate.plan.chunk``."""
+    """The plans over rows sorted by group on ``device``: the exact plan,
+    or, for a classified graph with more distinct group sizes than
+    ``config.aggregate_exact_size_limit``, the chunk plan, their per-size
+    calls spread over ``devs`` when the block scheduler placed the call.
+    Counted as ``aggregate.plan.exact`` / ``aggregate.plan.chunk``."""
     from . import config as _config
     from .api import _empty_output
     from .utils.profiling import count as _count
@@ -434,7 +467,13 @@ def _aggregate_sorted(
     key_out, num_groups, counts, starts, col_data = _group_plan(
         grouped, mapping, feed_names, device
     )
-    vfn = _vmapped(ex, graph, fetch_list, feed_names, device)
+    vfns: Dict = {}
+
+    def vfn_for(dev):
+        if dev not in vfns:
+            vfns[dev] = _vmapped(ex, graph, fetch_list, feed_names, dev)
+        return vfns[dev]
+
     bases = [_base(f) for f in fetch_list]
     combiners = None
     if len(np.unique(counts[counts > 0])) > _config.get().aggregate_exact_size_limit:
@@ -447,12 +486,13 @@ def _aggregate_sorted(
     with _tele.span(f"aggregate.plan.{plan}", kind="stage", program=fp):
         if combiners is None:
             results = _aggregate_exact(
-                vfn, feed_names, col_data, counts, starts, num_groups, bases, device, fp
+                vfn_for, feed_names, col_data, counts, starts, num_groups, bases, device, fp,
+                devs, ex,
             )
         else:
             results = _aggregate_chunked(
-                vfn, feed_names, col_data, counts, starts,
-                num_groups, bases, combiners, device, program=fp,
+                vfn_for, feed_names, col_data, counts, starts,
+                num_groups, bases, combiners, device, program=fp, devs=devs, ex=ex,
             )
     for b in bases:
         if b not in results:  # empty frame: zero groups

@@ -34,15 +34,22 @@ placeholders, `map_blocks` defers; `reduce_blocks` fuses the pending chain
 with the reduce; `map_rows`, `reduce_rows` and `aggregate` force the plan
 first. `scan` opens a dataset as a relational plan (`RelationalFrame`).
 
-Every verb takes ``mesh=`` (`parallel.data_mesh()`: every visible card;
-an explicit device list, ``data_mesh(devices=["cpu"] * 8)``, on the CPU):
-the rows shard across the mesh's devices (`parallel.verbs`). ``mesh=``
-and ``device=`` together raise ``ValueError``; ``mesh=`` on a lazy plan
-raises ``NotImplementedError``.
+Placement (`_Place`): a verb's items are row ranges, each on a device.
+Without ``mesh=`` the items are the frame's blocks: on ``device`` when it
+is given, else spread over the cards by the block scheduler
+(`runtime.scheduler`: ``devices=``, or ``config.block_scheduler``, whose
+default "auto" spreads over two or more cards) or on the one card. With
+``mesh=`` (`parallel.data_mesh()`: every visible card; an explicit device
+list, ``data_mesh(devices=["cpu"] * 8)``, on the CPU) the items are JAX's
+shard bounds, shard i on mesh device i and the remainder on the first
+(`parallel.verbs`). One block loop serves every placement; results
+converge on the anchor (the one device, slot 0, the mesh's first device).
+``mesh=``, ``devices=`` and ``device=`` exclude each other (``ValueError``).
+A `GlobalFrame` (`TensorFrame.to_global`) runs its verbs on its shards
+(`globalframe`), and ``block_scheduler="global"`` routes eligible verbs on
+large plain frames there.
 
-Not in the port yet: ``devices=`` and the block scheduler, the global-frame
-routes and the mesh routes of lazy plans (ROADMAP Queue 1 items 12.2 and
-12.3); shape bucketing is left out on purpose (eager PyTorch has no
+Not in the port: shape bucketing, on purpose (eager PyTorch has no
 per-shape compile to bound).
 """
 
@@ -290,21 +297,24 @@ def _prepare(
     return summary, mapping
 
 
-def _check_mesh_args(verb: str, mesh, device) -> None:
+def _check_mesh_args(verb: str, mesh, device, devices=None) -> None:
+    """``mesh=``, ``devices=`` and ``device=`` each place the call; two
+    together raise."""
     if mesh is not None and device is not None:
         raise ValueError(
             f"{verb}: pass mesh= or device=, not both; a mesh places each "
             "shard on its own device"
         )
-
-
-def _mesh_on_lazy(verb: str):
-    raise NotImplementedError(
-        f"{verb}: mesh= on a lazy plan (a LazyFrame, or a map under "
-        "tft.lazy()) is not in the port yet (ROADMAP Queue 1 item 12.3, the "
-        "mesh routes of LazyFrame.force); call .force() first, or run the "
-        "verb outside lazy mode"
-    )
+    if devices is not None and mesh is not None:
+        raise ValueError(
+            "devices= and mesh= are mutually exclusive; the mesh owns "
+            "block placement"
+        )
+    if devices is not None and device is not None:
+        raise ValueError(
+            f"{verb}: pass devices= or device=, not both; device= pins one "
+            "device, devices= lets the block scheduler place the blocks"
+        )
 
 
 def _require_dense(frame: TensorFrame, cols: Sequence[str], verb: str) -> None:
@@ -465,10 +475,14 @@ def _feeds(frame, mapping, feed_names, lo, hi, device, bound=None) -> List[torch
     ]
 
 
-def _feed_source(frame, mapping, feed_names, device, bound=None):
-    """``feeds_for(lo, hi)``: `_feeds` of this call's frame and columns
-    (looked up at call time, so a replaced `_feeds` takes effect)."""
-    return lambda lo, hi: _feeds(frame, mapping, feed_names, lo, hi, device, bound)
+def _feed_source(frame, mapping, feed_names, bindings=None):
+    """``feeds_for(lo, hi, dev)``: `_feeds` of this call's frame and
+    columns on ``dev``, the bindings copied to each device once (looked up
+    at call time, so a replaced `_feeds` takes effect)."""
+    if not bindings:
+        return lambda lo, hi, dev: _feeds(frame, mapping, feed_names, lo, hi, dev)
+    bound = _per_device(lambda d: _bound_tensors(bindings, d))
+    return lambda lo, hi, dev: _feeds(frame, mapping, feed_names, lo, hi, dev, bound(dev))
 
 
 def _bound_tensors(bindings: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -561,29 +575,42 @@ def _reduce_split(graph, fetch_list, summary) -> _Split:
 
 
 def _dispatch_rows(
-    verb, span_name, fp, run, feeds_for, fscope, bi, lo, hi, dev,
+    verb, span_name, fp, run, feeds_for, fscope, bi, lo, hi, place,
     split=None, refuse="not-row-local", forensics=True, depth=0,
 ):
-    """Dispatch rows ``[lo, hi)`` of block ``bi``: ``run(feeds_for(lo, hi),
-    hi - lo)`` inside a dispatch span, through ``fscope`` (transient
-    errors retry with backoff). A ``resource`` error splits the range in
-    half and merges the halves by the `_Split` recipe ``split``; without a
-    recipe it re-raises, its forensic snapshot naming ``refuse``. Returns
-    the outputs as a tuple.
+    """Dispatch rows ``[lo, hi)`` of item ``bi``: ``run(feeds_for(lo, hi,
+    dev), hi - lo, bi)`` inside a dispatch span, through ``fscope``
+    (transient errors retry with backoff; under a block schedule the
+    failed item's device is evicted first). The item's device ``dev`` and
+    its feeds are taken inside each attempt, so a retry after an eviction
+    runs where the schedule re-placed the item. A ``resource`` error
+    splits the range in half and merges the halves by the `_Split` recipe
+    ``split``; without a recipe it re-raises, its forensic snapshot naming
+    ``refuse``. Returns the outputs as a tuple.
 
     The split runs after the ``except`` clause has ended: a CUDA
     out-of-memory error's traceback holds the failed attempt's frames,
     and their tensors would make the halves run out of memory too."""
-    feeds = feeds_for(lo, hi)
+    sched = place.sched
 
     def thunk():
+        dev = place.device(bi)
+        feeds = feeds_for(lo, hi, dev)
+        if sched is None:
+            with _tele.dispatch_span(
+                span_name, program=fp, block=bi, rows=hi - lo, torch_device=dev
+            ):
+                return run(feeds, hi - lo, bi)
         with _tele.dispatch_span(
-            span_name, program=fp, block=bi, rows=hi - lo, torch_device=dev
+            span_name, program=fp, block=bi, rows=hi - lo, torch_device=dev,
+            device=sched.label(bi),
         ):
-            return run(feeds, hi - lo)
+            return sched.bind(bi, lambda *f: run(f, hi - lo, bi))(*feeds)
 
     try:
-        return tuple(fscope.dispatch(thunk, what=f"{verb} block {bi} rows [{lo}:{hi})"))
+        return tuple(fscope.dispatch(
+            thunk, what=f"{verb} block {bi} rows [{lo}:{hi})", sched=sched, index=bi,
+        ))
     except Exception as e:
         if _flt.classify(e) != _flt.RESOURCE:
             raise
@@ -597,17 +624,222 @@ def _dispatch_rows(
         if forensics:
             _flt.record_oom(verb, fp, hi - lo, depth, f"split:[{lo}:{mid})+[{mid}:{hi})", e)
         _flt.note_split(verb)
-    del feeds, thunk
+    del thunk
     left = _dispatch_rows(
-        verb, span_name, fp, run, feeds_for, fscope, bi, lo, mid, dev,
+        verb, span_name, fp, run, feeds_for, fscope, bi, lo, mid, place,
         split, refuse, forensics, depth + 1,
     )
     right = _dispatch_rows(
-        verb, span_name, fp, run, feeds_for, fscope, bi, mid, hi, dev,
+        verb, span_name, fp, run, feeds_for, fscope, bi, mid, hi, place,
         split, refuse, forensics, depth + 1,
     )
     return combine(left, right, mid - lo, hi - mid)
 
+
+# ---------------------------------------------------------------------------
+# placement: one block loop for one device, a block schedule and a mesh
+# ---------------------------------------------------------------------------
+
+
+def _shards(nrows: int, ndev: int) -> Tuple[int, List[Tuple[int, int]], Tuple[int, int]]:
+    """``(s, shard row ranges, tail row range)``: JAX's mesh layout,
+    ``ndev`` shards of ``nrows // ndev`` rows, then the remainder."""
+    s = nrows // ndev
+    return s, [(d * s, (d + 1) * s) for d in range(ndev)], (s * ndev, nrows)
+
+
+def _block_items(frame) -> List[Tuple[int, int, int]]:
+    """``(block, lo, hi)`` of every non-empty block: an empty one
+    contributes nothing, and a reduce's identity would poison the
+    combine."""
+    off = frame.offsets
+    return [(bi, off[bi], off[bi + 1]) for bi in range(len(off) - 1) if off[bi] != off[bi + 1]]
+
+
+class _Place:
+    """Where one verb call's items run. ``items`` are ``(i, lo, hi)`` row
+    ranges in dispatch order, item ``i`` on `device(i)`:
+
+    - one device: the frame's non-empty blocks (``i`` the block index),
+      all on ``anchor``;
+    - a block schedule (``sched``, `runtime.scheduler.BlockSchedule`): the
+      same blocks, block ``i`` on the device the schedule holds for it
+      when it dispatches (a failover re-places it);
+    - a mesh (``mesh``): JAX's shard bounds (`_shards`), shard ``i`` on
+      mesh device ``i``, then the remainder (item ``ndev``) on the first
+      device; the shards dispatch together (`_mesh_loop`). A
+      `GlobalFrame`'s resident shards are such a placement with no
+      remainder (`globalframe._shard_loop`).
+
+    Results converge on ``anchor``: the one device, schedule slot 0, the
+    mesh's first device."""
+
+    __slots__ = ("items", "anchor", "sched", "mesh", "devs")
+
+    def __init__(self, items, anchor, sched=None, mesh=None, devs=None):
+        self.items = items
+        self.anchor = anchor
+        self.sched = sched
+        self.mesh = mesh
+        if devs is None:
+            devs = list(sched.devices) if sched is not None else [anchor]
+        self.devs = devs
+
+    @property
+    def spread(self) -> bool:
+        """True when items may lie on more than one device."""
+        return self.sched is not None or self.mesh is not None
+
+    def device(self, i: int) -> torch.device:
+        if self.sched is not None:
+            d = self.sched.device(i)
+            return self.anchor if d is None else d  # unplaced: weighs nothing
+        if self.mesh is not None and i < len(self.devs):
+            return self.devs[i]
+        return self.anchor
+
+    def is_shard(self, i: int) -> bool:
+        return self.mesh is not None and i < len(self.devs)
+
+    def gather(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """Concatenate item outputs on the anchor."""
+        if not self.spread:
+            return _concat(parts)
+        return _concat([as_tensor(p, self.anchor) for p in parts])
+
+
+def _place(frame, device, devices, mesh, ex, weights=None) -> _Place:
+    """The placement of one verb call (see `_Place`): the mesh's shards,
+    the one ``device`` given, a block schedule (`scheduler.schedule_weights`
+    over ``weights``, by default the block sizes), or the one card."""
+    if mesh is not None:
+        devs = mesh.device_list()
+        _, ranges, (tlo, thi) = _shards(frame.nrows, len(devs))
+        items = [(d, lo, hi) for d, (lo, hi) in enumerate(ranges) if hi > lo]
+        if thi > tlo:
+            items.append((len(devs), tlo, thi))
+        return _Place(items, devs[0], mesh=mesh, devs=devs)
+    items = _block_items(frame)
+    if device is None:
+        from .runtime import scheduler as _rs
+
+        sched = _rs.schedule_weights(
+            frame.block_sizes() if weights is None else weights,
+            devices=devices, executor=ex,
+        )
+        if sched is not None:
+            return _Place(items, sched.anchor_device(), sched=sched)
+    return _Place(items, resolve_device(device))
+
+
+def _programs(place: _Place, make, mesh_make=None):
+    """``prog(i)``: the program of item ``i``, ``make(dev)`` for its
+    device (``mesh_make(dev)`` for a mesh shard), built once a device."""
+    memo: Dict = {}
+    mesh_make = mesh_make or make
+
+    def prog(i):
+        dev = place.device(i)
+        key = (dev, place.is_shard(i))
+        fn = memo.get(key)
+        if fn is None:
+            fn = memo[key] = (mesh_make if key[1] else make)(dev)
+        return fn
+
+    return prog
+
+
+def _per_device(make):
+    """``get(dev)``: ``make(dev)`` once a device (bound tensors, feeds)."""
+    memo: Dict = {}
+
+    def get(dev):
+        v = memo.get(dev)
+        if v is None:
+            v = memo[dev] = make(dev)
+        return v
+
+    return get
+
+
+def _loop(
+    place: _Place, verb: str, span_name: str, fp, run, feeds_for, check,
+    fscope=None, split=None, refuse="not-row-local", forensics=True,
+    what: Optional[str] = None, mesh_name: Optional[str] = None,
+    mesh_label: str = "mesh", mesh_attrs: Optional[Dict] = None,
+) -> List[Tuple]:
+    """THE block loop of every verb: each item's outputs, in item order.
+
+    ``run(feeds, rows, i)`` computes item ``i`` from ``feeds_for(lo, hi,
+    dev)``; ``check(outs, what)`` vets each item's outputs (numerics,
+    shapes). With a fault scope each item dispatches through
+    `_dispatch_rows` (span, retries, failover, OOM splits) in one
+    `telemetry.dispatch_run`; without one (the function front end) it is
+    called as it is. A mesh dispatches its shards together (`_mesh_loop`;
+    ``mesh_label`` names the shards in messages, ``mesh_attrs`` adds to
+    the dispatch span)."""
+    what = what or verb
+    if place.mesh is not None:
+        return _mesh_loop(
+            place, mesh_name or f"mesh.{verb}", fp, run, feeds_for, check, what,
+            mesh_label, mesh_attrs,
+        )
+    out = []
+    if fscope is None:
+        for i, lo, hi in place.items:
+            _dl.check(verb)
+            feeds = feeds_for(lo, hi, place.device(i))
+            if place.sched is not None:
+                feeds = place.sched.put(i, feeds)
+            outs = run(feeds, hi - lo, i)
+            check(outs, f"{what} block {i}")
+            out.append(outs)
+        return out
+    with _tele.dispatch_run(place.anchor):
+        for i, lo, hi in place.items:
+            _dl.check(verb)
+            outs = _dispatch_rows(
+                verb, span_name, fp, run, feeds_for, fscope, i, lo, hi, place,
+                split=split, refuse=refuse, forensics=forensics,
+            )
+            check(outs, f"{what} block {i}")
+            out.append(outs)
+    return out
+
+
+def _mesh_loop(
+    place: _Place, name: str, fp, run, feeds_for, check, what: str, label: str = "mesh",
+    attrs: Optional[Dict] = None,
+) -> List[Tuple]:
+    """A mesh's items: every shard issued in one ``name`` dispatch
+    (`parallel.verbs._mesh_call`: a ``verb`` span, a dispatch span with
+    ``shards=`` and ``attrs`` — whose ``rows``, when given, replaces the
+    items' row count —, transient retries), then the remainder in
+    ``name.tail`` on the first device."""
+    from .parallel.verbs import _mesh_call
+
+    ndev = len(place.devs)
+    shards = [it for it in place.items if it[0] < ndev]
+    attrs = dict(attrs or {})
+    rows = attrs.pop("rows", sum(hi - lo for _, lo, hi in shards))
+    out = []
+    if shards:
+        res = _mesh_call(
+            name, fp, rows, ndev,
+            lambda: [run(feeds_for(lo, hi, place.devs[d]), hi - lo, d) for d, lo, hi in shards],
+            place.anchor, **attrs,
+        )
+        for (d, _, _), outs in zip(shards, res):
+            check(outs, f"{what} ({label} shard {d})")
+            out.append(outs)
+    for i, lo, hi in place.items[len(shards):]:
+        outs = _mesh_call(
+            name + ".tail", fp, hi - lo, 1,
+            lambda: run(feeds_for(lo, hi, place.anchor), hi - lo, i), place.anchor,
+        )
+        check(outs, f"{what} ({label} tail)")
+        out.append(outs)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -628,10 +860,12 @@ def map_blocks(
     bindings: Bindings = None,
     device: DeviceLike = None,
     mesh=None,
+    devices=None,
 ) -> TensorFrame:
     """Apply a graph, or a plain function of columns returning a dict of
-    named outputs, to each block on ``device``, or with ``mesh=`` one
-    block a device of the mesh (`parallel.verbs.map_blocks`).
+    named outputs, to each block: on ``device``, spread over the cards by
+    the block scheduler (``devices=``, or ``config.block_scheduler``), or
+    with ``mesh=`` one shard a device of the mesh (see `_Place`).
 
     Without ``trim`` every output keeps the block's row count and the
     input columns ride along; with ``trim=True`` the row count may change
@@ -644,16 +878,22 @@ def map_blocks(
     graph fetches (function, ``trim`` and ``bindings`` calls and bytes
     placeholders stay eager: they cannot be spliced) — the verb DEFERS: it
     returns a `LazyFrame` carrying the chain as one pending fused graph.
+    On a `GlobalFrame` it runs on the frame's shards (`globalframe`).
     """
+    from . import globalframe as _gf
     from .lazy import LazyFrame, lazy_active
 
-    _check_mesh_args("map_blocks", mesh, device)
+    if isinstance(frame, _gf.GlobalFrame):
+        return _gf.map_blocks_global(
+            fetches, frame, feed_dict=feed_dict, trim=trim, fetch_names=fetch_names,
+            executor=executor, mesh=mesh, bindings=bindings, devices=devices, device=device,
+        )
+    _check_mesh_args("map_blocks", mesh, device, devices)
     if isinstance(frame, LazyFrame):
-        if mesh is not None:
-            _mesh_on_lazy("map_blocks")
         return frame.map_blocks(
             fetches, feed_dict=feed_dict, trim=trim, fetch_names=fetch_names,
-            executor=executor, bindings=bindings, device=device,
+            executor=executor, bindings=bindings, device=device, mesh=mesh,
+            devices=devices,
         )
     if (
         lazy_active()
@@ -666,34 +906,33 @@ def map_blocks(
         if not any(
             ph.dtype_attr is ScalarType.string for ph in lazy_graph.placeholders()
         ):
-            if mesh is not None:
-                _mesh_on_lazy("map_blocks")
             # _fuse_stage directly: the graph is already normalized
-            return LazyFrame(frame, executor=executor, device=device)._fuse_stage(
-                "map_blocks", lazy_graph, lazy_fetches, feed_dict
-            )
+            return LazyFrame(
+                frame, executor=executor, device=device, mesh=mesh, devices=devices
+            )._fuse_stage("map_blocks", lazy_graph, lazy_fetches, feed_dict)
         # bytes pass-through cannot splice: stays eager under the mode
-    dev = resolve_device(device) if mesh is None else None
     bindings = _normalize_bindings(bindings)
+    ex = executor or default_executor()
     if callable(fetches) and not isinstance(fetches, dsl.Tensor):
-        if mesh is not None:
-            from .parallel import verbs as _pverbs
-
-            return _pverbs.map_blocks(fetches, frame, mesh, trim=trim, bindings=bindings)
         from .fn_frontend import _map_blocks_fn
 
-        return _map_blocks_fn(fetches, frame, trim, dev, bindings)
+        return _map_blocks_fn(
+            fetches, frame, trim, bindings, lambda: _place(frame, device, devices, mesh, ex)
+        )
     graph, fetch_list = _as_graph(fetches, fetch_names)
     graph, fetch_list, str_pass = _split_string_passthrough(graph, fetch_list)
 
     def run_graph(trim):
-        if mesh is not None:
-            from .parallel import verbs as _pverbs
-
-            return _pverbs.map_blocks(
-                graph, frame, mesh, feed_dict, trim, fetch_list, executor, bindings
-            )
-        return _map_blocks_graph(graph, fetch_list, frame, feed_dict, trim, executor, bindings, dev)
+        if not trim and not bindings and mesh is None and device is None:
+            # block_scheduler="global": row-local graphs on a large frame
+            # run on its shards, one call a card
+            routed = _gf.maybe_map_blocks(graph, fetch_list, frame, feed_dict, ex, devices)
+            if routed is not _gf.SKIP:
+                return routed
+        return _map_blocks_graph(
+            graph, fetch_list, frame, feed_dict, trim, ex, bindings,
+            lambda: _place(frame, device, devices, mesh, ex),
+        )
 
     if str_pass:
         # bytes columns ride on the host in every topology
@@ -708,52 +947,63 @@ def map_blocks(
     return run_graph(trim)
 
 
-def _map_blocks_graph(graph, fetch_list, frame, feed_dict, trim, executor, bindings, dev):
+def _map_blocks_graph(graph, fetch_list, frame, feed_dict, trim, ex, bindings, placement):
     summary, mapping = _prepare(graph, fetch_list, frame, feed_dict, True, bindings)
     _require_dense(frame, list(mapping.values()), "map_blocks")
-    ex = executor or default_executor()
+    place = placement()
     feed_names = sorted(summary.inputs)
-    fn = ex.callable_for(graph, fetch_list, feed_names, dev)
-    bound = _bound_tensors(bindings, dev)
+    mesh_make = None
+    if place.mesh is not None:
+        from .parallel.verbs import _mesh_sig
+
+        kind = f"shmap-{_mesh_sig(place.mesh)}"
+        mesh_make = lambda d: ex.cached(  # noqa: E731
+            kind, graph, fetch_list, feed_names, d,
+            lambda dd: build_callable(graph, fetch_list, feed_names, dd),
+        )
+    prog = _programs(
+        place, lambda d: ex.callable_for(graph, fetch_list, feed_names, d), mesh_make
+    )
     # a row-local graph's block may split on OOM (halves concatenate)
     split = None
     if not trim and not bindings:
         split = _rowwise_split(
             graph, fetch_list, {p: ph.shape.rank for p, ph in summary.inputs.items()}
         )
-    fscope = _flt.scope("map_blocks")
-    fp = graph.fingerprint()
-    feeds_for = _feed_source(frame, mapping, feed_names, dev, bound)
-
     bases = [base_name(f) for f in fetch_list]
-    acc: Dict[str, List[torch.Tensor]] = {b: [] for b in bases}
-    out_sizes: List[int] = []
-    with _tele.dispatch_run(dev):
-        for bi in range(frame.num_blocks):
-            lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
-            if lo == hi:
-                out_sizes.append(0)
-                continue  # an empty block contributes nothing
-            _dl.check("map_blocks")
-            outs = _dispatch_rows(
-                "map_blocks", "map_blocks.block", fp, lambda feeds, rows: fn(*feeds),
-                feeds_for, fscope, bi, lo, hi, dev, split=split,
-            )
-            maybe_check_numerics(fetch_list, outs, f"map_blocks block {bi}")
-            named = dict(zip(bases, outs))
-            out_sizes.append(_block_rows(named, hi - lo, trim))
-            for base, o in named.items():
-                acc[base].append(o)
+    out_sizes: Dict[int, int] = {}
 
+    def check(outs, what):
+        maybe_check_numerics(fetch_list, outs, what)
+
+    parts = _loop(
+        place, "map_blocks", "map_blocks.block", graph.fingerprint(),
+        lambda feeds, rows, i: prog(i)(*feeds),
+        _feed_source(frame, mapping, feed_names, bindings), check,
+        fscope=_flt.scope("map_blocks"), split=split,
+    )
+    for (i, lo, hi), outs in zip(place.items, parts):
+        out_sizes[i] = _block_rows(dict(zip(bases, outs)), hi - lo, trim)
     out_cols = [
         Column(
-            base,
-            _concat(parts) if parts else _empty_output(summary, base, True, dev),
+            b,
+            place.gather([p[j] for p in parts]) if parts
+            else _empty_output(summary, b, True, place.anchor),
         )
-        for base, parts in acc.items()
+        for j, b in enumerate(bases)
     ]
-    offsets = list(np.cumsum([0] + out_sizes)) if trim else frame.offsets
-    return _output_frame(frame, out_cols, append_input=not trim, offsets=offsets)
+    return _output_frame(
+        frame, out_cols, append_input=not trim,
+        offsets=_trim_offsets(frame, place, out_sizes) if trim else frame.offsets,
+    )
+
+
+def _trim_offsets(frame, place: _Place, sizes: Dict[int, int]) -> List[int]:
+    """A trimmed map's block offsets: a block (or a mesh item) a block of
+    its output rows, an empty block an empty one."""
+    if place.mesh is not None:
+        return list(np.cumsum([0] + [sizes[i] for i, _, _ in place.items]))
+    return list(np.cumsum([0] + [sizes.get(bi, 0) for bi in range(frame.num_blocks)]))
 
 
 # ---------------------------------------------------------------------------
@@ -825,14 +1075,6 @@ def _row_runner(plan, ex, graph, fetch_list, feed_names, summary, bindings, dev,
     return rows_one_by_one
 
 
-def _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev):
-    """`map_rows`' plan for this graph on ``dev``, counted
-    (``map_rows.plan.<plan>``)."""
-    plan = _row_plan_kind(graph, fetch_list, feed_names, summary, bindings)
-    _count(f"map_rows.plan.{plan}")
-    return _row_runner(plan, ex, graph, fetch_list, feed_names, summary, bindings, dev)
-
-
 @_pandas_in_out
 @_deadline_entry("map_rows")
 @torch.no_grad()
@@ -845,6 +1087,7 @@ def map_rows(
     bindings: Bindings = None,
     device: DeviceLike = None,
     mesh=None,
+    devices=None,
 ) -> TensorFrame:
     """Apply a per-row graph, or a plain function of row cells returning
     a dict of named outputs, to every row, one call per block (the
@@ -870,31 +1113,39 @@ def map_rows(
     output whose groups agree on its cell shape is dense on ``device``,
     any other is ragged on the host. A fetch that is the identity of a
     bytes column copies that column on the host. A `LazyFrame` is forced
-    first (one fused callable per block)."""
+    first (one fused callable per block). Placement as `map_blocks`'s
+    (``device=``, ``devices=``, ``mesh=``; a mesh runs ragged rows through
+    the bucket plan once a shard); a `GlobalFrame` runs one vmapped call
+    a shard."""
+    from . import globalframe as _gf
     from .lazy import LazyFrame
 
-    _check_mesh_args("map_rows", mesh, device)
+    if isinstance(frame, _gf.GlobalFrame):
+        return _gf.map_rows_global(
+            fetches, frame, feed_dict=feed_dict, fetch_names=fetch_names,
+            executor=executor, mesh=mesh, bindings=bindings, devices=devices, device=device,
+        )
+    _check_mesh_args("map_rows", mesh, device, devices)
     if isinstance(frame, LazyFrame):
-        if mesh is not None:
-            _mesh_on_lazy("map_rows")
-        frame = frame.force(device=device)
-    dev = resolve_device(device) if mesh is None else None
+        frame = frame.force(device=device, mesh=mesh, devices=devices)
     bindings = _normalize_bindings(bindings)
-    if mesh is not None:
-        from .parallel import verbs as _pverbs
+    ex = executor or default_executor()
+
+    def placement():
+        return _place(frame, device, devices, mesh, ex)
+
     if callable(fetches) and not isinstance(fetches, dsl.Tensor):
-        if mesh is not None:
-            return _pverbs.map_rows(fetches, frame, mesh, bindings=bindings)
         from .fn_frontend import _map_rows_fn
 
-        return _map_rows_fn(fetches, frame, dev, bindings)
+        return _map_rows_fn(fetches, frame, bindings, placement)
     graph, fetch_list = _as_graph(fetches, fetch_names)
     graph, fetch_list, str_pass = _split_string_passthrough(graph, fetch_list)
 
     def run_graph():
-        if mesh is not None:
-            return _pverbs.map_rows(graph, frame, mesh, feed_dict, fetch_list, executor, bindings)
-        return _map_rows_graph(graph, fetch_list, frame, feed_dict, executor, bindings, dev)
+        return _map_rows_graph(
+            graph, fetch_list, frame, feed_dict, ex, bindings, placement,
+            route=not bindings and mesh is None and device is None, devices=devices,
+        )
 
     if str_pass:
         return _with_string_passthrough(
@@ -903,7 +1154,8 @@ def map_rows(
     return run_graph()
 
 
-def _map_rows_graph(graph, fetch_list, frame, feed_dict, executor, bindings, dev):
+def _map_rows_graph(graph, fetch_list, frame, feed_dict, ex, bindings, placement,
+                    route=False, devices=None):
     summary, mapping = _prepare(graph, fetch_list, frame, feed_dict, False, bindings)
     feed_names = sorted(summary.inputs)
     dense = all(frame.column(c).is_dense for c in mapping.values())
@@ -917,48 +1169,67 @@ def _map_rows_graph(graph, fetch_list, frame, feed_dict, executor, bindings, dev
             "map_rows: every placeholder is bound, so nothing varies per "
             "row; use map_blocks (or run the graph once and broadcast)"
         )
-    ex = executor or default_executor()
-    run_block = _row_plan(ex, graph, fetch_list, feed_names, summary, bindings, dev)
+    if route:
+        # block_scheduler="global": one vmapped call a shard of a large frame
+        from . import globalframe as _gf
+
+        routed = _gf.maybe_map_rows(
+            graph, fetch_list, frame, feed_dict, ex, devices, pre=(summary, mapping)
+        )
+        if routed is not _gf.SKIP:
+            return routed
+    place = placement()
+    plan = _row_plan_kind(graph, fetch_list, feed_names, summary, bindings)
+    _count(f"map_rows.plan.{plan}")
+    prefix = ""
+    if place.mesh is not None:
+        from .parallel.verbs import _mesh_sig
+
+        prefix = f"shmap-rows-{_mesh_sig(place.mesh)}-"
+    prog = _programs(
+        place,
+        lambda d: _row_runner(plan, ex, graph, fetch_list, feed_names, summary, bindings, d),
+        lambda d: _row_runner(plan, ex, graph, fetch_list, feed_names, summary, bindings, d, prefix),
+    )
     out_names = [base_name(f) for f in fetch_list]
     if not dense:
-        from .fn_frontend import _run_ragged_bucketed
+        columns = [frame.column(mapping[n]) for n in feed_names]
+        if place.mesh is not None:
+            from .parallel.verbs import _ragged_per_shard
 
-        per_out = _run_ragged_bucketed(
-            run_block, [frame.column(mapping[n]) for n in feed_names], frame.nrows, dev,
-            out_names,
-        )
+            per_out = _ragged_per_shard(
+                [prog(d) for d in range(len(place.devs))], columns, frame.nrows,
+                place.devs, out_names,
+            )
+        else:
+            from .fn_frontend import _run_ragged_bucketed
+
+            # the bucket plan runs on the anchor
+            per_out = _run_ragged_bucketed(
+                _row_runner(plan, ex, graph, fetch_list, feed_names, summary, bindings, place.anchor),
+                columns, frame.nrows, place.anchor, out_names,
+            )
         out_cols = [
-            per_out[n] if n in per_out else Column(n, _empty_output(summary, n, False, dev))
+            per_out[n] if n in per_out else Column(n, _empty_output(summary, n, False, place.anchor))
             for n in out_names
         ]
         return _output_frame(frame, out_cols, append_input=True)
-    bound = _bound_tensors(bindings, dev)
-    fscope = _flt.scope("map_rows")
-    fp = graph.fingerprint()
-    feeds_for = _feed_source(frame, mapping, feed_names, dev, bound)
-
-    acc: Dict[str, List[torch.Tensor]] = {n: [] for n in out_names}
-    with _tele.dispatch_run(dev):
-        for bi in range(frame.num_blocks):
-            lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
-            if lo == hi:
-                continue
-            _dl.check("map_rows")
-            # every plan is row-independent (bound placeholders stay
-            # whole): an OOM split is always valid
-            outs = _dispatch_rows(
-                "map_rows", "map_rows.block", fp, run_block, feeds_for, fscope,
-                bi, lo, hi, dev, split=_CONCAT,
-            )
-            maybe_check_numerics(out_names, outs, f"map_rows block {bi}")
-            for n, o in zip(out_names, outs):
-                acc[n].append(o)
+    # every plan is row-independent (bound placeholders stay whole): an
+    # OOM split is always valid
+    parts = _loop(
+        place, "map_rows", "map_rows.block", graph.fingerprint(),
+        lambda feeds, rows, i: prog(i)(feeds, rows),
+        _feed_source(frame, mapping, feed_names, bindings),
+        lambda outs, what: maybe_check_numerics(out_names, outs, what),
+        fscope=_flt.scope("map_rows"), split=_CONCAT,
+    )
     out_cols = [
         Column(
             n,
-            _concat(parts) if parts else _empty_output(summary, n, False, dev),
+            place.gather([p[j] for p in parts]) if parts
+            else _empty_output(summary, n, False, place.anchor),
         )
-        for n, parts in acc.items()
+        for j, n in enumerate(out_names)
     ]
     return _output_frame(frame, out_cols, append_input=True)
 
@@ -1026,14 +1297,50 @@ def _dispatch_combine(kind, fp, fscope, fn, feed_src, partials, dev) -> Tuple:
     return tuple(fscope.dispatch(thunk, what=f"{kind} of {len(partials)} partials"))
 
 
-def _stack_parts(parts: List) -> Union[np.ndarray, torch.Tensor]:
-    """Stack partials: on the device of the first tensor among them when
-    any is a tensor (host partials, spilled or restored from a checkpoint,
-    move there), else with host numpy."""
+def _assoc_reduce(graph, fetch_list, summary) -> bool:
+    """True when re-feeding partials through ``graph`` is an associative
+    monoid combine (sum / min / max / prod consuming its placeholder
+    directly): the partials of one device may then combine first."""
+    comb = _chunk_combiners(graph, fetch_list, summary, require_direct=True)
+    return comb is not None and "mean" not in comb.values()
+
+
+def _combine_placed(kind, fp, fscope, combine_for, feed_src, partials, owners, place, assoc):
+    """Combine per-item partials (`_dispatch_combine`; ``combine_for(dev)``
+    is the combine program on ``dev``) where the placement left them, as
+    JAX's ``_combine_partials_scheduled``: under a block schedule an
+    ``assoc`` graph combines each device's partials on that device, then
+    the per-device results once on the anchor; anything else (and a mesh)
+    moves every partial to the anchor and combines them once, in item
+    order."""
+    anchor = place.anchor
+    if assoc and place.sched is not None:
+        groups: Dict[int, List[Tuple]] = {}
+        for p, o in zip(partials, owners):
+            groups.setdefault(o, []).append(p)
+        if len(groups) > 1:
+            stage = []
+            for slot in sorted(groups):
+                ps = groups[slot]
+                dev = place.sched.devices[slot]
+                stage.append(ps[0] if len(ps) == 1 else _dispatch_combine(
+                    kind, fp, fscope, combine_for(dev), feed_src, ps, dev
+                ))
+            partials = stage
+    if place.spread:
+        partials = [tuple(as_tensor(x, anchor) for x in p) for p in partials]
+    return _dispatch_combine(kind, fp, fscope, combine_for(anchor), feed_src, partials, anchor)
+
+
+def _stack_parts(parts: List, anchor=None) -> Union[np.ndarray, torch.Tensor]:
+    """Stack partials: on ``anchor`` (default: the device of the first
+    tensor among them) when any is a tensor (host partials, spilled or
+    restored from a checkpoint, and partials of other cards move there),
+    else with host numpy."""
     dev = next((p.device for p in parts if isinstance(p, torch.Tensor)), None)
     if dev is None:
         return np.stack([np.asarray(p) for p in parts])
-    return torch.stack([as_tensor(p, dev) for p in parts])
+    return torch.stack([as_tensor(p, anchor or dev) for p in parts])
 
 
 def _results(bases: List[str], values):
@@ -1052,68 +1359,87 @@ def reduce_blocks(
     executor: Optional[Executor] = None,
     device: DeviceLike = None,
     mesh=None,
+    devices=None,
 ):
     """Per-block reduce, then one combine over the stacked partials.
     Returns one tensor for one fetch, a dict of tensors for several; the
-    results stay on ``device``. On a `LazyFrame` this is a terminal action:
-    the reduce's per-block stage fuses into the pending chain, and the
-    whole pipeline runs as ONE callable per block."""
+    results stay on the anchor device. Placement as `map_blocks`'s; under
+    a block schedule an associative monoid graph combines each card's
+    partials there first (`_combine_placed`). On a `LazyFrame` this is a
+    terminal action: the reduce's per-block stage fuses into the pending
+    chain, and the whole pipeline runs as ONE callable per block. On a
+    `GlobalFrame` a classified reduce runs once a shard and combines once
+    on the anchor (`globalframe`)."""
+    from . import globalframe as _gf
     from .lazy import LazyFrame
 
-    _check_mesh_args("reduce_blocks", mesh, device)
-    if isinstance(frame, LazyFrame):
-        if mesh is not None:
-            _mesh_on_lazy("reduce_blocks")
-        return frame.reduce_blocks(
-            fetches, feed_dict, fetch_names, executor, device=device
+    if isinstance(frame, _gf.GlobalFrame):
+        return _gf.reduce_blocks_global(
+            fetches, frame, feed_dict=feed_dict, fetch_names=fetch_names,
+            executor=executor, mesh=mesh, devices=devices, device=device,
         )
-    if mesh is not None:
-        from .parallel import verbs as _pverbs
-
-        return _pverbs.reduce_blocks(fetches, frame, mesh, feed_dict, fetch_names, executor)
-    dev = resolve_device(device)
+    _check_mesh_args("reduce_blocks", mesh, device, devices)
+    if isinstance(frame, LazyFrame):
+        return frame.reduce_blocks(
+            fetches, feed_dict, fetch_names, executor, device=device, mesh=mesh,
+            devices=devices,
+        )
+    ex = executor or default_executor()
     graph, fetch_list = _as_graph(fetches, fetch_names)
+    if mesh is None and device is None:
+        # block_scheduler="global": a classified reduce of a large frame
+        # runs once a shard
+        routed = _gf.maybe_reduce_blocks(graph, fetch_list, frame, feed_dict, ex, devices)
+        if routed is not _gf.SKIP:
+            return routed
     summary, mapping = _prepare(
         graph, fetch_list, frame, feed_dict, True, validate=_validate_reduce_blocks
     )
     _require_dense(frame, list(mapping.values()), "reduce_blocks")
-    ex = executor or default_executor()
+    place = _place(frame, device, devices, mesh, ex)
     feed_names = sorted(summary.inputs)
-    fn = ex.callable_for(graph, fetch_list, feed_names, dev)
+
+    def make(d):
+        return ex.callable_for(graph, fetch_list, feed_names, d)
+
+    mesh_make = None
+    if place.mesh is not None:
+        from .parallel.verbs import _mesh_sig
+
+        kind = f"shred-{_mesh_sig(place.mesh)}"
+        mesh_make = lambda d: ex.cached(  # noqa: E731
+            kind, graph, fetch_list, feed_names, d,
+            lambda dd: build_callable(graph, fetch_list, feed_names, dd),
+        )
+    prog = _programs(place, make, mesh_make)
     # feed_src[j] = the fetch whose partial re-feeds feed_names[j]
     fetch_of_feed = {base_name(f) + "_input": i for i, f in enumerate(fetch_list)}
     feed_src = [fetch_of_feed[n] for n in feed_names]
-
     fscope = _flt.scope("reduce_blocks")
     fp = graph.fingerprint()
-    split = _reduce_split(graph, fetch_list, summary)
-    feeds_for = _feed_source(frame, mapping, feed_names, dev)
-    partials: List[Tuple] = []
-    with _tele.dispatch_run(dev):
-        for bi in range(frame.num_blocks):
-            lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
-            if lo == hi:
-                continue  # the reduction identity would poison the combine
-            _dl.check("reduce_blocks")
-            outs = _dispatch_rows(
-                "reduce_blocks", "reduce_blocks.block", fp,
-                lambda feeds, rows: fn(*feeds),
-                feeds_for,
-                fscope, bi, lo, hi, dev,
-                split=split, refuse="unclassifiable-reduce",
-            )
-            maybe_check_numerics(fetch_list, outs, f"reduce_blocks block {bi}")
-            partials.append(outs)
+    partials = _loop(
+        place, "reduce_blocks", "reduce_blocks.block", fp,
+        lambda feeds, rows, i: prog(i)(*feeds),
+        _feed_source(frame, mapping, feed_names),
+        lambda outs, what: maybe_check_numerics(fetch_list, outs, what),
+        fscope=fscope, split=_reduce_split(graph, fetch_list, summary),
+        refuse="unclassifiable-reduce",
+    )
     if not partials:
         raise ValueError("reduce_blocks on an empty frame")
     # a verb whose budget ran out during the blocks must not start the
     # combine
     _dl.check("reduce_blocks")
-    final = (
-        partials[0]
-        if len(partials) == 1
-        else _dispatch_combine("reduce-combine", fp, fscope, fn, feed_src, partials, dev)
-    )
+    if len(partials) == 1:
+        final = tuple(as_tensor(x, place.anchor) for x in partials[0]) if place.spread else partials[0]
+    else:
+        owners = [place.sched.slot(i) for i, _, _ in place.items] if place.sched else None
+        final = _combine_placed(
+            "reduce-combine", fp, fscope, _per_device(make), feed_src, partials, owners,
+            place, place.sched is not None and _assoc_reduce(graph, fetch_list, summary),
+        )
+    if place.mesh is not None:
+        maybe_check_numerics(fetch_list, final, "reduce_blocks (mesh)")
     return _results([base_name(f) for f in fetch_list], final)
 
 
@@ -1218,6 +1544,7 @@ def reduce_rows(
     executor: Optional[Executor] = None,
     device: DeviceLike = None,
     mesh=None,
+    devices=None,
 ):
     """Pairwise fold over all rows: ``x = f(x_1, x_2)`` with the carry in
     ``x_1`` and the next row in ``x_2``.
@@ -1233,20 +1560,24 @@ def reduce_rows(
     - the general plan, for any other pair graph: the lowered pair
       callable once per row, the carry kept on ``device``.
 
-    A `LazyFrame` is forced first (one fused callable per block).
+    Placement as `map_blocks`'s: under a block schedule or a mesh each
+    block (shard) folds on its device, and the partials fold on the anchor
+    in block order, never regrouped by device. A `LazyFrame` is forced
+    first (one fused callable per block); a `GlobalFrame` folds over
+    `to_frame()` by contract.
     """
+    from . import globalframe as _gf
     from .lazy import LazyFrame
 
-    _check_mesh_args("reduce_rows", mesh, device)
+    if isinstance(frame, _gf.GlobalFrame):
+        # a left fold in row order: the local boundary, one block; the
+        # frame still owns its placement, so overrides raise
+        _gf._reject_overrides("reduce_rows", mesh, devices, device, frame)
+        frame = frame.to_frame()
+    _check_mesh_args("reduce_rows", mesh, device, devices)
     if isinstance(frame, LazyFrame):
-        if mesh is not None:
-            _mesh_on_lazy("reduce_rows")
-        frame = frame.force(device=device)
-    if mesh is not None:
-        from .parallel import verbs as _pverbs
-
-        return _pverbs.reduce_rows(fetches, frame, mesh, feed_dict, fetch_names, executor)
-    dev = resolve_device(device)
+        frame = frame.force(device=device, mesh=mesh, devices=devices)
+    ex = executor or default_executor()
     graph, fetch_list = _as_graph(fetches, fetch_names)
     summary, mapping = _prepare(
         graph, fetch_list, frame, feed_dict, False, validate=_validate_reduce_rows
@@ -1256,45 +1587,56 @@ def reduce_rows(
     cols = _fold_columns(mapping, bases)
     monoid = _monoid_reductions(graph, bases, summary)
     _count("reduce_rows.plan.monoid" if monoid else "reduce_rows.plan.general")
-    pair = None
+    # single-row blocks never dispatch (their partial is their row): they
+    # weigh nothing in the schedule
+    place = _place(
+        frame, device, devices, mesh, ex,
+        weights=[0 if n == 1 else n for n in frame.block_sizes()],
+    )
+    pair_feeds = _pair_feeds(bases)
+    pair_of = _per_device(lambda d: ex.callable_for(graph, fetch_list, pair_feeds, d))
+    pair_prog = None
     if monoid is None:
-        ex = executor or default_executor()
-        pair = ex.callable_for(graph, fetch_list, _pair_feeds(bases), dev)
+        mesh_make = None
+        if place.mesh is not None:
+            from .parallel.verbs import _mesh_sig
 
-    def fold(rows: List[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-        return _fold(rows, monoid, pair)
+            kind = f"shfold-{_mesh_sig(place.mesh)}"
+            mesh_make = lambda d: ex.cached(  # noqa: E731
+                kind, graph, fetch_list, pair_feeds, d,
+                lambda dd: build_callable(graph, fetch_list, pair_feeds, dd),
+            )
+        pair_prog = _programs(place, pair_of, mesh_make)
+
+    def run(rows, n, i):
+        if n == 1:  # a single-row block's partial is its row
+            return tuple(x[0] for x in rows)
+        return _fold(rows, monoid, pair_prog(i) if pair_prog is not None else None)
+
+    def rows_for(lo, hi, dev):
+        return [as_tensor(frame.column(c).values[lo:hi], dev) for c in cols]
 
     # classified transient retries only: the verb's contract is a LEFT
     # FOLD in row order, so an OOM cannot split the block (regrouping
     # would change a non-associative result) and surfaces as it is
     fscope = _flt.scope("reduce_rows")
-    fp = graph.fingerprint()
-    partials: List[Tuple[torch.Tensor, ...]] = []
-    for bi in range(frame.num_blocks):
-        lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
-        if lo == hi:
-            continue
-        rows = [as_tensor(frame.column(c).values[lo:hi], dev) for c in cols]
-        if hi - lo == 1:  # a single-row block's partial is its row
-            partials.append(tuple(x[0] for x in rows))
-            continue
-
-        def thunk(rows=rows, bi=bi, n=hi - lo):
-            with _tele.dispatch_span(
-                "reduce_rows.block", program=fp, block=bi, rows=n, torch_device=dev
-            ):
-                return fold(rows)
-
-        outs = tuple(fscope.dispatch(thunk, what=f"reduce_rows block {bi}"))
-        maybe_check_numerics(bases, outs, f"reduce_rows block {bi}")
-        partials.append(outs)
+    partials = _loop(
+        place, "reduce_rows", "reduce_rows.block", graph.fingerprint(), run, rows_for,
+        lambda outs, what: maybe_check_numerics(bases, outs, what), fscope=fscope,
+    )
     if not partials:
         raise ValueError("reduce_rows on an empty frame")
+    anchor = place.anchor
     if len(partials) == 1:
-        return _results(bases, partials[0])
-    return _results(
-        bases, fold([torch.stack([p[i] for p in partials]) for i in range(len(bases))])
-    )
+        final = tuple(as_tensor(x, anchor) for x in partials[0])
+    else:
+        final = _fold(
+            [torch.stack([as_tensor(p[i], anchor) for p in partials]) for i in range(len(bases))],
+            monoid, pair_of(anchor) if monoid is None else None,
+        )
+    if place.mesh is not None:
+        maybe_check_numerics(bases, final, "reduce_rows (mesh)")
+    return _results(bases, final)
 
 
 # ---------------------------------------------------------------------------
@@ -1307,9 +1649,17 @@ class GroupedFrame:
     scalar column is a key: numbers factorize on the verb's device, strings
     and other objects on the host (the reference grouped by any Catalyst
     column type). Over a `LazyFrame`, `aggregate` forces the plan on its
-    device first: aggregation needs concrete key columns."""
+    device first: aggregation needs concrete key columns. Over a
+    `GlobalFrame` it groups `to_frame()`, and `aggregate` refuses
+    placement overrides (the frame owns its placement)."""
 
     def __init__(self, frame: TensorFrame, keys: Sequence[str]):
+        from . import globalframe as _gf
+
+        self._from_global = isinstance(frame, _gf.GlobalFrame)
+        self._global = frame if self._from_global else None
+        if self._from_global:
+            frame = frame.to_frame()
         self.frame = frame
         self.keys = list(keys)
         for k in self.keys:
@@ -1363,10 +1713,11 @@ def aggregate(
     executor: Optional[Executor] = None,
     device: DeviceLike = None,
     mesh=None,
+    devices=None,
 ) -> TensorFrame:
     """Keyed aggregation with the `reduce_blocks` naming conventions: the
     key columns (distinct keys in sorted order), then one row per group of
-    each output, all on ``device``.
+    each output, all on the anchor device.
 
     A graph `_chunk_combiners` classifies (a Sum/Min/Max/Prod/float Mean
     over axis 0 of a row-wise transform of its placeholder) takes the
@@ -1376,22 +1727,29 @@ def aggregate(
     `DebugRowOps.aggregate`, `DebugRowOps.scala:554-599`), or, for a
     classified graph with more than ``config.aggregate_exact_size_limit``
     distinct sizes, in power-of-two chunks combined per group (the chunk
-    plan). A string key's column comes back as host strings. With
-    ``mesh=`` the rows shard across the mesh's devices
-    (`parallel.verbs.aggregate`).
+    plan). A string key's column comes back as host strings.
+
+    Placement: the segment plan is one whole-frame dispatch, on ``device``,
+    on the first of ``devices=`` (a pin), or on the card; the exact and
+    chunk plans' per-size calls spread over the cards like blocks
+    (weighted by their rows) under the block scheduler. With ``mesh=`` the
+    rows shard across the mesh's devices (`parallel.verbs.aggregate`).
     """
     from .lazy import LazyFrame
 
-    _check_mesh_args("aggregate", mesh, device)
+    if getattr(grouped, "_from_global", False):
+        from . import globalframe as _gf
+
+        _gf._reject_overrides("aggregate", mesh, devices, device, grouped._global)
+    _check_mesh_args("aggregate", mesh, device, devices)
     if isinstance(grouped.frame, LazyFrame):
-        if mesh is not None:
-            _mesh_on_lazy("aggregate")
-        grouped = GroupedFrame(grouped.frame.force(device=device), grouped.keys)
+        grouped = GroupedFrame(
+            grouped.frame.force(device=device, mesh=mesh, devices=devices), grouped.keys
+        )
     if mesh is not None:
         from .parallel import verbs as _pverbs
 
         return _pverbs.aggregate(fetches, grouped, mesh, feed_dict, fetch_names, executor)
-    dev = resolve_device(device)
     frame = grouped.frame
     graph, fetch_list = _as_graph(fetches, fetch_names)
     summary, mapping = _prepare(
@@ -1404,13 +1762,24 @@ def aggregate(
     classified = _chunk_combiners(graph, fetch_list, summary)
     from . import config as _config
 
+    devs = None
+    if device is not None:
+        dev = resolve_device(device)
+    else:
+        from .runtime import scheduler as _rs
+
+        devs = _rs.resolve(devices=devices, executor=ex)
+        dev = devs[0] if devs is not None else resolve_device(None)
     if _config.get().aggregate_segment_fast and frame.nrows > 0 and classified is not None:
         _count("aggregate.plan.segment")
+        if devices is not None:
+            # a devices= pin commits the one dispatch to its first device
+            _rs._bump(ex, "device_dispatches", _rs.device_label(dev), 1)
         return _aggregate_segment(
             ex, graph, fetch_list, classified, feed_names, mapping, grouped, dev
         )
     return _aggregate_sorted(
-        ex, graph, fetch_list, summary, feed_names, mapping, grouped, dev, classified
+        ex, graph, fetch_list, summary, feed_names, mapping, grouped, dev, classified, devs
     )
 
 

@@ -13,10 +13,11 @@ layer, deadlines and admission, telemetry and its HTTP endpoint, the
 numerics flag, the lazy plans, per-row vectorization, the aggregate plans,
 the executor's LRU bound, the serving runtime's bucket ladder and batching
 lanes, the materialization cache and the flight recorder), each with the
-JAX package's name, ``TFS_*`` env var and default. The JAX package's
-``default_num_blocks`` and ``aggregate_buffer_rows`` are read nowhere there,
-so the port leaves them out: setting either raises, as for any unknown
-key.
+JAX package's name, ``TFS_*`` env var and default (the block scheduler,
+the global frame and device failover among them). The JAX package's
+``default_num_blocks``, ``aggregate_buffer_rows`` and ``default_mesh`` are
+read nowhere there, so the port leaves them out: setting one raises, as
+for any unknown key.
 
 Pin tracking: every knob set EXPLICITLY — through `update()`, inside an
 `override()` scope, or seeded from a well-formed ``TFS_*`` env var at
@@ -92,11 +93,15 @@ def _env_float(var: str, default: float, field: str,
     return v if minimum is None else max(minimum, v)
 
 
-def _env_str(var: str, default: str, field: str) -> str:
+def _env_str(var: str, default: str, field: str,
+             mapping: Optional[dict] = None) -> str:
     raw = os.environ.get(var)
     if raw is None or raw == "":
         return default
     _ENV_SEEDED.add(field)
+    if mapping is not None:
+        low = raw.lower()
+        return mapping.get(low, low)
     return raw
 
 
@@ -183,6 +188,35 @@ class Config:
         default_factory=lambda: _env_int(
             "TFS_EXECUTOR_CACHE_ENTRIES", 512, "executor_cache_entries",
             minimum=1,
+        )
+    )
+    # Block scheduler (`runtime.scheduler`): "auto" spreads a verb's blocks
+    # over every card when there are two or more, "on" schedules even on
+    # one, "off" keeps one device, "global" routes eligible verbs on frames
+    # of at least global_frame_min_rows rows through `globalframe` and
+    # schedules the rest as "auto". mesh= and device= always win; a
+    # per-call devices= list wins over the knob. An unknown mode raises at
+    # the next verb (`scheduler.resolve`).
+    block_scheduler: str = dataclasses.field(
+        default_factory=lambda: _env_str(
+            "TFS_BLOCK_SCHEDULER", "auto", "block_scheduler",
+            mapping={"0": "off", "false": "off", "1": "on", "true": "on"},
+        )
+    )
+    # The smallest frame block_scheduler="global" routes through the
+    # global frame; smaller ones take per-block scheduling.
+    global_frame_min_rows: int = dataclasses.field(
+        default_factory=lambda: _env_int(
+            "TFS_GLOBAL_FRAME_MIN_ROWS", 2048, "global_frame_min_rows",
+            minimum=0,
+        )
+    )
+    # Failover (`scheduler.DeviceHealth`): a transient dispatch failure
+    # opens the device's circuit for this long, doubling on repeats (at
+    # most 8x); then one half-open probe may close it.
+    device_cooldown_s: float = dataclasses.field(
+        default_factory=lambda: _env_float(
+            "TFS_DEVICE_COOLDOWN_S", 30.0, "device_cooldown_s", minimum=0.0,
         )
     )
     # Telemetry master switch (`utils.telemetry`): span recording and

@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from .frame import Column, TensorFrame, _to_numpy, as_tensor
-from .runtime import deadline as _dl
 from .utils.profiling import count as _count
 
 _META = torch.device("meta")
@@ -112,39 +111,46 @@ def _map_blocks_fn(
     fn: Callable,
     frame: TensorFrame,
     trim: bool,
-    device: torch.device,
-    bindings: Optional[Dict] = None,
+    bindings: Dict,
+    placement: Callable,
 ) -> TensorFrame:
+    """`map_blocks` of a function over the verb's placement (`api._Place`:
+    one device, a block schedule or a mesh, whose shards dispatch together
+    as ``mesh.map_blocks.fn``); output names come from the returned dict."""
     from . import api as _api
 
-    bindings = bindings or {}
     params = _fn_feed_columns(fn, frame, bindings)
     _api._require_dense(frame, [p for p in params if p not in bindings], "map_blocks")
-    bound = _api._bound_tensors(bindings, device)
 
     def call(*feeds):
         return _fn_outputs_to_dict(fn(*feeds), "map_blocks")
 
-    acc: Dict[str, List[torch.Tensor]] = {}
-    out_sizes: List[int] = []
-    for bi in range(frame.num_blocks):
-        lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
-        if lo == hi:
-            out_sizes.append(0)
-            continue
-        _dl.check("map_blocks")
-        outs = call(*_api._feeds(frame, _identity(params), params, lo, hi, device, bound))
-        out_sizes.append(_api._block_rows(outs, hi - lo, trim))
-        for name, o in outs.items():
-            acc.setdefault(name, []).append(o)
-    if not acc:  # every block empty: zero-row outputs, names from a meta call
-        empties = _empty_fn_outputs(call, frame, params, bound, device)
-        acc = {n: [v] for n, v in empties.items()}
-    out_cols = [Column(n, _api._concat(parts)) for n, parts in acc.items()]
-    offsets = list(np.cumsum([0] + out_sizes)) if trim else frame.offsets
-    return _api._output_frame(
-        frame, out_cols, append_input=not trim, offsets=offsets
+    place = placement()
+    parts = _api._loop(
+        place, "map_blocks", None, None, lambda feeds, rows, i: call(*feeds),
+        _api._feed_source(frame, _identity(params), params, bindings),
+        lambda outs, what: None, mesh_name="mesh.map_blocks.fn",
     )
+    return _fn_output_frame(
+        frame, parts, place, call, params, bindings, trim, lambda outs, rows: _api._block_rows(outs, rows, trim)
+    )
+
+
+def _fn_output_frame(frame, parts, place, call, params, bindings, trim, rows_of, probe_rows=0):
+    """The function front end's output frame: each item's dict of outputs
+    concatenated on the anchor, or, over an all-empty frame, zero-row
+    outputs named by one call on the meta device."""
+    from . import api as _api
+
+    sizes = {i: rows_of(outs, hi - lo) for (i, lo, hi), outs in zip(place.items, parts)}
+    if parts:
+        out_cols = [Column(n, place.gather([p[n] for p in parts])) for n in parts[0]]
+    else:
+        bound = _api._bound_tensors(bindings, place.anchor)
+        empties = _empty_fn_outputs(call, frame, params, bound, place.anchor, rows=probe_rows)
+        out_cols = [Column(n, v) for n, v in empties.items()]
+    offsets = _api._trim_offsets(frame, place, sizes) if trim else frame.offsets
+    return _api._output_frame(frame, out_cols, append_input=not trim, offsets=offsets)
 
 
 # ---------------------------------------------------------------------------
@@ -263,15 +269,15 @@ def _run_ragged_bucketed(
 def _map_rows_fn(
     fn: Callable,
     frame: TensorFrame,
-    device: torch.device,
-    bindings: Optional[Dict] = None,
+    bindings: Dict,
+    placement: Callable,
 ) -> TensorFrame:
-    """`map_rows` of a function of row cells: one vmapped call per block
-    over dense columns, one per shape bucket over ragged ones; output names
-    come from the returned dict."""
+    """`map_rows` of a function of row cells: one vmapped call per item of
+    the verb's placement over dense columns (a mesh's shards together as
+    ``mesh.map_rows.fn``), one per shape bucket over ragged ones (per shard
+    on a mesh); output names come from the returned dict."""
     from . import api as _api
 
-    bindings = bindings or {}
     params = _fn_feed_columns(fn, frame, bindings)
     col_params = [p for p in params if p not in bindings]
     if bindings and not col_params:
@@ -289,26 +295,24 @@ def _map_rows_fn(
         lambda *cells: _fn_outputs_to_dict(fn(*cells), "map_rows"),
         in_dims=tuple(None if p in bindings else 0 for p in params),
     )
-    bound = _api._bound_tensors(bindings, device)
-    if frame.nrows == 0:
-        empties = _empty_fn_outputs(vfn, frame, params, bound, device, rows=1)
-        out_cols = [Column(n, v) for n, v in empties.items()]
-    elif not dense:
-        per_out = _run_ragged_bucketed(
-            lambda feeds, rows: vfn(*feeds), [frame.column(p) for p in params],
-            frame.nrows, device,
-        )
-        out_cols = list(per_out.values())
-    else:
-        acc: Dict[str, List[torch.Tensor]] = {}
-        for bi in range(frame.num_blocks):
-            lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
-            if lo == hi:
-                continue
-            _dl.check("map_rows")
-            feeds = _api._feeds(frame, _identity(params), params, lo, hi, device, bound)
-            for name, o in vfn(*feeds).items():
-                acc.setdefault(name, []).append(o)
-        out_cols = [Column(n, _api._concat(parts)) for n, parts in acc.items()]
-    return _api._output_frame(frame, out_cols, append_input=True)
+    place = placement()
+    if not dense and frame.nrows:
+        columns = [frame.column(p) for p in params]
+        if place.mesh is not None:
+            from .parallel.verbs import _ragged_per_shard
 
+            runs = [lambda feeds, rows: vfn(*feeds)] * len(place.devs)
+            per_out = _ragged_per_shard(runs, columns, frame.nrows, place.devs)
+        else:
+            per_out = _run_ragged_bucketed(
+                lambda feeds, rows: vfn(*feeds), columns, frame.nrows, place.anchor,
+            )
+        return _api._output_frame(frame, list(per_out.values()), append_input=True)
+    parts = _api._loop(
+        place, "map_rows", None, None, lambda feeds, rows, i: vfn(*feeds),
+        _api._feed_source(frame, _identity(params), params, bindings),
+        lambda outs, what: None, mesh_name="mesh.map_rows.fn",
+    )
+    return _fn_output_frame(
+        frame, parts, place, vfn, params, bindings, False, lambda outs, rows: rows, probe_rows=1,
+    )

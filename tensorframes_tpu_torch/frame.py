@@ -54,6 +54,8 @@ def _on(have: torch.device, want: torch.device) -> bool:
     without an index is the current one)."""
     if have == want:
         return True
+    if have.type == want.type == "cpu":
+        return True  # torch.device("cpu", i) (a test's device slot) is the CPU
     if have.type != want.type or want.index is not None:
         return False
     return want.type == "cpu" or have.index == _cuda_device()
@@ -473,6 +475,15 @@ class TensorFrame:
             else:
                 cols.append(c)
         return TensorFrame(cols, self.offsets)
+
+    def to_global(self, mesh=None, columns=None) -> "GlobalFrame":  # noqa: F821
+        """This frame's dense columns sharded over a data mesh (default:
+        every healthy card), one shard tensor a card: see
+        `tensorframes_tpu_torch.globalframe`. Verbs on the result run on
+        the shards and keep their outputs there."""
+        from .globalframe import GlobalFrame
+
+        return GlobalFrame.from_frame(self, mesh=mesh, columns=columns)
 
     # ---- lazy plans ----------------------------------------------------
     def lazy(self, device: DeviceLike = None) -> "LazyFrame":  # noqa: F821

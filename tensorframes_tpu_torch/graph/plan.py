@@ -28,8 +28,10 @@ Three layers live here:
 a dataset's metadata identity): with `plan_fingerprint` it keys the
 materialization cache of a relational force (`lazy.RelationalFrame.force`).
 
-Not in the port yet: the `GlobalFrame` route (``filter_global`` and the
-counted fallbacks to the local path, ROADMAP Queue 1 item 12).
+Over a `GlobalFrame` a filter runs on its shards
+(`globalframe.filter_global`); what the shards cannot run crosses to the
+local path, counted in ``plan_fallbacks{reason=}`` (``filter-ineligible``,
+``sort-global``, ``join-global``).
 
 Process-global accounting (rewrites / fallbacks / pushdown rows) lives
 behind `_LOCK` with the standard `state()` / `reset_state()` pair.
@@ -616,6 +618,21 @@ def _host_values(frame, name: str) -> np.ndarray:
     return values
 
 
+def _is_global(frame) -> bool:
+    from .. import globalframe as _gfm
+
+    return isinstance(frame, _gfm.GlobalFrame)
+
+
+def _localize(frame, reason: str):
+    """A counted crossing from a `GlobalFrame` to the local block path,
+    for the nodes its shards cannot run."""
+    if _is_global(frame):
+        note_fallback(reason)
+        return frame.to_frame()
+    return frame
+
+
 def _exec_source(node, ins, executor, device):
     return node.payload["frame"]
 
@@ -678,6 +695,13 @@ def _exec_filter(node, ins, executor, device):
 
     frame = ins[0]
     pred = node.payload["pred"]
+    if _is_global(frame):
+        from .. import globalframe as _gfm
+
+        out = _gfm.filter_global(pred, frame, executor)
+        if out is not None:
+            return out
+        frame = _localize(frame, "filter-ineligible")
     with _tele.span(
         "plan.filter", kind="stage", predicate=pred.describe(),
         rows=_frame_rows(frame),
@@ -699,7 +723,7 @@ def _exec_sort(node, ins, executor, device):
     from ..frame import TensorFrame
     from ..utils import telemetry as _tele
 
-    frame = ins[0]
+    frame = _localize(ins[0], "sort-global")
     keys = node.payload["keys"]
     with _tele.span(
         "plan.sort", kind="stage", keys=",".join(keys),
@@ -739,7 +763,8 @@ def _exec_join(node, ins, executor, device):
     from ..frame import TensorFrame
     from ..utils import telemetry as _tele
 
-    left, right = ins
+    left = _localize(ins[0], "join-global")
+    right = _localize(ins[1], "join-global")
     on = list(node.payload["on"])
     with _tele.span(
         "plan.join", kind="stage", on=",".join(on),

@@ -62,10 +62,16 @@ its device: a hit records the ``materialize.load`` span and dispatches no
 block program; a whole computed result is offered back (a failed force
 commits nothing).
 
-Not in the port yet: the mesh, ``devices=`` and scheduler routes and the
-global-frame route (``mesh=`` on a lazy plan raises NotImplementedError,
-ROADMAP Queue 1 item 12.3). Shape bucketing is not in the port on purpose:
-eager PyTorch compiles nothing per shape.
+Placement: a plan takes ``device=``, ``devices=`` or ``mesh=`` (of the
+deferring call, of ``lazy()`` or of the terminal) as the eager verbs do
+(`api._Place`): the fused callable runs once a block on one device, once a
+block where the block scheduler places it, or once a shard of the mesh,
+and the outputs converge on the anchor. Over a `GlobalFrame` base a
+row-local fused chain runs once a shard and a classified fused reduce once
+a shard with one combine (`globalframe.force_fused_global`,
+`fused_reduce_global`); anything else crosses to `GlobalFrame.to_frame()`.
+Shape bucketing is not in the port on purpose: eager PyTorch compiles
+nothing per shape.
 """
 
 from __future__ import annotations
@@ -185,6 +191,8 @@ class LazyFrame:
         stages: Optional[List[LazyStage]] = None,
         executor=None,
         device: DeviceLike = None,
+        mesh=None,
+        devices=None,
     ):
         self._base = base
         self._graph = graph if graph is not None else Graph()
@@ -193,14 +201,26 @@ class LazyFrame:
         self._stages: List[LazyStage] = list(stages or [])
         self._executor = executor
         self._device = device
-        # (resolved device, forced frame) of the last default-context force
-        self._forced: Optional[Tuple[torch.device, TensorFrame]] = None
+        self._mesh = mesh
+        self._devices = devices  # the block scheduler's devices for terminals
+        # (placement key, forced frame) of the last default-context force
+        self._forced: Optional[Tuple[tuple, TensorFrame]] = None
 
     def _with_base(self, base: TensorFrame, device: DeviceLike = None) -> "LazyFrame":
         return LazyFrame(
             base, self._graph, self._sources, self._feed_map, self._stages,
             self._executor, device if device is not None else self._device,
+            self._mesh, self._devices,
         )
+
+    def _placement(self, device, mesh, devices):
+        """The terminal's placement: the call's ``device`` / ``mesh`` /
+        ``devices`` when it gives any, else the plan's; two together
+        raise, as on the eager verbs."""
+        if device is None and mesh is None and devices is None:
+            device, mesh, devices = self._device, self._mesh, self._devices
+        _api._check_mesh_args("lazy.force", mesh, device, devices)
+        return device, mesh, devices
 
     # -- frame-shaped surface (row-aligned with the base) ---------------
     @property
@@ -345,6 +365,8 @@ class LazyFrame:
         feed_dict: Optional[Dict[str, str]],
         executor=None,
         device: DeviceLike = None,
+        mesh=None,
+        devices=None,
     ) -> "LazyFrame":
         from .utils import telemetry as _tele
 
@@ -372,6 +394,8 @@ class LazyFrame:
             self._stages + [stage],
             executor if executor is not None else self._executor,
             device if device is not None else self._device,
+            mesh if mesh is not None else self._mesh,
+            devices if devices is not None else self._devices,
         )
 
     # -- deferred verbs -------------------------------------------------
@@ -385,10 +409,11 @@ class LazyFrame:
         bindings=None,
         device: DeviceLike = None,
         mesh=None,
+        devices=None,
     ) -> "LazyFrame":
-        """Defer a row-preserving block map onto the fused plan."""
-        if mesh is not None:
-            _api._mesh_on_lazy("map_blocks")
+        """Defer a row-preserving block map onto the fused plan
+        (``device=``, ``devices=`` or ``mesh=`` place its terminal)."""
+        _api._check_mesh_args("map_blocks", mesh, device, devices)
         if trim:
             raise ValueError(
                 "map_blocks(trim=True) is not supported on a LazyFrame: "
@@ -415,7 +440,7 @@ class LazyFrame:
                 "(host-side pass-through cannot fuse); call .force() first"
             )
         return self._fuse_stage(
-            "map_blocks", graph, fetch_list, feed_dict, executor, device
+            "map_blocks", graph, fetch_list, feed_dict, executor, device, mesh, devices
         )
 
     def map_rows(self, fetches, **kw):
@@ -432,31 +457,31 @@ class LazyFrame:
         executor=None,
         device: DeviceLike = None,
         mesh=None,
+        devices=None,
     ):
         """Terminal action: fuse the reduce's per-block stage into the
-        pending graph and run the whole chain as ONE callable per block;
-        the combine over stacked partials runs the plain reduce graph,
+        pending graph and run the whole chain as ONE callable per item of
+        the placement (block, scheduled block, mesh shard, or global-frame
+        shard); the combine over the partials runs the plain reduce graph,
         exactly like the eager verb."""
-        if mesh is not None:
-            _api._mesh_on_lazy("reduce_blocks")
         executor = executor if executor is not None else self._executor
-        device = device if device is not None else self._device
+        device, mesh, devices = self._placement(device, mesh, devices)
         if callable(fetches) and not isinstance(fetches, _api.dsl.Tensor):
             return _api.reduce_blocks(
-                fetches, self.force(device=device), feed_dict, fetch_names,
-                executor, device=device,
+                fetches, self.force(device=device, mesh=mesh, devices=devices), feed_dict,
+                fetch_names, executor, device=device, mesh=mesh, devices=devices,
             )
         if not self._sources:
             return _api.reduce_blocks(
                 fetches, self._base, feed_dict, fetch_names, executor,
-                device=device,
+                device=device, mesh=mesh, devices=devices,
             )
+        from . import globalframe as _gfm
         from .graph.analysis import analyze_graph
         from .ops.lowering import build_callable
         from .runtime.executor import default_executor
         from .utils import telemetry as _tele
 
-        dev = resolve_device(device)
         ex = executor or default_executor()
         rgraph, rfetch = _api._as_graph(fetches, fetch_names)
         # validate the reduce contract against the VIRTUAL schema (the
@@ -496,55 +521,62 @@ class LazyFrame:
         _api._require_dense(
             frame, [feed_map[n] for n in feed_names], "reduce_blocks"
         )
-        fn = ex.callable_for(fused, fused_fetches, feed_names, dev)
         from .runtime import faults as _flt
         from .runtime.faults import maybe_check_numerics
 
-        fscope = _flt.scope("reduce_blocks.fused")
-        fp = fused.fingerprint()
-        # the OOM split recipe: the fused graph (map chain + reduce) must
-        # classify as a monoid reduce over a row-local transform
-        def _fused_split():
+        def fused_summary():
             fshapes = {
                 ph: frame.info[col].block_shape for ph, col in feed_map.items()
             }
-            summary = analyze_graph(fused, fused_fetches, placeholder_shapes=fshapes)
-            return _api._reduce_split(fused, fused_fetches, summary).merge()
+            return analyze_graph(fused, fused_fetches, placeholder_shapes=fshapes)
 
-        split = _api._Split(_fused_split)
-        feeds_for = _api._feed_source(frame, feed_map, feed_names, dev)
-        partials: List[Tuple] = []
-        with _tele.span(
-            "reduce_blocks.fused.blocks", kind="stage", program=fp
-        ), _tele.dispatch_run(dev):
-            for bi in range(frame.num_blocks):
-                lo, hi = frame.offsets[bi], frame.offsets[bi + 1]
-                if lo == hi:
-                    continue  # the reduction identity would poison the combine
-                _dl.check("reduce_blocks")
-                outs = _api._dispatch_rows(
-                    "reduce_blocks.fused", "reduce_blocks.fused.block", fp,
-                    lambda feeds, rows: fn(*feeds),
-                    feeds_for,
-                    fscope, bi, lo, hi, dev,
-                    split=split, refuse="unclassifiable-reduce",
-                )
-                maybe_check_numerics(rfetch, outs, f"reduce_blocks (fused) block {bi}")
-                partials.append(outs)
+        if isinstance(frame, _gfm.GlobalFrame):
+            # sharded base: the fused chain and a classified reduce once a
+            # shard, one combine; else the local boundary
+            _gfm._reject_overrides("reduce_blocks", mesh, devices, device, frame)
+            out = _gfm.fused_reduce_global(
+                fused, fused_fetches, feed_map, feed_names, frame, fused_summary(), ex,
+            )
+            if out is not None:
+                return _api._results([_base(f) for f in rfetch], out)
+            frame = frame.to_frame()
+        place = _api._place(frame, device, devices, mesh, ex)
+        prog = _api._programs(place, lambda d: ex.callable_for(fused, fused_fetches, feed_names, d))
+        fscope = _flt.scope("reduce_blocks.fused")
+        fp = fused.fingerprint()
+
+        # the OOM split recipe: the fused graph (map chain + reduce) must
+        # classify as a monoid reduce over a row-local transform
+        def _fused_split():
+            return _api._reduce_split(fused, fused_fetches, fused_summary()).merge()
+
+        with _tele.span("reduce_blocks.fused.blocks", kind="stage", program=fp):
+            partials = _api._loop(
+                place, "reduce_blocks.fused", "reduce_blocks.fused.block", fp,
+                lambda feeds, rows, i: prog(i)(*feeds),
+                _api._feed_source(frame, feed_map, feed_names),
+                lambda outs, what: maybe_check_numerics(rfetch, outs, what),
+                fscope=fscope, split=_api._Split(_fused_split),
+                refuse="unclassifiable-reduce", what="reduce_blocks (fused)",
+            )
         if not partials:
             raise ValueError("reduce_blocks on an empty frame")
         _dl.check("reduce_blocks")
         if len(partials) == 1:
-            final = partials[0]
+            final = tuple(_api.as_tensor(x, place.anchor) for x in partials[0])
         else:
-            combine = ex.cached(
-                "reduce-combine", rgraph, rfetch, rfeed_names, dev,
-                lambda d: build_callable(rgraph, rfetch, rfeed_names, d),
-            )
+            def combine_for(d):
+                return ex.cached(
+                    "reduce-combine", rgraph, rfetch, rfeed_names, d,
+                    lambda dd: build_callable(rgraph, rfetch, rfeed_names, dd),
+                )
+
+            owners = [place.sched.slot(i) for i, _, _ in place.items] if place.sched else None
             with _tele.span("reduce_blocks.fused.combine", kind="stage"):
-                final = _api._dispatch_combine(
-                    "reduce-combine", rgraph.fingerprint(), fscope, combine,
-                    feed_src, partials, dev,
+                final = _api._combine_placed(
+                    "reduce-combine", rgraph.fingerprint(), fscope, combine_for, feed_src,
+                    partials, owners, place,
+                    place.sched is not None and _api._assoc_reduce(rgraph, rfetch, rsummary),
                 )
         return _api._results([_base(f) for f in rfetch], final)
 
@@ -561,22 +593,21 @@ class LazyFrame:
     # -- terminal actions ----------------------------------------------
     @_deadline_entry("lazy.force")
     @torch.no_grad()
-    def force(self, executor=None, device: DeviceLike = None, mesh=None) -> TensorFrame:
-        """Lower the whole fused plan as ONE callable per block on
-        ``device`` (default: the frame's device) and return the concrete
-        `TensorFrame` (device-resident outputs + base passthrough). The
-        result of a call without ``executor=`` is memoized per device."""
-        if mesh is not None:
-            _api._mesh_on_lazy("lazy.force")
+    def force(self, executor=None, device: DeviceLike = None, mesh=None, devices=None) -> TensorFrame:
+        """Lower the whole fused plan as ONE callable per item of the
+        placement (``device``, ``devices=``, ``mesh=``; default the plan's)
+        and return the concrete `TensorFrame` (outputs on the anchor + base
+        passthrough). The result of a call without ``executor=`` is
+        memoized per placement."""
         if not self._sources:
             return self._base
-        dev = resolve_device(device if device is not None else self._device)
-        if executor is None and self._forced is not None and self._forced[0] == dev:
-            return self._forced[1]
         from . import config as _config
+        from . import globalframe as _gfm
+        from .ops.lowering import build_callable
         from .runtime.executor import default_executor
         from .utils import telemetry as _tele
 
+        device, mesh, devices = self._placement(device, mesh, devices)
         ex = executor or self._executor or default_executor()
         frame = self._base
         out_names = sorted(self._sources)
@@ -585,16 +616,32 @@ class LazyFrame:
         _api._require_dense(
             frame, [self._feed_map[n] for n in feed_names], "lazy.force"
         )
+        if isinstance(frame, _gfm.GlobalFrame):
+            # sharded base: a row-local chain once a shard; else the local
+            # boundary (one block)
+            _gfm._reject_overrides("lazy.force", mesh, devices, device, frame)
+            out = _gfm.force_fused_global(self, frame, ex, fetch_edges, out_names, feed_names)
+            if out is not None:
+                return out
+            frame = frame.to_frame()
+        place = _api._place(frame, device, devices, mesh, ex)
+        key = (place.anchor, place.mesh, tuple(place.devs) if place.spread else None)
+        if executor is None and self._forced is not None and self._forced[0] == key:
+            return self._forced[1]
+        dev = place.anchor
         # materialization cache (off by default): a repeated (data, plan,
         # device) triple under the same numerics config returns the
         # committed result and dispatches nothing. Only for the default
-        # executor (an explicit one is a one-off, like the memo) and a
-        # host-resident base (fingerprinting a card's column would copy it
-        # to the host behind the caller's back).
+        # executor (an explicit one is a one-off, like the memo), one
+        # device, and a host-resident base (fingerprinting a card's column
+        # would copy it to the host behind the caller's back).
         from .runtime import materialize as _mat
 
         cache_key = None
-        if executor is None and self._executor is None and _mat.enabled():
+        if (
+            executor is None and self._executor is None and not place.spread
+            and _mat.enabled()
+        ):
             data_fp = _mat.frame_fingerprint(frame)
             if data_fp is not None:
                 from .runtime.scheduler import device_label
@@ -606,75 +653,69 @@ class LazyFrame:
                 hit = _mat.lookup(data_fp, plan_fp)
                 if hit is not None:
                     out = _cached_result(hit, frame, out_names, dev)
-                    self._forced = (dev, out)
+                    self._forced = (key, out)
                     return out
                 cache_key = (data_fp, plan_fp)
         t_compute0 = time.perf_counter()
-        fn = ex.callable_for(self._graph, fetch_edges, feed_names, dev)
-        acc: Dict[str, List[torch.Tensor]] = {n: [] for n in out_names}
         from .runtime import faults as _flt
         from .runtime.faults import maybe_check_numerics
 
+        mesh_make = None
+        if place.mesh is not None:
+            from .parallel.verbs import _mesh_sig
+
+            kind = f"shmap-{_mesh_sig(place.mesh)}"
+            mesh_make = lambda d: ex.cached(  # noqa: E731
+                kind, self._graph, fetch_edges, feed_names, d,
+                lambda dd: build_callable(self._graph, fetch_edges, feed_names, dd),
+            )
+        prog = _api._programs(
+            place, lambda d: ex.callable_for(self._graph, fetch_edges, feed_names, d), mesh_make,
+        )
         # a row-local fused chain's block may split on OOM (halves
         # concatenate)
         split = _api._rowwise_split(
             self._graph, fetch_edges,
             {ph: frame.info[col].block_shape.rank for ph, col in self._feed_map.items()},
         )
-        fscope = _flt.scope("lazy.force")
         fp = self._graph.fingerprint()
+        feeds_for = _api._feed_source(frame, self._feed_map, feed_names)
 
-        feeds_for = _api._feed_source(frame, self._feed_map, feed_names, dev)
+        def check(outs, what):
+            maybe_check_numerics(out_names, outs, what)
 
-        def _consume(bi, lo, hi, feeds):
-            _dl.check("lazy.force")
-
-            def prepared(lo_, hi_):
-                # the block's own range: the prepared feeds (the pipelined
-                # path staged them); a split re-slices its halves
-                return feeds if (lo_, hi_) == (lo, hi) else feeds_for(lo_, hi_)
-
-            outs = _api._dispatch_rows(
-                "lazy.force", "lazy.force.block", fp, lambda f, rows: fn(*f),
-                prepared, fscope, bi, lo, hi, dev,
-                split=split, forensics=False,
-            )
-            maybe_check_numerics(out_names, outs, f"lazy fused block {bi}")
+        def rows_check(outs, rows):
             for n, o in zip(out_names, outs):
-                if o.dim() == 0 or o.shape[0] != hi - lo:
+                if o.dim() == 0 or o.shape[0] != rows:
                     raise ValueError(
                         f"lazy plan output {n!r} does not preserve the "
                         "block row count; trimmed/reducing stages cannot "
                         "be part of a lazy map plan"
                     )
-                acc[n].append(o)
 
-        blocks = [
-            (bi, frame.offsets[bi], frame.offsets[bi + 1])
-            for bi in range(frame.num_blocks)
-            if frame.offsets[bi] != frame.offsets[bi + 1]
-        ]
+        def run(feeds, rows, i):
+            outs = prog(i)(*feeds)
+            rows_check(outs, rows)
+            return outs
+
         cfg = _config.get()
-        with _tele.span(
-            "lazy.force.blocks", kind="stage", program=self._graph.fingerprint()
-        ), _tele.dispatch_run(dev):
-            if cfg.plan_pipeline and len(blocks) >= 2:
-                self._pipelined_blocks(
-                    frame, blocks, feed_names, dev, cfg.plan_pipeline_depth,
-                    _consume,
+        with _tele.span("lazy.force.blocks", kind="stage", program=fp):
+            if cfg.plan_pipeline and len(place.items) >= 2 and not place.spread:
+                parts = self._pipelined_blocks(
+                    frame, place, feed_names, cfg.plan_pipeline_depth,
+                    run, feeds_for, split, fp, check,
                 )
             else:
-                for bi, lo, hi in blocks:
-                    _consume(
-                        bi, lo, hi,
-                        feeds_for(lo, hi),
-                    )
+                parts = _api._loop(
+                    place, "lazy.force", "lazy.force.block", fp, run, feeds_for, check,
+                    fscope=_flt.scope("lazy.force"), split=split, forensics=False,
+                    what="lazy fused",
+                )
         with _tele.span("lazy.force.collect", kind="stage"):
             out_cols = []
-            for n in out_names:
-                parts = acc[n]
+            for j, n in enumerate(out_names):
                 if parts:
-                    data = _api._concat(parts)
+                    data = place.gather([p[j] for p in parts])
                 else:  # all blocks empty: zero-row column from analysis
                     ci = self.info[n]
                     data = torch.zeros(
@@ -694,40 +735,61 @@ class LazyFrame:
                 compute_s=time.perf_counter() - t_compute0,
             )
         if executor is None:
-            self._forced = (dev, out)
+            self._forced = (key, out)
         return out
 
-    def _pipelined_blocks(self, frame, blocks, feed_names, dev, depth, consume):
-        """The block loop with feed prep on a ``plan-prep`` pipeline stage:
-        each block's feed columns are sliced there and copied to ``dev``
-        through the stream's transfer stage (pinned slots on its own CUDA
-        stream; a column already on ``dev`` is only sliced), while this
-        thread runs the previous block. A consumer error closes the
-        pipeline at once, leaving no stage thread behind."""
+    def _pipelined_blocks(self, frame, place, feed_names, depth, run, feeds_for, split, fp, check):
+        """The one-device block loop with feed prep on a ``plan-prep``
+        pipeline stage: each block's feed columns are sliced there and
+        copied to the device through the stream's transfer stage (pinned
+        slots on its own CUDA stream; a column already there is only
+        sliced), while this thread runs the previous block. A consumer
+        error closes the pipeline at once, leaving no stage thread
+        behind. Returns each block's outputs."""
         from .ingest.pipeline import PipeStage, pipelined
+        from .runtime import faults as _flt
         from .streaming import _TransferStage
+        from .utils import telemetry as _tele
 
+        dev = place.anchor
         cols = sorted(set(self._feed_map.values()))
         transfer = _TransferStage(dev, fallback_counter="lazy.force.transfer_fallback")
+        fscope = _flt.scope("lazy.force")
 
         def prep(item):
             bi, lo, hi = item
             block = TensorFrame([frame.column(c).slice(lo, hi) for c in cols])
             return bi, lo, hi, transfer(block)
 
+        parts = []
         block_iter = pipelined(
-            iter(blocks), [PipeStage("plan-prep", prep)], depth=depth, inline=False,
+            iter(place.items), [PipeStage("plan-prep", prep)], depth=depth, inline=False,
         )
         try:
-            with closing(block_iter):
+            with closing(block_iter), _tele.dispatch_run(dev):
                 for bi, lo, hi, staged in block_iter:
                     block = transfer.receive(staged)
-                    consume(bi, lo, hi, [
+                    feeds = [
                         as_tensor(block.column(self._feed_map[n]).values, dev)
                         for n in feed_names
-                    ])
+                    ]
+                    _dl.check("lazy.force")
+
+                    def prepared(lo_, hi_, d, lo=lo, hi=hi, feeds=feeds):
+                        # the block's own range: the prepared feeds; a
+                        # split re-slices its halves
+                        return feeds if (lo_, hi_) == (lo, hi) else feeds_for(lo_, hi_, d)
+
+                    outs = _api._dispatch_rows(
+                        "lazy.force", "lazy.force.block", fp, run, prepared, fscope,
+                        bi, lo, hi, place, split=split, forensics=False,
+                    )
+                    del feeds, prepared
+                    check(outs, f"lazy fused block {bi}")
+                    parts.append(outs)
         finally:
             transfer.close()
+        return parts
 
     def host_values(self, name: str):
         return self.force().host_values(name)

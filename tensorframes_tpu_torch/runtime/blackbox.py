@@ -17,12 +17,14 @@ moment a typed fault ESCAPES the runtime, `capture` freezes a bounded
 The ``program`` section carries the cost ledger's entry and residual ratio
 for the offending program (`runtime.costmodel`), ``memory`` the per-device
 memory overview, and ``autotune_decisions`` the autotuner's decision ring.
-The ``scheduler`` section's ``circuits`` list is empty until the circuit
-breaker is ported.
+The ``scheduler`` section's ``circuits`` list holds the failover circuit
+breaker's tripped circuits (`scheduler.DeviceHealth.table`).
 
 Triggers: ``deadline`` (`DeadlineExceeded`), ``cancel`` (`Cancelled`),
 ``shed`` (`OverloadError`), ``oom`` and ``fault`` (a classified failure),
-``checkpoint`` (`CheckpointError` on commit or load), ``serving`` (a
+``checkpoint`` (`CheckpointError` on commit or load), ``eviction`` (a
+device's failover circuit opened: no exception escapes, the blocks
+re-place), ``serving`` (a
 request the serving front-end maps to 429/5xx). An exception is stamped with
 ``tfs_incident_id`` at its first capture, so a fault crossing several
 layers makes ONE bundle.
@@ -553,11 +555,11 @@ def _autotune_section():
 
 def _scheduler_section() -> Dict:
     from .deadline import controller
-    from .scheduler import health_overview
+    from .scheduler import device_health, health_overview
 
     return {
         "devices": health_overview(),
-        "circuits": [],  # no circuit breaker in the port yet
+        "circuits": device_health().table(),
         "admission": controller().snapshot(),
     }
 

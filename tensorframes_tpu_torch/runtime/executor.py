@@ -57,10 +57,19 @@ class Executor:
     insert race keeps the winner's callable and costs only the redundant
     build."""
 
+    # the block scheduler may place this executor's dispatches
+    # (`scheduler.resolve`)
+    supports_scheduling = True
+
     def __init__(self):
         self._cache: "OrderedDict[Tuple, Callable]" = OrderedDict()
         self._lock = threading.Lock()
         self.compile_count = 0  # distinct lowered callables built
+        # per-device ledgers (device label -> count): block dispatches the
+        # scheduler placed (`scheduler.BlockSchedule`) and lowered
+        # callables built for the device (a cache miss)
+        self.device_dispatches: Dict[str, int] = {}
+        self.device_compiles: Dict[str, int] = {}
         self.cache_hits = 0
         self.cache_misses = 0
         # cached-program keys already flagged by the shape-storm warning
@@ -188,6 +197,8 @@ class Executor:
                 return winner
             self._cache[key] = fn
             self.compile_count += 1
+            label = _device_label(key[-1])
+            self.device_compiles[label] = self.device_compiles.get(label, 0) + 1
             self.cache_misses += 1
             while len(self._cache) > max(1, int(_config.get().executor_cache_entries)):
                 self._cache.popitem(last=False)
@@ -216,6 +227,11 @@ class Executor:
         with self._lock:
             items = list(self._cache.items())
         return {k: len(getattr(fn, "shapes", ())) for k, fn in items}
+
+
+def _device_label(dev: str) -> str:
+    d = torch.device(dev)
+    return f"{d.type}:{d.index or 0}"
 
 
 _default: Optional[Executor] = None

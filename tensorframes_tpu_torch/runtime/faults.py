@@ -45,9 +45,13 @@ the ingest pipeline uses):
 An explicit ``tfs_fault_class`` attribute (the injection harness in
 `testing.faults` stamps it) wins over every pattern.
 
+- **Device failover**: a transient failure of a block the scheduler placed
+  (`FaultScope.dispatch` with ``sched=`` / ``index=``) evicts its device
+  before the backoff (`scheduler.BlockSchedule.evict`), so the retry runs
+  on the block's new device; counted as ``evictions``.
+
 Not in the port: the device-grant watchdog (it falls back to the CPU
-backend, which the port never does) and device evictions (they belong to
-the multi-device scheduler).
+backend, which the port never does).
 """
 
 from __future__ import annotations
@@ -182,7 +186,7 @@ def classify(exc: BaseException) -> str:
 
 _LEDGER_KEYS = (
     "transient", "resource", "deterministic",  # classified failures seen
-    "retries", "splits", "failfast",
+    "retries", "splits", "evictions", "failfast",
     "deadlines", "shed",  # runtime.deadline: budget expiries + admission sheds
 )
 _ledger_lock = threading.Lock()
@@ -192,6 +196,12 @@ _ledger: Dict[str, int] = {k: 0 for k in _LEDGER_KEYS}
 def _note(key: str, n: int = 1) -> None:
     with _ledger_lock:
         _ledger[key] = _ledger.get(key, 0) + n
+
+
+def note_eviction() -> None:
+    """Scheduler hook: one device circuit opened (ledger only; the
+    labeled ``device_evictions`` counter is the scheduler's)."""
+    _note("evictions")
 
 
 def note_transient_retry() -> None:
@@ -386,6 +396,8 @@ class FaultScope:
         thunk: Callable[[], object],
         what: str = "block",
         sleep: Optional[Callable[[float], None]] = None,
+        sched=None,
+        index: Optional[int] = None,
     ):
         """Run a zero-arg ``thunk`` with classified fault handling:
 
@@ -398,16 +410,23 @@ class FaultScope:
         Every attempt starts with a cooperative deadline/cancel check
         (`runtime.deadline.check`). The default backoff ``sleep`` is the
         deadline-aware interruptible wait; an explicit ``sleep=`` callable
-        (tests) bypasses the clipping but not the per-attempt checks."""
+        (tests) bypasses the clipping but not the per-attempt checks.
+
+        Under the block scheduler (``sched=``, ``index=`` the item), a
+        transient failure evicts the item's device before the backoff
+        (`BlockSchedule.evict`: the thunk reads the item's device again,
+        so the retry runs where it was re-placed), and a deadline or
+        cancellation escaping is stamped with ``tfs_blocks_issued`` /
+        ``tfs_blocks_unissued`` (`BlockSchedule.progress`)."""
         attempt = 0
         while True:
             try:
                 _dl.check(what)
                 return thunk()
-            except (_dl.DeadlineExceeded, _dl.Cancelled):
+            except (_dl.DeadlineExceeded, _dl.Cancelled) as e:
                 # counted once at the raising scope, not double-booked as
                 # a classified dispatch failure here
-                raise
+                raise _stamp_progress(e, sched)
             except Exception as e:  # noqa: BLE001 — classified below
                 cls = classify(e)
                 _note(cls)
@@ -431,20 +450,39 @@ class FaultScope:
                 _tele.counter_inc(
                     "fault_retries", 1.0, **{"class": TRANSIENT}
                 )
+                evicted = None
+                if sched is not None and index is not None:
+                    evicted = sched.evict(index)
                 delay = backoff_delay(attempt, what)
                 _log.warning(
-                    "%s: transient failure (attempt %d/%d) — retrying "
+                    "%s: transient failure (attempt %d/%d)%s — retrying "
                     "in %.3fs: %s",
-                    what, attempt, self.attempts + 1, delay, e,
+                    what, attempt, self.attempts + 1,
+                    f", evicted device {evicted}" if evicted else "",
+                    delay, e,
                 )
+                del e  # no frame of the failed attempt outlives the retry
                 with _tele.span(
                     "fault.retry", kind="fault", what=what,
-                    attempt=attempt, **{"class": TRANSIENT},
+                    attempt=attempt, device=evicted, **{"class": TRANSIENT},
                 ):
                     if sleep is not None:
                         sleep(delay)
                     else:
                         _dl.sleep_interruptible(delay, f"{what} (backoff)")
+
+
+def _stamp_progress(e: BaseException, sched) -> BaseException:
+    """Stamp a scheduled verb's partial progress on a deadline or
+    cancellation escaping it."""
+    if sched is not None and getattr(e, "tfs_blocks_issued", None) is None:
+        try:
+            p = sched.progress()
+            e.tfs_blocks_issued = p["issued"]
+            e.tfs_blocks_unissued = p["unissued"]
+        except Exception:
+            pass  # __slots__ errors refuse stamps; e still raises
+    return e
 
 
 def scope(

@@ -6,7 +6,8 @@ enrichment (`dsl/Implicits.scala:25-116`) and a Py4J builder the Python
 API drove (`impl/PythonInterface.scala:26-84`). Here Spark is an INGEST
 substrate: executors dump their partitions as Arrow IPC files on shared
 storage via `mapInArrow`, and this host reads those files and runs the
-port's verbs on the card (``device=``, default ``cuda``):
+port's verbs on the card (``device=``, default ``cuda``; ``mesh=``
+shards the rows over a mesh, as on the verbs):
 
     import tensorframes_tpu_torch.spark as tfspark
     total = tfspark.reduce_blocks(graph, spark_df, ingest_dir="/mnt/x")
@@ -17,8 +18,6 @@ Only `ingest` touches the pyspark API (one `mapInArrow` + `collect` of
 file paths, nothing else), and pyarrow is imported inside the functions
 that use it, so this module imports without pyspark or pyarrow.
 
-Not in the port yet: ``mesh=`` (ROADMAP Queue 1 item 12); the verbs take
-the port's ``device=`` instead.
 """
 
 from __future__ import annotations
@@ -123,6 +122,7 @@ def reduce_blocks(
     fetch_names: Optional[Sequence[str]] = None,
     ingest_dir: Optional[str] = None,
     keep_ingest: bool = False,
+    mesh=None,
     **kw,
 ):
     """`reduce_blocks` over a Spark DataFrame: partitions stream from the
@@ -133,7 +133,7 @@ def reduce_blocks(
     try:
         return _api.reduce_blocks_stream(
             fetches, _stream_paths(ing.paths), feed_dict,
-            fetch_names=fetch_names, **kw,
+            fetch_names=fetch_names, mesh=mesh, **kw,
         )
     finally:
         _cleanup(ing, keep_ingest)
@@ -180,6 +180,7 @@ def map_blocks(
     fetch_names: Optional[Sequence[str]] = None,
     ingest_dir: Optional[str] = None,
     keep_ingest: bool = False,
+    mesh=None,
     **kw,
 ) -> TensorFrame:
     """`map_blocks` over a Spark DataFrame; each ingested partition is one
@@ -190,7 +191,7 @@ def map_blocks(
     try:
         return _api.map_blocks(
             fetches, _collected_frame(ing.paths), feed_dict, trim=trim,
-            fetch_names=fetch_names, **kw,
+            fetch_names=fetch_names, mesh=mesh, **kw,
         )
     finally:
         _cleanup(ing, keep_ingest)
@@ -223,6 +224,7 @@ def reduce_rows(
     fetch_names: Optional[Sequence[str]] = None,
     ingest_dir: Optional[str] = None,
     keep_ingest: bool = False,
+    mesh=None,
     **kw,
 ):
     """`reduce_rows` over a Spark DataFrame."""
@@ -230,7 +232,7 @@ def reduce_rows(
     try:
         return _api.reduce_rows(
             fetches, _collected_frame(ing.paths), feed_dict,
-            fetch_names=fetch_names, **kw,
+            fetch_names=fetch_names, mesh=mesh, **kw,
         )
     finally:
         _cleanup(ing, keep_ingest)
@@ -244,6 +246,7 @@ def aggregate(
     fetch_names: Optional[Sequence[str]] = None,
     ingest_dir: Optional[str] = None,
     keep_ingest: bool = False,
+    mesh=None,
     **kw,
 ) -> TensorFrame:
     """`aggregate` over a Spark DataFrame grouped by ``keys`` — the
@@ -257,7 +260,7 @@ def aggregate(
         frame = _collected_frame(ing.paths)
         return _api.aggregate(
             fetches, _api.group_by(frame, *keys), feed_dict,
-            fetch_names=fetch_names, **kw,
+            fetch_names=fetch_names, mesh=mesh, **kw,
         )
     finally:
         _cleanup(ing, keep_ingest)

@@ -21,13 +21,26 @@ Chunks may be `LazyFrame`s (a pending map chain over each chunk): the
 transfer stage stages the chunk's BASE frame, and the per-chunk reduce
 fuses the pending chain with the reduce (`LazyFrame.reduce_blocks`).
 
-Not in the port yet: the global-frame (sharded) path, the double-buffered
-accumulator and device rotation (ROADMAP Queue 1 item 12: ``mesh=`` and
-``devices=`` are not parameters; ``device=`` picks the one device).
+Placement (as the JAX package's): ``device=`` pins one device; ``mesh=``
+reduces each chunk over the mesh (no transfer stage: the mesh owns its
+placement); otherwise the block scheduler's devices (``devices=``, or two
+or more cards under ``config.block_scheduler``) take the chunks in turn,
+chunk i on device i mod n: the transfer stage (one per device) and the
+consumer each count chunks and agree by the chunk's ordinal, so chunk i's
+copy lands where chunk i reduces, while chunk i-1 computes on another
+card. Partials converge on the first device. Under ``"global"`` a chunk of
+at least ``config.global_frame_min_rows`` rows is sharded over the global
+mesh in the transfer stage and reduced once a shard (`globalframe`); the
+stream asks once, on its first sharded chunk, whether the graph can run
+there, and an ineligible stream stands the global path down and rotates.
+The global path's partials fold eagerly into two alternating slots (the
+double-buffered accumulator): the fold of chunk k runs while chunk k+1's
+shards copy, and at most two partial tables are live.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext as _nullcontext
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -85,12 +98,13 @@ class _Staged:
     event recorded on the copy stream after the copies, and the
     `LazyFrame` whose base it is, if any."""
 
-    __slots__ = ("frame", "event", "lazy")
+    __slots__ = ("frame", "event", "lazy", "stage")
 
-    def __init__(self, frame: TensorFrame, event, lazy=None):
+    def __init__(self, frame: TensorFrame, event, lazy=None, stage=None):
         self.frame = frame
         self.event = event
         self.lazy = lazy
+        self.stage = stage  # the `_TransferStage` whose `receive` takes it
 
 
 class _PinnedSlot:
@@ -153,7 +167,7 @@ class _TransferStage:
         if isinstance(f, LazyFrame):
             staged = self(f._base)
             if isinstance(staged, _Staged):
-                return _Staged(staged.frame, staged.event, f)
+                return _Staged(staged.frame, staged.event, f, self)
             return f._with_base(staged)
         if not isinstance(f, TensorFrame) or f.nrows == 0:
             return f  # pandas chunks convert in the reduce; empty ones skip
@@ -213,7 +227,7 @@ class _TransferStage:
                 return f
         if _telemetry.enabled():
             _telemetry.histogram_observe("h2d_bytes", float(copied))
-        return _Staged(TensorFrame(cols, f.offsets), event)
+        return _Staged(TensorFrame(cols, f.offsets), event, stage=self)
 
     def receive(self, item):
         """The consumer's side: the chunk, safe to read on the consumer's
@@ -250,6 +264,8 @@ def reduce_blocks_stream(
     checkpoint=None,
     checkpoint_every: Optional[int] = None,
     resume: str = "auto",
+    mesh=None,
+    devices=None,
 ):
     """Out-of-core reduce: fold an ITERATOR of frames (chunks too large to
     hold at once). Chunk N+1 is produced and copied to ``device`` (default:
@@ -280,24 +296,55 @@ def reduce_blocks_stream(
     refused (``resume="ignore"`` starts afresh). Only classifiable monoid
     reduces are eligible.
     """
-    dev = resolve_device(device)
+    from . import config as _cfg
+    from . import globalframe as _gf
+    from .runtime import scheduler as _rs
+
+    _api._check_mesh_args("reduce_blocks_stream", mesh, device, devices)
     graph, fetch_list = _api._as_graph(fetches, fetch_names)
     auto_fold = fold_every == "auto"
     if auto_fold:
         fold_every = None  # resolved from the first chunk's analysis below
     if fold_every is not None:
         fold_every = max(2, int(fold_every))
+    # placement: a pinned device, a mesh, a rotation over the scheduler's
+    # devices, or the global mesh (its rotation parked until it stands down)
+    rotation = gmesh = parked = None
+    if mesh is not None:
+        dev = mesh.device_list()[0]
+    elif device is not None:
+        dev = resolve_device(device)
+    else:
+        rotation = _rs.resolve(devices=devices)
+        if rotation is not None and devices is None and len(rotation) < 2:
+            rotation = None  # one device: nothing to rotate
+        if devices is None and _rs.global_mode():
+            try:
+                gmesh = _gf.resolve_global_mesh()
+            except Exception:
+                gmesh = None
+            if gmesh is not None:
+                parked, rotation = rotation, None
+        dev = (
+            rotation[0] if rotation else gmesh.device_list()[0] if gmesh is not None
+            else resolve_device(None)
+        )
+    # global path's off switch (the transfer stage runs on a pipeline
+    # thread: a plain-list cell is the shared flag) and its one check
+    gmesh_off = [gmesh is None]
+    gmesh_checked = [False]
 
     def _combine(parts: List[Dict]) -> Dict:
-        # tensor partials stack on the device (no host round-trip between
-        # fold generations); host partials join them there
+        # partials stack on the first device (rotated ones move there; no
+        # host round-trip between fold generations); host partials join
         stacked = TensorFrame.from_dict(
-            {b: _api._stack_parts([p[b] for p in parts]) for b in parts[0]}
+            {b: _api._stack_parts([p[b] for p in parts], dev) for b in parts[0]}
         )
-        r = _api.reduce_blocks(
-            graph, stacked, None, fetch_names=fetch_list,
-            executor=executor, device=dev,
-        )
+        with _gf._suppress_route():
+            r = _api.reduce_blocks(
+                graph, stacked, None, fetch_names=fetch_list,
+                executor=executor, device=dev,
+            )
         record_count("reduce_blocks_stream.fold")
         return r if isinstance(r, dict) else {_base(fetch_list[0]): r}
 
@@ -351,12 +398,53 @@ def reduce_blocks_stream(
                     next(source)
                 except StopIteration:
                     break
-    transfer = _TransferStage(dev)
-    pipe_stages.append(PipeStage("transfer-stage", transfer))
+    stages: Dict = {}
+
+    def stage_for(d):
+        if d not in stages:
+            stages[d] = _TransferStage(d)
+        return stages[d]
+
+    # chunk ordinals of the transfer stage and of the consumer: chunk i's
+    # device is i mod n on both sides (a resume continues the count)
+    stage_idx = [watermark]
+    consume_idx = [watermark]
+
+    def chunk_device(counter):
+        i = counter[0]
+        counter[0] += 1
+        return rotation[i % len(rotation)] if rotation else dev
+
+    def transfer(f):
+        d = chunk_device(stage_idx)  # every chunk advances the ordinal
+        if (
+            not gmesh_off[0] and isinstance(f, TensorFrame)
+            and f.nrows >= max(1, _cfg.get().global_frame_min_rows)
+        ):
+            try:
+                return _gf.GlobalFrame.from_frame(f, mesh=gmesh)
+            except Exception as e:
+                gmesh_off[0] = True
+                from .utils.log import get_logger
+
+                get_logger("streaming").warning(
+                    "global sharded transfer disabled for this stream "
+                    "(%s: %s); chunks fall back to the per-block path",
+                    type(e).__name__, e,
+                )
+        return stage_for(d)(f)
+
+    if mesh is None:
+        pipe_stages.append(PipeStage("transfer-stage", transfer))
 
     from .runtime.deadline import Cancelled, DeadlineExceeded
 
     partials: List[Dict] = list(restored)
+    # double-buffered accumulator of the global path: two slots, each an
+    # independent chain of eager folds
+    dbuf: List[Optional[Dict]] = [None, None]
+    dbuf_n = [0]
+    dbuf_ok = [True]
     # `ordinal` counts source chunks FULLY consumed (committed ones
     # included): the candidate watermark. Empty chunks advance it.
     ordinal = watermark
@@ -364,7 +452,12 @@ def reduce_blocks_stream(
         for item in pipelined(
             source, pipe_stages, depth=pipe_depth, ordinal_base=watermark
         ):
-            f = transfer.receive(item)
+            f = item.stage.receive(item) if isinstance(item, _Staged) else item
+            if gmesh_off[0] and parked is not None:
+                # the global path stood down: rotation resumes as under
+                # "auto"
+                rotation, parked = parked, None
+            chunk_dev = chunk_device(consume_idx) if mesh is None else dev
             nrows = len(f) if _api._is_pandas(f) else getattr(f, "nrows", None)
             if nrows == 0:
                 # an empty chunk contributes the reduction identity:
@@ -372,6 +465,25 @@ def reduce_blocks_stream(
                 # the combine). Classification waits for rows.
                 ordinal += 1
                 continue
+            if isinstance(f, _gf.GlobalFrame):
+                if not gmesh_checked[0]:
+                    # the graph is fixed for the stream's lifetime: decide
+                    # once whether it runs on the shards
+                    gmesh_checked[0] = True
+                    if not _gf.stream_reduce_eligible(graph, fetch_list, f, feed_dict, executor):
+                        gmesh_off[0] = True
+                        _gf._note_fallback("unclassified-reduce")
+                        from .utils.log import get_logger
+
+                        get_logger("streaming").warning(
+                            "global sharded transfer disabled for this "
+                            "stream: the reduce graph has no monoid "
+                            "structure to combine shard partials by; chunks "
+                            "take the per-block path"
+                        )
+                if gmesh_off[0]:
+                    # sharded before the switch flipped
+                    f = f.to_frame()
             if auto_fold or (ckpt is not None and ckpt.monoids is None):
                 # classify once, on the first chunk: ONE analysis serves
                 # the fold class and the checkpoint eligibility gate
@@ -394,15 +506,51 @@ def reduce_blocks_stream(
                 auto_fold = False
                 if ckpt is not None:
                     ckpt.on_first_chunk(comb_any, fold_every)
+            if isinstance(f, _gf.GlobalFrame):
+                where = {}
+            elif mesh is not None:
+                where = {"mesh": mesh}
+            elif rotation:
+                # the chunk reduces where its transfer put it
+                where = {"devices": [chunk_dev]}
+            else:
+                where = {"device": dev}
             with _telemetry.span(
                 "reduce_blocks_stream.chunk", kind="verb", rows=int(nrows or 0)
-            ):
+            ), (_gf._suppress_route() if gmesh_off[0] else _nullcontext()):
                 r = _api.reduce_blocks(
                     graph, f, feed_dict, fetch_names=fetch_list,
-                    executor=executor, device=dev,
+                    executor=executor, **where,
                 )
             record_count("reduce_blocks_stream.chunks")
-            partials.append(r if isinstance(r, dict) else {_base(fetch_list[0]): r})
+            part = r if isinstance(r, dict) else {_base(fetch_list[0]): r}
+            if (
+                dbuf_ok[0] and not gmesh_off[0] and ckpt is None
+                and fold_every is not None and _cfg.get().plan_pipeline
+            ):
+                # the global path's double buffer: fold into slot k % 2
+                slot = dbuf_n[0] % 2
+                dbuf_n[0] += 1
+                if dbuf[slot] is None:
+                    dbuf[slot] = part
+                else:
+                    try:
+                        with _telemetry.span(
+                            "reduce_blocks_stream.fold", kind="stage", slot=slot
+                        ):
+                            dbuf[slot] = _combine([dbuf[slot], part])
+                        _gf._note_stream_fold()
+                    except Exception:
+                        # a fold failed (device pressure): both operands
+                        # spill to the host, the tree-fold list takes over
+                        dbuf_ok[0] = False
+                        partials.extend(
+                            _spill_partial_to_host(p, ordinal) for p in (dbuf[slot], part)
+                        )
+                        dbuf[slot] = None
+                ordinal += 1
+                continue
+            partials.append(part)
             # the chunk's contribution is IN `partials`: (ordinal,
             # partials) is committable even if the fold below is cut off
             ordinal += 1
@@ -419,6 +567,8 @@ def reduce_blocks_stream(
                 )
             if ckpt is not None:
                 ckpt.note_chunk_folded(ordinal, partials)
+        # the double buffer's slots join the final combine
+        partials.extend(d for d in dbuf if d is not None)
         if not partials:
             raise ValueError(
                 "reduce_blocks_stream over an empty iterator (or every "
@@ -435,7 +585,8 @@ def reduce_blocks_stream(
             ckpt.on_interrupt(e, ordinal, partials)
         raise
     finally:
-        transfer.close()
+        for st in stages.values():
+            st.close()
     if ckpt is not None:
         # completion commit: an identical re-run resumes to a no-op
         ckpt.finalize(ordinal, partials)

@@ -106,6 +106,20 @@ def _args_device_label(args) -> Optional[str]:
     return None
 
 
+def _dispatch_device_label(key, args) -> Optional[str]:
+    """``type:index`` of the device a cached program was built for (the
+    executor key names it): the label the scheduler placed the dispatch
+    on, also for CPU stand-ins (``torch.device("cpu", i)``), whose tensors
+    all report the one CPU. Else the first tensor argument's."""
+    import torch
+
+    try:
+        d = torch.device(key[-1])
+        return f"{d.type}:{d.index or 0}"
+    except Exception:
+        return _args_device_label(args)
+
+
 class FaultPlan:
     """One active executor-seam injection campaign (thread-safe dispatch
     counter and verdict bookkeeping)."""
@@ -166,7 +180,7 @@ class FaultPlan:
             return False
         if not self._ordinal_fires(ordinal):
             return False
-        if self.device is not None and _args_device_label(args) != self.device:
+        if self.device is not None and _dispatch_device_label(key, args) != self.device:
             return False
         return True
 
@@ -177,7 +191,7 @@ class FaultPlan:
         def wrapper(*args, **kwargs):
             ordinal = plan._next_ordinal()
             if plan._should_fire(ordinal, key, args):
-                dev = _args_device_label(args)
+                dev = _dispatch_device_label(key, args)
                 with plan._lock:
                     plan._fired.add(ordinal)
                     plan.injected += 1

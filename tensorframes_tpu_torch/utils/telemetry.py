@@ -185,6 +185,12 @@ _event_pool: List[object] = []
 _EVENT_POOL_MAX = 4096
 
 
+# the card the pooled events were recorded on: an event recorded on one
+# card cannot be recorded on another's stream, so only one card's pairs
+# are pooled at a time (the others are made fresh)
+_pool_device: List[Optional[int]] = [None]
+
+
 def _new_event():
     try:
         return _event_pool.pop()
@@ -194,21 +200,32 @@ def _new_event():
         return torch.cuda.Event(enable_timing=True)
 
 
+def _event_for(idx: Optional[int]):
+    """An event to record on card ``idx``'s stream: from the pool when the
+    pool holds that card's events."""
+    if _pool_device[0] is None or _pool_device[0] == idx or not _event_pool:
+        return _new_event()
+    import torch
+
+    return torch.cuda.Event(enable_timing=True)
+
+
 class _Timing:
     """The CUDA event pair that times one dispatch, or one run of a verb's
     dispatches (`dispatch_run`), and the spans that share it. Resolved,
     the pair's elapsed time is split over its spans by their rows (evenly
     when they carry none) into ``attrs["device_s"]``."""
 
-    __slots__ = ("ev0", "ev1", "spans")
+    __slots__ = ("ev0", "ev1", "spans", "idx")
 
-    def __init__(self, ev0):
+    def __init__(self, ev0, idx: Optional[int] = None):
         self.ev0 = ev0
         self.ev1 = None
         self.spans: List["Span"] = []
+        self.idx = idx  # the card whose stream the pair is recorded on
 
     def close(self, stream) -> None:
-        ev1 = _new_event()
+        ev1 = _event_for(self.idx)
         ev1.record(stream)
         self.ev1 = ev1
 
@@ -228,7 +245,9 @@ class _Timing:
             sp.attrs["device_s"] = total * (w / wsum if wsum else 1.0 / len(self.spans))
             sp.events = None
         self.spans = []
-        if len(_event_pool) < _EVENT_POOL_MAX:
+        if not _event_pool:
+            _pool_device[0] = self.idx
+        if len(_event_pool) < _EVENT_POOL_MAX and _pool_device[0] == self.idx:
             _event_pool.extend((self.ev0, self.ev1))
         return True
 
@@ -491,17 +510,30 @@ def launching() -> None:
         return
     if ctx.__class__ is _RunDispatch:
         run = ctx.run
-        if run.timing is None:
-            run.stream = _current_stream(run.device)
-            ev = _new_event()
-            ev.record(run.stream)
-            run.timing = _Timing(ev)
-        ctx.timing = run.timing
+        dev = ctx.device
+        if dev is run.device or dev == run.device:
+            if run.timing is None:
+                run.stream, run.timing = _start_timing(run.device)
+            ctx.timing = run.timing
+            return
+        # a block the scheduler placed on another card: that card's own
+        # pair, on its current stream
+        pair = run.others.get(dev)
+        if pair is None:
+            pair = run.others[dev] = _start_timing(dev)
+        ctx.timing = pair[1]
         return
-    ctx.stream = _current_stream(ctx.device)
-    ev = _new_event()
-    ev.record(ctx.stream)
-    ctx.timing = _Timing(ev)
+    ctx.stream, ctx.timing = _start_timing(ctx.device)
+
+
+def _start_timing(device):
+    """``(stream, timing)``: a timing whose start event is recorded now on
+    ``device``'s current stream."""
+    stream = _current_stream(device)
+    idx = getattr(stream, "device_index", None)
+    ev = _event_for(idx)
+    ev.record(stream)
+    return stream, _Timing(ev, idx)
 
 
 # run flush hooks: ``fn(run, verb)`` when a `dispatch_run` is flushed (the
@@ -532,14 +564,19 @@ class _DispatchRun:
     the loop, from the first dispatch's launch to the loop's end, and its
     time is split over the dispatches by rows: per dispatch the loop
     records no event (two records a block were most of the dispatch
-    path's cost on the card)."""
+    path's cost on the card). A loop whose blocks the scheduler placed on
+    several cards keeps one pair per card, each on that card's stream and
+    split over that card's dispatches."""
 
-    __slots__ = ("device", "stream", "timing", "tok", "rows", "spans", "open", "ledger")
+    __slots__ = (
+        "device", "stream", "timing", "others", "tok", "rows", "spans", "open", "ledger",
+    )
 
     def __init__(self, device):
         self.device = device  # the CUDA device, or None
         self.stream = None
         self.timing = None
+        self.others: Dict = {}  # another card -> (stream, timing)
         self.open = None  # the dispatch in progress
         self.rows: List[int] = []
         self.spans: List[Span] = []
@@ -553,6 +590,8 @@ class _DispatchRun:
         _RUN.reset(self.tok)
         if self.timing is not None:
             self.timing.close(self.stream)
+        for stream, timing in self.others.values():
+            timing.close(stream)
         verb = _VERB.get()
         if verb is None:
             self.flush(None)
@@ -1232,6 +1271,12 @@ _PROM_HELP: Dict[str, str] = {
     "admission_queue_depth": "Verbs queued for admission right now",
     "admission_in_flight": "Admitted top-level verbs in flight",
     "stream_queue_depth": "Decoded chunks ready ahead of the consumer",
+    "scheduler_queue_depth": "Planned dispatches not yet issued per device",
+    "global_dispatches": "Global-frame dispatches by verb",
+    "global_collectives": "Cross-shard combines of global-frame reduces",
+    "global_fallbacks": "Global-frame dispatches that left the path, by reason",
+    "global_pad_rows": "Rows padded onto global-frame shards",
+    "global_stream_folds": "Double-buffered accumulator folds of global streams",
     "ingest_queue_depth": "Ingest stage input-queue occupancy",
     "ingest_chunks": "Items through each ingest stage",
     "ingest_stage_busy_seconds": "Ingest stage busy time",
@@ -1374,10 +1419,6 @@ def _verb_roofline(span_list: List[Span], costs: Dict) -> Dict[str, Dict]:
     return out
 
 
-def _not_ported(what: str) -> Dict:
-    return {"error": f"not ported: {what}"}
-
-
 def diagnostics_data(executor=None) -> Dict:
     """The machine-readable diagnostics payload (what
     ``tft.diagnostics(format="json")`` and ``/diagnostics`` serve): span
@@ -1456,8 +1497,9 @@ def diagnostics_data(executor=None) -> Dict:
     try:
         from ..runtime import faults as _faults
 
-        # the failover circuit breaker comes with the multi-device scheduler
-        data["health"] = []
+        from ..runtime.scheduler import device_health
+
+        data["health"] = device_health().table()
         data["faults"] = _faults.ledger_snapshot()
         data["forensics"] = _faults.forensics_snapshot()
     except Exception as e:
@@ -1474,7 +1516,12 @@ def diagnostics_data(executor=None) -> Dict:
         data["checkpoint"] = _checkpoint.state()
     except Exception as e:
         data["checkpoint"] = {"error": f"{type(e).__name__}: {e}"}
-    data["globalframe"] = _not_ported("globalframe.py")
+    try:
+        from .. import globalframe as _globalframe
+
+        data["globalframe"] = _globalframe.state()
+    except Exception as e:
+        data["globalframe"] = {"error": f"{type(e).__name__}: {e}"}
     try:
         from ..graph import vectorize as _vectorize
 
@@ -1667,8 +1714,23 @@ def _render_diagnostics(data: Dict) -> str:
     if "faults_error" in data:
         lines.append(f"fault state unavailable: {data['faults_error']}")
     else:
+        health = data.get("health", [])
         ledger = data.get("faults", {})
         lines.append("")
+        if health:
+            lines.append(
+                "device health (failover circuit breaker; closed "
+                "circuits are not listed):"
+            )
+            for row in health:
+                lines.append(
+                    f"  {row['device']:<10} {row['state']:<9} "
+                    f"failures={row['failures']} "
+                    f"cooldown={row['cooldown_s']}s "
+                    f"retry_in={row['retry_in_s']}s"
+                )
+        else:
+            lines.append("device health: all devices healthy")
         if any(ledger.values()):
             lines.append(
                 "faults: "
@@ -1698,6 +1760,24 @@ def _render_diagnostics(data: Dict) -> str:
                 f" ({m['live_buffers']} buffer(s)) "
                 f"in_use={_fmt_bytes(m['bytes_in_use'])} "
                 f"peak={_fmt_bytes(m['peak_bytes_in_use'])}"
+            )
+    gf = data.get("globalframe", {})
+    if gf and "error" not in gf and (
+        gf.get("frames") or gf.get("dispatches") or gf.get("fallbacks")
+    ):
+        lines.append("")
+        lines.append(
+            f"global frames: {gf.get('frames', 0)} frame(s) over "
+            f"{gf.get('shards') or '?'} shard(s), "
+            f"{gf.get('dispatches', 0)} dispatch(es), "
+            f"{gf.get('collectives', 0)} cross-shard combine(s), "
+            f"{gf.get('pad_rows', 0)} pad row(s) on shards"
+        )
+        for reason, n in sorted(gf.get("fallbacks", {}).items()):
+            lines.append(f"  fallback {reason}: {n} dispatch(es)")
+        if gf.get("stream_folds"):
+            lines.append(
+                f"  streaming double-buffer: {gf['stream_folds']} eager fold(s)"
             )
     at = data.get("autotune", {})
     if at and "error" not in at:

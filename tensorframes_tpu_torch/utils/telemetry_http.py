@@ -8,9 +8,9 @@ Routes:
   content type ``text/plain; version=0.0.4``.
 - ``/healthz`` — JSON device-health overview (`scheduler.health_overview`)
   with the admission controller's state: 200 always (liveness), with
-  ``degraded: true`` when admission is overloaded (the port has no
-  failover circuit yet), and ``ready: false`` while the serving front-end
-  drains.
+  ``degraded: true`` when a device's failover circuit is open or
+  admission is overloaded, and ``ready: false`` while the serving
+  front-end drains.
 - ``/diagnostics`` — the `telemetry.diagnostics_data` JSON payload.
 - ``/trace`` — the span ring as Chrome trace JSON (load it in Perfetto).
 - ``/profile`` — a live `runtime.profiler.snapshot()` of the workload
@@ -104,10 +104,9 @@ def _healthz_payload() -> dict:
 
     rows = health_overview()
     admission = controller().snapshot()
-    # no circuit opens in the port yet (`runtime.scheduler`): degraded
-    # means admission control is shedding
+    circuits = any(r.get("state") not in (None, "closed") for r in rows)
     overloaded = bool(admission.get("overloaded"))
-    degraded = overloaded
+    degraded = circuits or overloaded
     # rolling-restart readiness (`serving.drain()`): read the flag only
     # when THIS package's serving front-end is loaded (a pure-telemetry
     # process never imports the serving stack for a health scrape)

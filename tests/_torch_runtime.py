@@ -36,11 +36,13 @@ def host(x):
 def reset_port() -> None:
     """Every piece of the port's process-wide runtime state these tests
     touch."""
+    from tensorframes_tpu_torch import globalframe as tglobal
     from tensorframes_tpu_torch.graph import plan as tplan
     from tensorframes_tpu_torch.runtime import autotune as tautotune
     from tensorframes_tpu_torch.runtime import blackbox as tblackbox
     from tensorframes_tpu_torch.runtime import costmodel as tcost
     from tensorframes_tpu_torch.runtime import deadline as tdl
+    from tensorframes_tpu_torch.runtime import scheduler as tsched
     from tensorframes_tpu_torch.utils import profiling as tprof
     from tensorframes_tpu_torch.utils import telemetry as ttele
 
@@ -54,5 +56,7 @@ def reset_port() -> None:
     tdl.reset()
     tblackbox.reset_state()
     tplan.reset_state()
+    tsched.device_health().reset()
+    tglobal.reset_state()
     tprof.reset_stats()
     ttele._event_pool.clear()

@@ -81,7 +81,7 @@ def test_knob_env_parsing_equals_the_reference(knob, var, good, low, monkeypatch
         assert getattr(tconfig.Config(), knob) == getattr(jconfig.Config(), knob) >= 0
 
 
-@pytest.mark.parametrize("knob", ["default_num_blocks", "aggregate_buffer_rows"])
+@pytest.mark.parametrize("knob", ["default_num_blocks", "aggregate_buffer_rows", "default_mesh"])
 @pytest.mark.parametrize("how", ["update", "override", "env"])
 def test_knobs_dead_in_the_reference_are_not_ported(knob, how, monkeypatch):
     # declared in the JAX package and read nowhere there

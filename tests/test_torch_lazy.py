@@ -276,24 +276,27 @@ class TestSpliceTimeValidation:
             lf.map_blocks(s)
 
     def test_mesh_and_devices_arguments_raise(self):
+        from tensorframes_tpu_torch.parallel import data_mesh
+
         df = _frame(tft, _data())
         lf = df.lazy(device=CPU)
         t = (tft.block(df, "x") * 2.0).named("y")
-        # mesh= on a lazy plan is a typed refusal naming the queue item that
-        # brings its routes; devices= is not a parameter yet
-        with pytest.raises(NotImplementedError, match="12.3"):
-            tft.map_blocks(t, lf, mesh=object())
-        with pytest.raises(NotImplementedError, match="12.3"):
-            lf.map_blocks(t, mesh=object())
-        with pytest.raises(TypeError, match="devices"):
-            lf.map_blocks(t, devices=[CPU])
+        mesh = data_mesh(devices=[CPU] * 2)
+        # a lazy plan takes one placement: mesh=, devices= and device=
+        # beside each other raise, as on the eager verbs
+        with pytest.raises(ValueError, match="mesh= or device="):
+            tft.map_blocks(t, lf, mesh=mesh, device=CPU)
+        with pytest.raises(ValueError, match="mesh= or device="):
+            lf.map_blocks(t, mesh=mesh, device=CPU)
+        with pytest.raises(ValueError, match="devices= or device="):
+            lf.map_blocks(t, devices=[CPU], device=CPU)
         lf = lf.map_blocks(t)
-        with pytest.raises(NotImplementedError, match="12.3"):
-            lf.force(mesh=object())
-        with pytest.raises(NotImplementedError, match="12.3"):
-            lf.reduce_blocks(_reduce_of(tft, lf, "y"), mesh=object())
-        with pytest.raises(TypeError, match="devices"):
-            lf.reduce_blocks(_reduce_of(tft, lf, "y"), devices=[CPU])
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            lf.force(mesh=mesh, devices=[CPU])
+        with pytest.raises(ValueError, match="mesh= or device="):
+            lf.reduce_blocks(_reduce_of(tft, lf, "y"), mesh=mesh, device=CPU)
+        with pytest.raises(ValueError, match="ambiguous"):
+            lf.reduce_blocks(_reduce_of(tft, lf, "y"), devices=[])
 
     def test_no_card_means_no_silent_cpu_run(self):
         if torch.cuda.is_available():

@@ -716,28 +716,40 @@ class TestMeshArguments:
                 call()
 
     def test_mesh_on_a_lazy_plan_raises(self, tmesh):
-        tdf = tft.TensorFrame.from_dict({"k": np.arange(4) % 2, "x": np.arange(4.0)})
-        lf = tdf.lazy(device=CPU).map_blocks((tft.block(tdf, "x") + 1.0).named("z"))
+        # mesh= on a lazy plan runs the plan's mesh route (the fused chain
+        # once a shard) and equals the eager mesh verb over the forced
+        # frame; only a second placement beside it still raises
+        tdf = tft.TensorFrame.from_dict({"k": np.arange(19) % 2, "x": np.arange(19.0)})
+        lf = tdf.lazy().map_blocks((tft.block(tdf, "x") + 1.0).named("z"))
+        eager = lf.force(device=CPU)
+        pairs = (
+            (lambda f: tft.map_blocks((tft.block(lf, "z") * 2.0).named("w"), f, mesh=tmesh), "w"),
+            (lambda f: tft.map_rows((_scalar_ph(tdsl, "z") + 1.0).named("y"), f, mesh=tmesh), "y"),
+        )
+        for call, col in pairs:
+            got, ref = call(lf), call(eager)
+            if isinstance(got, tft.LazyFrame):
+                got = got.force()
+            np.testing.assert_array_equal(got.host_values(col), ref.host_values(col))
         for call in (
-            lambda: tft.map_blocks((tft.block(lf, "z") * 2.0).named("w"), lf, mesh=tmesh),
-            lambda: tft.map_rows((_scalar_ph(tdsl, "z") + 1.0).named("y"), lf, mesh=tmesh),
-            lambda: tft.reduce_blocks(_reduce(tdsl, tft, lf, col="z"), lf, mesh=tmesh),
-            lambda: tft.reduce_rows(_pair(tdsl, tft, lambda d, a, b: d.add(a, b)), lf, mesh=tmesh),
-            lambda: tft.aggregate(_reduce(tdsl, tft, lf, col="z"), tft.group_by(lf, "k"),
-                                  mesh=tmesh),
+            lambda f: tft.reduce_blocks(_reduce(tdsl, tft, f, col="z"), f, mesh=tmesh),
+            lambda f: tft.reduce_rows(_pair(tdsl, tft, lambda d, a, b: d.add(a, b)), f,
+                                      mesh=tmesh, feed_dict={"x_1": "z", "x_2": "z"}),
         ):
-            with pytest.raises(NotImplementedError, match="12.3"):
-                call()
+            assert float(call(lf)) == float(call(eager))
+        out = tft.aggregate(_reduce(tdsl, tft, lf, col="z"), tft.group_by(lf, "k"), mesh=tmesh)
+        ref = tft.aggregate(_reduce(tdsl, tft, eager, col="z"), tft.group_by(eager, "k"),
+                            mesh=tmesh)
+        np.testing.assert_array_equal(out.host_values("z"), ref.host_values("z"))
+        np.testing.assert_array_equal(lf.force(mesh=tmesh).host_values("z"),
+                                      eager.host_values("z"))
         for call in (
-            lambda: lf.map_rows((_scalar_ph(tdsl, "z") + 1.0).named("y"), mesh=tmesh),
-            lambda: lf.reduce_rows(_pair(tdsl, tft, lambda d, a, b: d.add(a, b)), mesh=tmesh),
-            lambda: lf.force(mesh=tmesh),
+            lambda: lf.force(mesh=tmesh, device=CPU),
+            lambda: tft.reduce_blocks(_reduce(tdsl, tft, lf, col="z"), lf, mesh=tmesh,
+                                      device=CPU),
         ):
-            with pytest.raises(NotImplementedError, match="12.3"):
+            with pytest.raises(ValueError, match="mesh= or device="):
                 call()
-        with tft.lazy():
-            with pytest.raises(NotImplementedError, match="12.3"):
-                tft.map_blocks((tft.block(tdf, "x") + 1.0).named("z"), tdf, mesh=tmesh)
 
     def test_the_jax_mesh_verbs_and_the_ports_take_the_same_arguments(self):
         import inspect

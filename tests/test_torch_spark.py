@@ -238,3 +238,48 @@ class TestSparkAdapter:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tspark.reduce_blocks(_sum_graph(tft), _fake_df(_parts()), ingest_dir=str(tmp_path / "n"))
         assert os.listdir(str(tmp_path / "n")) == []
+
+
+@pytest.mark.parametrize("verb", ["reduce_blocks", "map_blocks", "reduce_rows", "aggregate"])
+def test_mesh_parameter_as_jax(verb, tmp_path):
+    """``mesh=`` on the four bridge functions that take it in the JAX
+    package: the port's 8-entry CPU mesh against JAX's 8 devices."""
+    import inspect
+
+    from tensorframes_tpu.parallel import data_mesh as jmesh_of
+    from tensorframes_tpu_torch.parallel import data_mesh
+
+    assert list(inspect.signature(getattr(tspark, verb)).parameters) == list(
+        inspect.signature(getattr(jspark, verb)).parameters)
+    rng = np.random.default_rng(3)
+    parts = [{"k": rng.integers(0, 5, n).astype(np.int64), "x": rng.standard_normal(n)}
+             for n in (40, 9, 33)]
+    fake = _fake_df(parts)
+    x = np.concatenate([p["x"] for p in parts])
+    meshes = {tft: data_mesh(devices=[CPU] * 8), tfs: jmesh_of()}
+
+    def fetches(pkg):
+        probe = pkg.TensorFrame.from_dict({"x": np.zeros(4)})
+        if verb == "map_blocks":
+            return (pkg.block(probe, "x") * 2.0).named("z")
+        if verb == "reduce_rows":
+            f64, s = pkg.ScalarType.float64, pkg.Shape(())
+            return pkg.dsl.add(pkg.dsl.placeholder(f64, s, name="x_1"),
+                               pkg.dsl.placeholder(f64, s, name="x_2")).named("x")
+        return _sum_graph(pkg)
+
+    outs = {}
+    for pkg, mod in ((tft, tspark), (tfs, jspark)):
+        kw = {"keys": ["k"]} if verb == "aggregate" else {}
+        outs[pkg] = getattr(mod, verb)(fetches(pkg), fake, ingest_dir=str(tmp_path / pkg.__name__),
+                                       mesh=meshes[pkg], **kw)
+    got, ref = outs[tft], outs[tfs]
+    if verb == "map_blocks":
+        np.testing.assert_array_equal(got.host_values("z"), np.asarray(ref["z"].values))
+        np.testing.assert_array_equal(got.host_values("z"), x * 2.0)
+    elif verb == "aggregate":
+        np.testing.assert_array_equal(got.host_values("k"), np.asarray(ref["k"].values))
+        np.testing.assert_allclose(got.host_values("x"), np.asarray(ref["x"].values), rtol=F64_RTOL)
+    else:
+        np.testing.assert_allclose(float(got), float(np.asarray(ref)), rtol=F64_RTOL)
+        np.testing.assert_allclose(float(got), x.sum(), rtol=F64_RTOL)

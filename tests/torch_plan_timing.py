@@ -9,7 +9,10 @@ call each:
 - ``reduce_blocks`` sum over the same rows, local and with the mesh;
 - the exact ``aggregate`` plan of ``chip_smoke.py`` phase 5 (a Sum / Max
   graph over 1,000,000 rows and 1,000 keys of uneven size): seconds a
-  call and milliseconds a distinct group size.
+  call and milliseconds a distinct group size;
+- on the card, where the package has ``TensorFrame.to_global``, the x+3
+  map and the sum over the rows sharded once over every card (one call
+  a shard).
 
 Local and mesh calls alternate, the order flipping each round. Run it
 from the root of the checkout whose package it should time (it imports
@@ -38,7 +41,10 @@ import tensorframes_tpu_torch as tft
 
 
 def _timer(dev):
-    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    def sync():  # every card: a global frame's shards run on all of them
+        if dev == "cuda":
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
 
     def wall(fn):
         sync()
@@ -80,6 +86,12 @@ def main() -> None:
     if mesh is not None:
         calls["map_blocks_mesh"] = lambda: tft.map_blocks(z, df, mesh=mesh)
         calls["reduce_sum_mesh"] = lambda: tft.reduce_blocks(s, df, mesh=mesh)
+    if dev == "cuda" and hasattr(tft.TensorFrame, "to_global"):
+        gf = df.to_global()
+        # a lead-axis sum: a monoid the shards' partials combine by
+        gs = tft.dsl.reduce_sum(tft.block(df, "x", tf_name="x_input"), axes=[0]).named("x")
+        calls["map_blocks_global"] = lambda: gf.map_blocks(z)
+        calls["reduce_sum_global"] = lambda: tft.reduce_blocks(gs, gf)
 
     n, nkeys = 1_000_000, 1000
     u = torch.rand(n, device=dev, generator=gen)
@@ -102,7 +114,8 @@ def main() -> None:
             times[k].append(wall(calls[k]))
     med = {k: statistics.median(t) for k, t in times.items()}
     print(json.dumps({
-        "card": card, "device": dev, "rounds": rounds, "rows": rows,
+        "card": card, "device": dev, "cards": torch.cuda.device_count(), "rounds": rounds,
+        "rows": rows,
         "median_s": med,
         "quartiles_s": {k: [float(q) for q in np.percentile(t, [25, 75])] for k, t in times.items()},
         "aggregate_exact_distinct_sizes": distinct,
