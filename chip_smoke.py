@@ -141,9 +141,25 @@ main path through the entry points a user calls:
     double-buffered accumulator; on two or more cards, after phase 7, a
     ``devices=`` `TransformerLM` scoring of 16 sequences, its kernel
     launches counted apart from the main path's;
-19. one JSON line listing every kernel with its launches on the main path
-    (phases 3-18), its error and its times;
-20. as the last line, ``{"ok": true, "device": {...}}``.
+19. the sequence, pipeline, expert and 3-D parallel paths, after the main
+    path's launches are read (their launches counted apart), every mesh a
+    set of slots on cuda:0 (and again over every card where there are
+    two or more): the kernel's log-sum-exp entry against its plain version
+    at the LM's shape (causal and not) and at head_dim 128, timed in turns
+    with the entry without it; phase 7's `TransformerLM` scoring 8
+    sequences through `apply(mesh=)` on a 4-slot ``data`` mesh (the ring:
+    n_layers x 10 launches of that entry) against `apply`;
+    `ring_attention_reference`'s gradients on one head of the LM's shape
+    against float64; `seq_all_to_all` of (2048, 8, 64) over 4 slots and
+    back, exact; `pipeline_apply` of 4 linear + ReLU stages (d 2048, batch
+    8,192, 8 microbatches); `MoEFFN.apply_ep` at phase 14's Mixtral widths
+    over 8 ``model`` slots; the 512-512-512-10 MLP's sharded step on a 2 x 2
+    mesh; and `TransformerLM.sharded_train_step_3d` at
+    `benchmarks/train_bench.py`'s widths on a 2 x 2 x 2 mesh, every
+    parameter against the single-card step, with 5 timed steps;
+20. one JSON line listing every kernel with its launches on the main path
+    (phases 3-18), its error and its times, and the ring's launches;
+21. as the last line, ``{"ok": true, "device": {...}}``.
 
 Phases 3-17 run with ``block_scheduler="off"``: they measure one card.
 Phases 8-18 run after phase 6 and before phase 7. Phases 3-6 and 8-18 run
@@ -274,11 +290,12 @@ def _attention_bound(bh: int, s: int, d: int, causal: bool):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _ptxas_line(log: str, d: int):
+def _ptxas_line(log: str, d: int, lse: bool = False):
     """ptxas's resource and spill lines for the head_dim-``d`` attention
-    kernel, from the build log, or None for a cached build."""
+    kernel (the instantiation that stores the log-sum-exp with ``lse``),
+    from the build log, or None for a cached build."""
     m = re.search(
-        rf"Compiling entry function '[^']*flash_attention_f32_kernelILi{d}E.*?"
+        rf"Compiling entry function '[^']*flash_attention_f32_kernelILi{d}ELb{int(lse)}E.*?"
         r"(\d+ bytes stack frame, \d+ bytes spill stores, \d+ bytes spill loads)"
         r".*?(Used [^\n]*)",
         log, re.S,
@@ -3904,6 +3921,323 @@ def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int) -> float:
     return secs
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the sequence, pipeline, expert and 3-D parallel paths
+# ---------------------------------------------------------------------------
+
+# pipeline_apply against the sequential stages: JAX's test bar
+# (tests/test_pp_ep.py); the reference runs the same microbatch shapes, so
+# cuBLAS picks the same kernels and only the hand-offs differ
+_PIPE_RTOL, _PIPE_ATOL = 2e-5, 1e-6
+# the MLP's sharded step against the unsharded one: JAX's bar
+# (tests/test_models.py), loss rtol 1e-5 and parameters rtol 1e-4, with atol
+# 1e-7 for the elements near zero (the biases start at 0 and move by lr x
+# a gradient summed over the data shards in another order)
+_MLP_STEP_LOSS_RTOL, _MLP_STEP_RTOL, _MLP_STEP_ATOL = 1e-5, 1e-4, 1e-7
+# the 3-D step against the single-card step: JAX's bar (tests/test_ring.py)
+_STEP3D_LOSS_RTOL, _STEP3D_RTOL, _STEP3D_ATOL = 1e-5, 2e-4, 2e-6
+
+
+def _slot_mesh(shape, names, cards: int):
+    """A mesh of ``shape`` whose slots take the first ``cards`` cards in
+    turn: on one card every slot is cuda:0, so each collective still runs
+    between its slots."""
+    from tensorframes_tpu_torch.parallel import Mesh
+
+    n = int(np.prod(shape))
+    devices = [torch.device("cuda", i % cards) for i in range(n)]
+    return Mesh(np.asarray(devices, dtype=object).reshape(shape), names)
+
+
+def _lse_entry(lm_shape, ring_slots: int = 4) -> dict:
+    """`flash_attention_lse` against its plain version at the LM's shape
+    and at the shape of one step of the ring's scoring (the sequence cut
+    over ``ring_slots``), causal and not, and at head_dim 128; its output
+    equal to the entry without the statistics; both entries timed in turns;
+    ptxas's lines for the instantiation that stores the statistics."""
+    from tensorframes_tpu_torch.ops import _cuda_build
+    from tensorframes_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_lse,
+        flash_attention_lse_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    errs, times = {}, {}
+    bh, s, d = lm_shape
+    step = (bh, s // ring_slots, d)
+    for bh, s, d, causal in ((*lm_shape, True), (*lm_shape, False), (*step, True),
+                             (*step, False), (8, 1024, 128, True)):
+        q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen) for _ in range(3))
+        out, lse = flash_attention_lse(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_lse_reference(q, k, v, causal=causal)
+        what = f"flash_attention_lse {(bh, s, d)} causal={causal}"
+        key = f"{bh}x{s}x{d}{'-causal' if causal else ''}"
+        errs[key] = max(
+            _check_close(what + " out", out, ref, _ATTN_RTOL, _ATTN_ATOL),
+            _check_close(what + " lse", lse, ref_lse, _ATTN_RTOL, _ATTN_ATOL),
+        )
+        if not torch.equal(out, flash_attention(q, k, v, causal=causal)):
+            raise AssertionError(f"{what}: output differs from the entry without the statistics")
+        # in turns: without, with, with, without
+        a1 = _time_ms(lambda: flash_attention(q, k, v, causal=causal), 20)
+        b1 = _time_ms(lambda: flash_attention_lse(q, k, v, causal=causal), 20)
+        b2 = _time_ms(lambda: flash_attention_lse(q, k, v, causal=causal), 20)
+        a2 = _time_ms(lambda: flash_attention(q, k, v, causal=causal), 20)
+        times[key] = dict(ms=[a1, a2], lse_ms=[b1, b2])
+    log = _cuda_build.build_logs.get("flash_attention", "")
+    return dict(
+        max_abs_err_each=errs, max_abs_err=max(errs.values()), times=times,
+        tolerance={"rtol": _ATTN_RTOL, "atol": _ATTN_ATOL},
+        ptxas_d64=_ptxas_line(log, 64, lse=True), ptxas_d128=_ptxas_line(log, 128, lse=True),
+    )
+
+
+def _ring_scoring(cfg, cards: int, n_seqs: int = 8, n_slots: int = 4) -> dict:
+    """`TransformerLM.apply(mesh=)` over a ``data`` mesh of ``n_slots``
+    slots against `apply` without a mesh and against the model on the
+    kernel's plain version: the ring's kernel launches in one call are
+    counted (n_layers x n(n+1)/2); the ring and `apply` without a mesh
+    timed, the least of three calls each."""
+    from tensorframes_tpu_torch.models import TransformerLM
+    from tensorframes_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+
+    mesh = _slot_mesh((n_slots,), ("data",), cards)
+    model = TransformerLM(**cfg, seed=SEED, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
+        0, cfg["vocab"], (n_seqs, cfg["max_seq"])).astype(np.int32)).cuda()
+    want = model(tokens)
+    plain = model(tokens, attention=flash_attention_reference)
+    flash_attention.launches = 0
+    got = model(tokens, mesh=mesh)
+    launches = flash_attention.launches
+    expected = cfg["n_layers"] * n_slots * (n_slots + 1) // 2
+    if launches != expected:
+        raise AssertionError(f"apply(mesh=): {launches} kernel launches, expected {expected}")
+    err = _check_close("apply(mesh=) logits", got, want, _LOGIT_RTOL, _LOGIT_ATOL)
+    err_plain = _check_close("apply(mesh=) logits against the plain attention", got, plain,
+                             _LOGIT_RTOL, _LOGIT_ATOL)
+    del want, plain, got
+    _, ring_s = _best_wall(lambda: model(tokens, mesh=mesh))
+    _, single_s = _best_wall(lambda: model(tokens))
+    return dict(
+        sequences=n_seqs, seq=cfg["max_seq"], slots=n_slots, ring_launches=launches,
+        ring_s=ring_s, single_s=single_s, ring_tokens_per_s=n_seqs * cfg["max_seq"] / ring_s,
+        max_abs_err=err, max_abs_err_vs_plain=err_plain,
+        tolerance={"rtol": _LOGIT_RTOL, "atol": _LOGIT_ATOL},
+    )
+
+
+def _ring_gradients(cards: int, seq: int = 2048, hd: int = 64, n_slots: int = 4) -> dict:
+    """`ring_attention_reference`'s gradients on one causal head of the
+    LM's shape, and `full_attention`'s, each within 1e-3 of its norm of
+    the float64 gradients (phase 14's bar)."""
+    from tensorframes_tpu_torch.parallel import full_attention, ring_attention_reference
+
+    mesh = _slot_mesh((n_slots,), ("data",), cards)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    q, k, v, r = (torch.randn(seq, hd, device="cuda", generator=gen) for _ in range(4))
+
+    def grads(attend, dtype):
+        ts = [t.to(dtype).requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad((attend(*ts) * r.to(dtype)).sum(), ts)
+
+    g64 = grads(lambda a, b, c: _attention_f64(a, b, c, causal=True), torch.float64)
+    worst = {}
+    for name, attend in (
+        ("ring_attention_reference",
+         lambda a, b, c: ring_attention_reference(a, b, c, mesh, causal=True)),
+        ("full_attention", lambda a, b, c: full_attention(a, b, c, causal=True)),
+    ):
+        ratios = [float((g.double() - w).norm() / w.norm()) for g, w in
+                  zip(grads(attend, torch.float32), g64)]
+        if not max(ratios) <= _TRAIN_GRAD_RTOL:
+            raise AssertionError(f"{name}: gradients off float64 by {ratios} of their norms")
+        worst[name] = max(ratios)
+    return dict(shape=[seq, hd], slots=n_slots, max_grad_err_over_norm=worst,
+                grad_rtol_of_norm=_TRAIN_GRAD_RTOL)
+
+
+def _all_to_all(cards: int, n_slots: int = 4) -> dict:
+    """`seq_all_to_all` of a (2048, 8, 64) tensor and back, each shard's
+    device, shape and values checked, exact."""
+    from tensorframes_tpu_torch.parallel import seq_all_to_all
+
+    mesh = _slot_mesh((n_slots,), ("data",), cards)
+    x = torch.randn(2048, 8, 64, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 43))
+    y, secs = _best_wall(lambda: seq_all_to_all(x, mesh, seq_axis=0, head_axis=1))
+    hb = 8 // n_slots
+    for i in range(n_slots):
+        t = y.shards[(i,)]
+        if t.device != mesh.devices[(i,)] or tuple(t.shape) != (2048, hb, 64):
+            raise AssertionError(f"seq_all_to_all: shard {i} {tuple(t.shape)} on {t.device}")
+        if not torch.equal(t.to(x.device), x[:, i * hb:(i + 1) * hb]):
+            raise AssertionError(f"seq_all_to_all: shard {i} holds other values")
+    back = seq_all_to_all(y, mesh, seq_axis=1, head_axis=0)
+    if [tuple(back.shards[(i,)].shape) for i in range(n_slots)] != [(2048 // n_slots, 8, 64)] * n_slots:
+        raise AssertionError("seq_all_to_all: the way back is not split over the sequence")
+    if not torch.equal(back.gather(x.device), x):
+        raise AssertionError("seq_all_to_all: the round trip changed the tensor")
+    return dict(shape=[2048, 8, 64], slots=n_slots, exact=True, seconds=secs)
+
+
+def _pipeline(cards: int, d: int = 2048, batch: int = 8192, micro: int = 8, stages: int = 4) -> dict:
+    """`pipeline_apply` of 4 linear + ReLU stages against the sequential
+    stages over the same microbatches."""
+    from tensorframes_tpu_torch.parallel import pipeline_apply
+
+    mesh = _slot_mesh((stages,), ("stage",), cards)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 44)
+    params = {
+        "w": torch.randn(stages, d, d, device="cuda", generator=gen) / math.sqrt(d),
+        "b": torch.randn(stages, d, device="cuda", generator=gen) * 0.1,
+    }
+    x = torch.randn(batch, d, device="cuda", generator=gen)
+
+    def stage(p, h):
+        return torch.relu(h @ p["w"] + p["b"])
+
+    def sequential():
+        mb = batch // micro
+        outs = []
+        for j in range(micro):
+            h = x[j * mb:(j + 1) * mb]
+            for s in range(stages):
+                h = stage({"w": params["w"][s], "b": params["b"][s]}, h)
+            outs.append(h)
+        return torch.cat(outs)
+
+    with torch.no_grad():
+        run = lambda: pipeline_apply(stage, params, x, mesh, num_microbatches=micro)  # noqa: E731
+        got, secs = _best_wall(run)
+        want, seq_secs = _best_wall(sequential)
+    err = _check_close("pipeline_apply", got, want, _PIPE_RTOL, _PIPE_ATOL)
+    return dict(stages=stages, d=d, batch=batch, microbatches=micro, seconds=secs,
+                sequential_seconds=seq_secs, max_abs_err=err,
+                tolerance={"rtol": _PIPE_RTOL, "atol": _PIPE_ATOL})
+
+
+def _moe_ep(cards: int, tokens: int = 4096, n_slots: int = 8, d: int = 4096,
+            h: int = 14336) -> dict:
+    """`MoEFFN.apply_ep` at Mixtral-8x7B's widths (phase 14's) over an
+    8-slot ``model`` axis against `apply`, phase 14's tolerance."""
+    from tensorframes_tpu_torch.models import MoEFFN
+    from tensorframes_tpu_torch.parallel import P, shard
+
+    mesh = _slot_mesh((n_slots,), ("model",), cards)
+    model = MoEFFN(d, h, 8, 2, seed=SEED, device="cuda")
+    x = torch.randn(tokens, d, device="cuda", generator=torch.Generator(device="cuda").manual_seed(SEED + 45))
+    with torch.no_grad():
+        want, dense_s = _best_wall(lambda: model(x))
+        params = dict(model.params)
+        params["w1"] = shard(model.params["w1"], mesh, P("model"))
+        params["w2"] = shard(model.params["w2"], mesh, P("model"))
+        got, ep_s = _best_wall(lambda: model.apply_ep(params, x, mesh))
+    err = _check_close("MoEFFN.apply_ep", got, want, _MOE_RTOL, _MOE_ATOL)
+    del params, want, got
+    return dict(widths=[d, h, 8, 2], tokens=tokens, slots=n_slots, ep_seconds=ep_s, dense_seconds=dense_s,
+                max_abs_err=err, tolerance={"rtol": _MOE_RTOL, "atol": _MOE_ATOL})
+
+
+def _mlp_sharded_step(cards: int, rows: int = 8192) -> dict:
+    """`MLP.sharded_train_step` (512-512-512-10) on a 2 x 2 ``data`` x
+    ``model`` mesh against `train_step`, every parameter."""
+    from tensorframes_tpu_torch.models import MLP
+
+    mesh = _slot_mesh((2, 2), ("data", "model"), cards)
+    sizes = [512, 512, 512, 10]
+    model = MLP(sizes, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 46)
+    x = torch.rand(rows, sizes[0], device="cuda", generator=gen)
+    y = torch.randint(0, sizes[-1], (rows,), device="cuda", generator=gen)
+    step = model.sharded_train_step(mesh, lr=0.05)
+    sharded = model.shard_params(model.params, mesh)
+    new, loss = step(sharded, x, y)
+    ref = [(w.detach().clone(), b.detach().clone()) for w, b in model.params]
+    _, rloss = model.train_step(ref, x, y, lr=0.05)
+    # steps from the same parameters, the least of three after a warm-up
+    _, secs = _best_wall(lambda: step(sharded, x, y))
+    _, ref_secs = _best_wall(lambda: model.train_step(
+        [(w.detach().clone(), b.detach().clone()) for w, b in model.params], x, y, lr=0.05))
+    if abs(float(loss) - float(rloss)) > _MLP_STEP_LOSS_RTOL * abs(float(rloss)):
+        raise AssertionError(f"MLP sharded step loss {float(loss)} vs {float(rloss)}")
+    err = 0.0
+    for i, ((w, b), (rw, rb)) in enumerate(zip(new, ref)):
+        err = max(err, _check_close(f"MLP sharded w{i}", w.gather(), rw, _MLP_STEP_RTOL, _MLP_STEP_ATOL),
+                  _check_close(f"MLP sharded b{i}", b.gather(), rb, _MLP_STEP_RTOL, _MLP_STEP_ATOL))
+    return dict(sizes=sizes, rows=rows, mesh=[2, 2], loss=float(loss), loss_unsharded=float(rloss),
+                seconds=secs, unsharded_seconds=ref_secs, max_abs_err=err,
+                tolerance={"loss_rtol": _MLP_STEP_LOSS_RTOL, "rtol": _MLP_STEP_RTOL,
+                           "atol": _MLP_STEP_ATOL})
+
+
+def _step_3d(cards: int, steps: int = 5, batch_shard: int = 8, seq_shard: int = 128) -> dict:
+    """`TransformerLM.sharded_train_step_3d` at `benchmarks/train_bench.py`'s
+    widths on a 2 x 2 x 2 mesh (one card) or 1 x 2 x 2 (four cards) against
+    the single-card step, every parameter; then ``steps`` timed steps after
+    a warm-up."""
+    from tensorframes_tpu_torch.models import TransformerLM
+
+    shape = (2, 2, 2) if cards == 1 else (1, 2, 2)
+    mesh = _slot_mesh(shape, ("data", "seq", "model"), cards)
+    dp, sp, _ = shape
+    cfg = dict(vocab=256, d_model=256, n_heads=4, n_layers=4, max_seq=sp * seq_shard)
+    model = TransformerLM(**cfg, seed=SEED, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 47).integers(
+        0, cfg["vocab"], (dp * batch_shard, sp * seq_shard)).astype(np.int32)).cuda()
+    step = model.sharded_train_step_3d(mesh, lr=0.1)
+    layout, loss = step(model.device_layout(model.params), tokens)
+    ref = {k: v.detach().clone() for k, v in model.params.items()}
+    _, rloss = model.train_step(ref, tokens, lr=0.1)
+    if abs(float(loss) - float(rloss)) > _STEP3D_LOSS_RTOL * abs(float(rloss)):
+        raise AssertionError(f"3-D step loss {float(loss)} vs the single-card step's {float(rloss)}")
+    got = model.merge_layout(layout)
+    err = max(_check_close(f"3-D step {k}", got[k].to("cuda"), ref[k], _STEP3D_RTOL, _STEP3D_ATOL)
+              for k in ref)
+
+    def train():
+        nonlocal layout
+        for _ in range(steps):
+            layout, _ = step(layout, tokens)
+
+    _, secs = _wall_all(train)
+    n_tokens = tokens.numel()
+    return dict(config=cfg, mesh=list(shape), tokens_per_step=n_tokens, loss=float(loss),
+                loss_single_card=float(rloss), max_abs_err=err, timed_steps=steps,
+                ms_per_step=secs / steps * 1e3, tokens_per_s=n_tokens * steps / secs,
+                tolerance={"loss_rtol": _STEP3D_LOSS_RTOL, "rtol": _STEP3D_RTOL,
+                           "atol": _STEP3D_ATOL})
+
+
+def phase_parallel_models(cfg, lm_shape, cards: int = 1) -> dict:
+    """Phase 19: the log-sum-exp entry of the kernel, `TransformerLM`
+    scoring through the ring (its launches counted apart from the main
+    path's), the differentiable ring, `seq_all_to_all`, `pipeline_apply`,
+    `MoEFFN.apply_ep`, the MLP's sharded step and the 3-D step. Every mesh
+    is a set of slots over the first ``cards`` cards; each pair of calls
+    compared in time is the least of three calls after a warm-up. Returns
+    the numbers the kernels line carries."""
+    t0 = time.perf_counter()
+    out = dict(card=_CARD, cards=cards)
+    if cards == 1:
+        out["lse_entry"] = _lse_entry(lm_shape)
+    for name, part in (
+        ("ring_scoring", lambda: _ring_scoring(cfg, cards)),
+        ("ring_gradients", lambda: _ring_gradients(cards)),
+        ("seq_all_to_all", lambda: _all_to_all(cards)),
+        ("pipeline", lambda: _pipeline(cards)),
+        ("moe_apply_ep", lambda: _moe_ep(cards)),
+        ("mlp_sharded_step", lambda: _mlp_sharded_step(cards)),
+        ("step_3d", lambda: _step_3d(cards)),
+    ):
+        out[name] = part()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    _emit("parallel_models" if cards == 1 else f"parallel_models_on_{cards}_cards", **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
@@ -3959,6 +4293,12 @@ def main() -> int:
     if torch.cuda.device_count() >= 2:
         # counted apart from the main path's launches read above
         phase_scheduled_lm(tft, cfg)
+    # phase 19 counts the ring's launches apart, from 0 before its scoring
+    par = phase_parallel_models(cfg, lm_shape)
+    if torch.cuda.device_count() >= 2:
+        phase_parallel_models(cfg, lm_shape, cards=torch.cuda.device_count())
+    lse = par["lse_entry"]
+    lm_times = lse["times"]["x".join(map(str, lm_shape)) + "-causal"]
     # every launch of the main path is in the scoring call: the kernel's
     # event time x its launches over that call's wall time
     _emit(
@@ -3973,6 +4313,9 @@ def main() -> int:
         "replaces": "tensorframes_tpu/ops/pallas_kernels.py:122",
         "launches": launches,
         **attn,
+        "lse_ms": min(lm_times["lse_ms"]),
+        "lse_max_abs_err": lse["max_abs_err"],
+        "ring_launches": par["ring_scoring"]["ring_launches"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

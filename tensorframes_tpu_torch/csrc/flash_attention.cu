@@ -7,7 +7,12 @@
 // diagonal; keys past the end of a ragged sequence are masked; a row whose
 // denominator is 0 is guarded to 1. Layout: q, k, v, o are contiguous
 // (BH, S, D) float32, all heads of a batch in one launch, D a multiple of 8
-// in [8, 128].
+// in [8, 128]. A second entry also stores each row's log-sum-exp of its
+// scaled scores, (BH, S) float32 (-inf where the denominator is 0): the
+// softmax statistics that let a caller merge the outputs of launches over
+// different keys (the ring attention of parallel/ring.py) and that a
+// backward pass needs. It is written in the epilogue only, by a second
+// instantiation of the kernel; the main loop is the same for both entries.
 //
 // Translation from the TPU kernel: the TPU grid walks key tiles in order on
 // one core and carries the running max / denominator / accumulator in VMEM
@@ -59,7 +64,10 @@
 // 0.518 ms for 128-row tiles with 256 threads, whose 128-register cap (two
 // blocks per SM) spills at D 64. ptxas (CUDA 12.9, sm_90a): D 64 uses 168
 // registers (three blocks per SM) and D 128 uses 218 (one), both with 0
-// bytes of spill stores and loads.
+// bytes of spill stores and loads; the instantiation that stores the
+// log-sum-exp uses 168 and 220. That instantiation is kept apart because a
+// runtime branch on the pointer cost the entry without it 0.7% on an
+// H100 (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -194,11 +202,13 @@ __device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[8], 
   }
 }
 
-template <int D>
+// kLse: also store each row's log-sum-exp into lse (the second C entry);
+// the instantiation without it is the kernel as it was before that output.
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, Layout<D>::kMinBlocks)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o, int seq,
-                           float scale, int causal) {
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, int seq, float scale, int causal) {
   using L = Layout<D>;
   constexpr int T = kThreads;
   constexpr int S = L::kStride;
@@ -329,9 +339,19 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     float li = l[i];
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
-    li = li == 0.f ? 1.f : li;
     const int row = q0 + 8 * ty + i;
     if (row >= seq) continue;
+    if constexpr (kLse) {
+      // the softmax statistics, for a caller that merges several launches'
+      // outputs (the ring of parallel/ring.py): the log-sum-exp of the row's
+      // scaled scores, m scale + ln(l), where m is the running max in
+      // unscaled units (of the negated Q when the scale is negative, so
+      // |scale|); -inf for a row whose denominator is 0
+      if (tx == 0)
+        lse[static_cast<size_t>(blockIdx.x) * seq + row] =
+            li == 0.f ? __int_as_float(0xff800000) : fmaf(m[i], fabsf(scale), logf(li));
+    }
+    li = li == 0.f ? 1.f : li;
     float* orow = o + head + static_cast<size_t>(row) * D + 4 * tx;
 #pragma unroll
     for (int h = 0; h < NV; ++h) {
@@ -343,11 +363,11 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o, int bh, int seq,
-                   float scale, int causal, cudaStream_t stream) {
+template <int D, bool kLse>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh,
+                   int seq, float scale, int causal, cudaStream_t stream) {
   using L = Layout<D>;
-  const auto kernel = flash_attention_f32_kernel<D>;
+  const auto kernel = flash_attention_f32_kernel<D, kLse>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
@@ -355,23 +375,21 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, int
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (seq + kBlockQ - 1) / kBlockQ);
-  kernel<<<grid, kThreads, L::kBytes, stream>>>(q, k, v, o, seq, scale, causal);
+  kernel<<<grid, kThreads, L::kBytes, stream>>>(q, k, v, o, lse, seq, scale, causal);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// C interface (loaded with ctypes). Returns a cudaError_t: 0 on success,
+// One launch at the given head_dim. Returns a cudaError_t: 0 on success,
 // cudaErrorInvalidValue for a head_dim the kernel was not built for.
-extern "C" int tfs_flash_attention_f32(const float* q, const float* k, const float* v,
-                                       float* o, int bh, int seq, int head_dim, float scale,
-                                       int causal, void* stream) {
+int dispatch(const float* q, const float* k, const float* v, float* o, float* lse, int bh,
+             int seq, int head_dim, float scale, int causal, void* stream) {
   if (bh <= 0 || seq <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-#define TFS_CASE(D) \
-  case D:           \
-    return launch<D>(q, k, v, o, bh, seq, scale, causal, s);
+#define TFS_CASE(D)                                                      \
+  case D:                                                                \
+    return lse != nullptr ? launch<D, true>(q, k, v, o, lse, bh, seq, scale, causal, s) \
+                          : launch<D, false>(q, k, v, o, lse, bh, seq, scale, causal, s);
     TFS_CASE(8) TFS_CASE(16) TFS_CASE(24) TFS_CASE(32)
     TFS_CASE(40) TFS_CASE(48) TFS_CASE(56) TFS_CASE(64)
     TFS_CASE(72) TFS_CASE(80) TFS_CASE(88) TFS_CASE(96)
@@ -380,6 +398,23 @@ extern "C" int tfs_flash_attention_f32(const float* q, const float* k, const flo
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// C interface (loaded with ctypes); each returns dispatch's cudaError_t.
+extern "C" int tfs_flash_attention_f32(const float* q, const float* k, const float* v,
+                                       float* o, int bh, int seq, int head_dim, float scale,
+                                       int causal, void* stream) {
+  return dispatch(q, k, v, o, nullptr, bh, seq, head_dim, scale, causal, stream);
+}
+
+// The same, and each row's log-sum-exp of its scaled scores into lse, a
+// contiguous (bh, seq) float32 array.
+extern "C" int tfs_flash_attention_lse_f32(const float* q, const float* k, const float* v,
+                                           float* o, float* lse, int bh, int seq, int head_dim,
+                                           float scale, int causal, void* stream) {
+  return dispatch(q, k, v, o, lse, bh, seq, head_dim, scale, causal, stream);
 }
 
 extern "C" const char* tfs_cuda_error_string(int code) {

@@ -11,8 +11,17 @@ can be held against each other.
 ``params`` in `apply`, `loss` and `train_step` has the JAX layout, a list
 of ``(w, b)``; `MLP.params` is the module's own. `train_step` is the JAX
 package's plain SGD step, applied in place (see `models.training`).
-`sharded_train_step`, `param_specs` and `shard_params` wait for the
-multi-GPU slice.
+
+Over a ``("data", "model")`` mesh (`parallel.mesh.mesh_2d`):
+`param_specs` gives JAX's Megatron-style specs (even layers split columns,
+odd layers rows), `shard_params` lays the parameters out by them
+(`parallel.sharding.Sharded`), and `sharded_train_step` builds the step
+that splits the rows of ``x`` and ``y`` over ``data`` and the features over
+``model``, in lockstep over the mesh's slots: a column layer's output stays
+split, a row layer's partial products meet in one `psum`. Its
+``step(params, x, y) -> (params, loss)`` takes and returns sharded
+parameters (global ones are laid out first) and computes what `train_step`
+computes, in another summation order.
 """
 
 from __future__ import annotations
@@ -27,7 +36,10 @@ from torch import nn
 from ..device import DeviceLike, resolve_device
 from ..graph import builder as dsl
 from ..schema import ScalarType, Shape
-from .training import sgd_, value_and_grad
+from ..parallel import collectives
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import P, PartitionSpec, as_sharded, shard
+from .training import sgd_, sgd_sharded, value_and_grad
 
 __all__ = ["MLP"]
 
@@ -111,6 +123,73 @@ class MLP(nn.Module):
         loss, grads = value_and_grad(self.loss, params, x, y)
         sgd_(params, grads, lr)
         return params, loss
+
+    def param_specs(self) -> List[Tuple[PartitionSpec, PartitionSpec]]:
+        """Megatron-style TP, JAX's specs: even layers split their columns
+        (and bias) over ``model``, odd layers their rows (bias replicated),
+        so the activations alternate split / whole and each pair needs one
+        psum."""
+        specs = []
+        for i in range(len(self.sizes) - 1):
+            if i % 2 == 0:
+                specs.append((P(None, "model"), P("model")))
+            else:
+                specs.append((P("model", None), P()))
+        return specs
+
+    def shard_params(self, params, mesh: Mesh):
+        """``params`` laid out over ``mesh`` by `param_specs`."""
+        return [
+            (shard(w, mesh, ws), shard(b, mesh, bs))
+            for (w, b), (ws, bs) in zip(params, self.param_specs())
+        ]
+
+    def sharded_train_step(self, mesh: Mesh, lr: float = 1e-2):
+        """The SGD step with the rows of ``x`` / ``y`` split over ``data``
+        and the features over ``model``: ``step(params, x, y) -> (params,
+        loss)``, sharded parameters in and out. The loss is the global mean
+        cross-entropy, on the mesh's first device."""
+        specs = self.param_specs()
+        n_data, n_model = mesh.shape["data"], mesh.shape["model"]
+        n_layers = len(specs)
+
+        def step(params, x, y):
+            flat = [
+                as_sharded(t, mesh, spec)
+                for (w, b), (ws, bs) in zip(params, specs)
+                for t, spec in ((w, ws), (b, bs))
+            ]
+            xs = shard(x, mesh, P("data", None))
+            ys = shard(y, mesh, P("data"))
+
+            def loss_fn(local):
+                nll = []
+                for d in range(n_data):
+                    group = [(d, m) for m in range(n_model)]
+                    hs = [xs.shards[c] for c in group]
+                    split = False  # whether hs holds column blocks
+                    for i in range(n_layers):
+                        w, b = local[2 * i], local[2 * i + 1]
+                        if i % 2 == 0:  # column layer: whole input, split output
+                            hs = [h @ w[c] + b[c] for h, c in zip(hs, group)]
+                            split = True
+                        else:  # row layer: split input, partial products summed
+                            sums = collectives.psum([h @ w[c] for h, c in zip(hs, group)])
+                            hs = [s + b[c] for s, c in zip(sums, group)]
+                            split = False
+                        if i < n_layers - 1:
+                            hs = [torch.relu(h) for h in hs]
+                    home = mesh.devices[group[0]]
+                    logits = torch.cat([h.to(home) for h in hs], dim=-1) if split else hs[0]
+                    logp = torch.log_softmax(logits.float(), dim=-1)
+                    labels = ys.shards[group[0]].long()
+                    nll.append(-logp.gather(1, labels[:, None]).sum())
+                return collectives.sum_to(nll, mesh.devices.flat[0]) / x.shape[0]
+
+            new, loss = sgd_sharded(loss_fn, flat, lr)
+            return [(new[2 * i], new[2 * i + 1]) for i in range(n_layers)], loss
+
+        return step
 
     def scoring_graph(self, input_name: str = "features", block: bool = True) -> dsl.Tensor:
         """The weights frozen into a builder-DSL graph: Placeholder ->

@@ -9,9 +9,12 @@ token's top k, combine them (``einsum("ne,end->nd")``). The expert products
 are `torch.matmul` / `einsum`, as the JAX package computes them outside
 any Pallas kernel.
 
+`apply_ep` is the expert-parallel path over a mesh axis: the experts split
+over the axis, the routing full on every shard, one `psum` of the shards'
+outputs (`parallel.collectives`).
+
 `from_jax_params` loads the JAX ``params`` dict (``gate`` (d, E), ``w1``
-(E, d, h), ``w2`` (E, h, d), as numpy). `apply_ep`, the expert-parallel
-path over a mesh, waits for the multi-GPU slice.
+(E, d, h), ``w2`` (E, h, d), as numpy).
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..parallel import collectives
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import P, as_sharded
 
 __all__ = ["MoEFFN"]
 
@@ -94,6 +100,32 @@ class MoEFFN(nn.Module):
         weights = self._route(params, x)
         outs = self._expert_ffn(params["w1"], params["w2"], x)
         return torch.einsum("ne,end->nd", weights, outs)
+
+    def apply_ep(self, params, x: torch.Tensor, mesh: Mesh, axis: str = "model") -> torch.Tensor:
+        """Expert-parallel `apply`: ``w1`` and ``w2`` split over ``axis``
+        (each shard holds E / n experts; a `parallel.sharding.Sharded` laid
+        out so is used as it is), the gate and the tokens on every shard,
+        each shard's gate-weighted sum over its own experts, and one `psum`
+        of those onto x's device."""
+        n_shard = mesh.shape[axis]
+        if self.num_experts % n_shard:
+            raise ValueError(
+                f"num_experts {self.num_experts} must divide the "
+                f"{axis!r} axis size {n_shard}"
+            )
+        e_per = self.num_experts // n_shard
+        w1 = as_sharded(params["w1"], mesh, P(axis))
+        w2 = as_sharded(params["w2"], mesh, P(axis))
+        local = []
+        for shard, coord in enumerate(collectives.axis_groups(mesh, axis)[0]):
+            dev = mesh.devices[coord]
+            xs = x.to(dev)
+            weights = self._route({"gate": params["gate"].to(dev)}, xs)  # full routing
+            outs = self._expert_ffn(w1.shards[coord], w2.shards[coord], xs)
+            local.append(torch.einsum(
+                "ne,end->nd", weights[:, shard * e_per:(shard + 1) * e_per], outs
+            ))
+        return collectives.sum_to(local, x.device)  # the psum, onto x's device
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(self.params, x)

@@ -23,9 +23,12 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Mapping, Sequence, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["init_opt_state", "make_train_step", "value_and_grad", "tree_leaves"]
+__all__ = [
+    "init_opt_state", "make_train_step", "sgd_sharded", "tree_leaves", "value_and_grad",
+]
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -65,6 +68,39 @@ def sgd_(params: Any, grads: Sequence[torch.Tensor], lr: float) -> None:
     with torch.no_grad():
         for p, g in zip(tree_leaves(params), grads):
             p.sub_(lr * g)
+
+
+def sgd_sharded(loss_fn: Callable[[List[np.ndarray]], torch.Tensor], params: Sequence, lr: float):
+    """One SGD step over sharded parameters (`parallel.sharding.Sharded`):
+    each distinct block of each parameter becomes one autograd leaf on its
+    home slot and is copied to every mesh slot that holds it;
+    ``loss_fn(local)`` gets, for each parameter, a mesh-shaped object array
+    of those per-slot copies and returns the global loss as one scalar.
+    One backward then sums each block's gradient over its replicas (JAX's
+    VMA psums), and ``block - lr * grad`` is laid out as before. Returns
+    ``(new params, loss)``, the loss before the step, detached."""
+    from ..parallel.sharding import Sharded
+
+    with torch.enable_grad():
+        leaves = [{h: p.shards[h].detach().requires_grad_(True) for h in p.homes()} for p in params]
+        local = []
+        for p, lv in zip(params, leaves):
+            copies = np.empty(p.mesh.devices.shape, dtype=object)
+            for c in p.coords():
+                copies[c] = lv[p.home(c)].to(p.mesh.devices[c])
+            local.append(copies)
+        loss = loss_fn(local)
+        flat = [t for lv in leaves for t in lv.values()]
+        grads = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+    new = []
+    with torch.no_grad():
+        for p, lv in zip(params, leaves):
+            blocks = {}
+            for h, t in lv.items():
+                g = next(grads)
+                blocks[h] = t.detach().clone() if g is None else t.detach() - lr * g
+            new.append(Sharded.from_blocks(p.mesh, p.spec, p.shape, blocks))
+    return new, loss.detach()
 
 
 def init_opt_state(tx: Callable[..., torch.optim.Optimizer], params: Any):

@@ -13,8 +13,10 @@ same file layouts, so each package reads what the other wrote:
   and tuples in order; `models.training.tree_leaves`) beside a
   ``__treedef__`` entry. `load_params` restores them into the
   structure of ``like``, each tensor on the device of ``like``'s leaf.
-  This is the JAX package's npz fallback; the card has no Orbax, so there
-  is no directory format.
+  A sharded leaf (`parallel.sharding.Sharded`) is saved gathered, as JAX
+  saves a global array, and restored onto ``like``'s mesh and spec, as
+  JAX's restore takes ``like``'s shardings. This is the JAX package's npz
+  fallback; the card has no Orbax, so there is no directory format.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from ..frame import Column, TensorFrame
 from ..models.training import tree_leaves
+from ..parallel.sharding import Sharded, shard
 from ..schema import ScalarType
 
 __all__ = ["save_frame", "load_frame", "save_params", "load_params"]
@@ -73,6 +76,8 @@ def load_frame(path: str) -> TensorFrame:
 
 
 def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, Sharded):
+        leaf = leaf.gather()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -92,7 +97,8 @@ def save_params(path: str, params: Any) -> None:
 def _unflatten(like: Any, leaves: Iterator) -> Any:
     """A tree shaped as ``like`` (a `ParameterDict` becomes a dict, a
     `ParameterList` a list), its leaves taken from ``leaves`` in
-    `tree_leaves` order, each tensor on the device of ``like``'s leaf."""
+    `tree_leaves` order, each tensor on the device of ``like``'s leaf and
+    each sharded leaf laid out as ``like``'s."""
     if isinstance(like, (Mapping, torch.nn.ParameterDict)):
         values = {k: _unflatten(like[k], leaves) for k in sorted(like)}
         return {k: values[k] for k in like}
@@ -101,6 +107,8 @@ def _unflatten(like: Any, leaves: Iterator) -> Any:
     if isinstance(like, (list, torch.nn.ParameterList)):
         return [_unflatten(t, leaves) for t in like]
     arr = next(leaves)
+    if isinstance(like, Sharded):
+        return shard(torch.from_numpy(arr), like.mesh, like.spec)
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(arr).to(like.device)
     return arr

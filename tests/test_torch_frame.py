@@ -222,8 +222,9 @@ def test_import_guard_no_jax():
     control flow and variables among them, registering, serving and
     calling one endpoint, the runtime services: explain_analyze,
     diagnostics, a profile snapshot and the autotuner, the mesh verbs and
-    the chunk aggregate plan) loads neither jax nor any module of the JAX
-    package."""
+    the chunk aggregate plan, the ring, the all-to-all, the pipeline, the
+    collectives, sharded tensors and the 3-D step) loads neither jax nor
+    any module of the JAX package."""
     code = textwrap.dedent(
         """
         import sys
@@ -275,6 +276,11 @@ def test_import_guard_no_jax():
         import tensorframes_tpu_torch.utils.inspection
         import tensorframes_tpu_torch.parallel.mesh
         import tensorframes_tpu_torch.parallel.verbs
+        import tensorframes_tpu_torch.parallel.collectives
+        import tensorframes_tpu_torch.parallel.pipeline
+        import tensorframes_tpu_torch.parallel.ring
+        import tensorframes_tpu_torch.parallel.sharding
+        import torch
         df = tft.TensorFrame.from_dict(
             {"x": np.arange(6.0), "k": np.array([0, 1, 0, 1, 2, 2])}, num_blocks=2
         )
@@ -327,6 +333,21 @@ def test_import_guard_no_jax():
         tft.aggregate(s.named("x"), tft.group_by(df, "k"), mesh=mesh)
         with tft.config.override(aggregate_segment_fast=False, aggregate_exact_size_limit=0):
             tft.aggregate(s.named("x"), tft.group_by(df, "k"), device="cpu")
+        par = tensorframes_tpu_torch.parallel
+        seq_mesh = par.data_mesh(devices=["cpu"] * 2)
+        qkv = torch.randn(2, 8, 4)
+        par.ring_attention(qkv, qkv, qkv, seq_mesh, causal=True)
+        par.seq_all_to_all(torch.randn(4, 2, 3), seq_mesh, seq_axis=0, head_axis=1).gather()
+        stage_mesh = par.Mesh(np.asarray([torch.device("cpu")] * 2, dtype=object), ("stage",))
+        par.pipeline_apply(lambda p, h: h @ p, torch.randn(2, 3, 3), torch.randn(4, 3),
+                           stage_mesh, num_microbatches=2)
+        par.collectives.psum([torch.ones(2), torch.ones(2)])
+        par.shard(torch.ones(4, 2), seq_mesh, par.P("data")).gather()
+        lm = tensorframes_tpu_torch.models.TransformerLM(vocab=8, d_model=8, n_heads=2, n_layers=1, max_seq=8, device="cpu")
+        mesh3d = par.Mesh(np.asarray([torch.device("cpu")] * 8, dtype=object).reshape(2, 2, 2),
+                          ("data", "seq", "model"))
+        lm.sharded_train_step_3d(mesh3d)(lm.device_layout(lm.params),
+                                         torch.zeros(2, 4, dtype=torch.int64))
         bad = sorted(
             m for m in sys.modules
             if m == "jax" or m.startswith("jax.") or m == "jaxlib"

@@ -1,0 +1,75 @@
+"""Time the flash-attention kernel's entries at the LM's shape on the card.
+
+    python3 tests/torch_attention_timing.py [ROUNDS [ENTRY ...]]
+
+Builds `tensorframes_tpu_torch/csrc/flash_attention.cu` of the checkout it
+runs from, then times `flash_attention` (and `flash_attention_lse`, where
+the checkout has it) at BH 32, S 2048, D 64, causal, float32: ROUNDS rounds
+(default 11), each the mean of 20 launches between CUDA events after a
+warm-up, the entries in turns within a round. Naming entries times only
+those, so that checkouts with and without an entry run the same loop. Prints one JSON line: the
+card's name and power limit, the medians and quartiles in ms. Run it from
+the roots of two checkouts in turns (parent, change, change, parent) in one
+call to compare their kernels on one card. Not collected by pytest.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _time_ms(fn, iters: int = 20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    from tensorframes_tpu_torch.ops import flash_attention as fa
+
+    rounds = int(sys.argv[1]) if len(sys.argv) > 1 else 11
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(32, 2048, 64, device="cuda", generator=gen) for _ in range(3))
+    entries = {"flash_attention": lambda: fa.flash_attention(q, k, v, causal=True)}
+    if hasattr(fa, "flash_attention_lse"):
+        entries["flash_attention_lse"] = lambda: fa.flash_attention_lse(q, k, v, causal=True)
+    if len(sys.argv) > 2:
+        entries = {name: entries[name] for name in sys.argv[2:]}
+    times = {name: [] for name in entries}
+    for r in range(rounds):
+        order = list(entries) if r % 2 == 0 else list(reversed(entries))
+        for name in order:
+            times[name].append(_time_ms(entries[name]))
+    print(json.dumps({
+        "card": card, "shape": [32, 2048, 64], "causal": True, "rounds": rounds,
+        "median_ms": {n: float(np.median(t)) for n, t in times.items()},
+        "quartiles_ms": {n: [float(np.percentile(t, 25)), float(np.percentile(t, 75))]
+                         for n, t in times.items()},
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
