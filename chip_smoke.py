@@ -157,17 +157,29 @@ main path through the entry points a user calls:
     mesh; and `TransformerLM.sharded_train_step_3d` at
     `benchmarks/train_bench.py`'s widths on a 2 x 2 x 2 mesh, every
     parameter against the single-card step, with 5 timed steps;
-20. one JSON line listing every kernel with its launches on the main path
-    (phases 3-18), its error and its times, and the ring's launches;
-21. as the last line, ``{"ok": true, "device": {...}}``.
+20. multi-process execution (`parallel.multihost`), after phase 18: one
+    rank a card (``torch.cuda.device_count()`` processes started with the
+    torchrun environment, NCCL, never a gloo fallback), each owning 1/N of
+    phase 17's 200,000,000 float32 rows (x+3 `map_blocks`, `reduce_blocks`
+    sum and min over a `SpanningFrame`), of 100,000,000 x 8 float32 rows
+    through `aggregate_global` (sum and mean) with 16 int64 keys and again
+    with 16 string keys, and of 1,000,000 ragged rows through
+    `analyze_global`; every rank's results held to numpy float64 and, at
+    one rank, to the single-process ``mesh=data_mesh()`` verbs, with each
+    verb's wall time and rows/s; any rank's failure or timeout (300 s)
+    fails the run;
+21. one JSON line listing every kernel with its launches on the main path
+    (phases 3-18 and 20), its error and its times, and the ring's launches;
+22. as the last line, ``{"ok": true, "device": {...}}``.
 
 Phases 3-17 run with ``block_scheduler="off"``: they measure one card.
-Phases 8-18 run after phase 6 and before phase 7. Phases 3-6 and 8-18 run
-no hand-written kernel (their ops are ATen, cuBLAS and cuDNN calls, host
-numpy and the stream's copies; phase 14 trains through the plain
-attention; phases 15-18 run graphs of elementwise ops and products),
-so the script checks that the attention kernel's count is still 0 after
-them and counts its launches in phase 7 alone. Phase 15 needs pyarrow (the
+Phases 8-18 and 20 run after phase 6 and before phase 7. Phases 3-6, 8-18
+and 20 run no hand-written kernel (their ops are ATen, cuBLAS and cuDNN
+calls, host numpy, the stream's copies and NCCL; phase 14 trains through
+the plain attention; phases 15-18 run graphs of elementwise ops and
+products), so the script checks that the attention kernel's count is
+still 0 after them (phase 20's ranks report their own counts) and counts
+its launches in phase 7 alone. Phase 15 needs pyarrow (the
 serving wire format is Arrow IPC). Phase 12 imports pyarrow for its dataset and durable parts, and
 prints them as skipped where pyarrow is missing; phase 13 needs pyarrow and
 pandas and fails without them. The port factorizes string keys with pandas
@@ -3856,6 +3868,275 @@ def phase_scheduler_and_global(tft, rows: int = 200_000_000, blocks: int = 8,
           seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: multi-process execution, one rank a card
+# ---------------------------------------------------------------------------
+
+# seconds a multi-process world may take, its start-up included
+_MULTIHOST_TIMEOUT_S = 300
+
+
+def _barrier_best(fn, calls: int = 3, warm: bool = True):
+    """(result of the last call, least seconds of ``calls`` calls) of
+    ``fn()`` on this rank, after a warm-up call when ``warm``: every rank
+    starts each call together (a barrier first), and the card is done at
+    its end."""
+    import torch.distributed as dist
+
+    if warm:
+        fn()
+    best, out = math.inf, None
+    for _ in range(calls):
+        dist.barrier()
+        out, secs = _wall(fn)
+        best = min(best, secs)
+    return out, best
+
+
+def _reduced(t: torch.Tensor, op) -> torch.Tensor:
+    """``t`` all-reduced over every rank (the references' collective, not
+    the one under test)."""
+    import torch.distributed as dist
+
+    t = t.clone()
+    dist.all_reduce(t, op=op)
+    return t
+
+
+def _multihost_keyed(tft, mh, mesh, keys_col, codes: np.ndarray, want_keys: np.ndarray, v,
+                     single, warm: bool) -> dict:
+    """`aggregate_global` of ``v`` by ``keys_col`` (a device int64 tensor or
+    a host string vector; row r is in group ``codes[r]`` of the sorted keys
+    ``want_keys``) on this rank's rows: a keyed sum and mean, against every
+    rank's float64 numpy sums (the key column exact), timed after a
+    warm-up call when ``warm``. ``single`` is the world-1 check against the
+    single-process ``mesh=data_mesh()`` aggregate."""
+    import torch.distributed as dist
+
+    dsl = tft.dsl
+    kcol = tft.Column("k", keys_col) if isinstance(keys_col, torch.Tensor) else \
+        tft.Column("k", keys_col, tft.ScalarType.string)
+    df = tft.TensorFrame([kcol, tft.Column("v", v)])
+    grouped = tft.group_by(df, "k")
+    fetches = [dsl.reduce_sum(dsl.block(df, "v", tf_name="s_input"), axes=[0]).named("s"),
+               dsl.reduce_mean(dsl.block(df, "v", tf_name="m_input"), axes=[0]).named("m")]
+    feed = {"s_input": "v", "m_input": "v"}
+    out, secs = _barrier_best(lambda: mh.aggregate_global(fetches, grouped, feed_dict=feed),
+                              calls=3 if warm else 1, warm=warm)
+    # the references: this rank's float64 numpy sums, summed over the ranks
+    nkeys = len(want_keys)
+    vh = v.cpu().numpy()
+    sums = np.stack([np.bincount(codes, weights=vh[:, j].astype(np.float64), minlength=nkeys)
+                     for j in range(vh.shape[1])], 1)
+    del vh
+    want_s = _reduced(torch.from_numpy(sums).cuda(), dist.ReduceOp.SUM).cpu()
+    counts = _reduced(torch.from_numpy(np.bincount(codes, minlength=nkeys)).cuda(),
+                      dist.ReduceOp.SUM).cpu()
+    keys = out.host_values("k")
+    if len(keys) != nkeys or not np.array_equal(keys, want_keys):
+        raise AssertionError(f"aggregate_global keys {keys[:5]}... differ from {want_keys[:5]}...")
+    errs = [_check_close(f"aggregate_global {c}",
+                         torch.from_numpy(out.host_values(c).astype(np.float64)), w, _SUM_RTOL, 0.0)
+            for c, w in (("s", want_s), ("m", want_s / counts.to(torch.float64)[:, None]))]
+    res = dict(rows=int(counts.sum()), seconds=secs, rows_per_s=int(counts.sum()) / secs,
+               max_abs_err=max(errs))
+    if single is not None:
+        ref, res["mesh_seconds"] = _barrier_best(
+            lambda: tft.aggregate(fetches, grouped, feed_dict=feed, mesh=single))
+        if not np.array_equal(ref.host_values("k"), keys):
+            raise AssertionError("aggregate_global keys differ from the mesh aggregate's")
+        for c in ("s", "m"):
+            _check_close(f"aggregate_global {c} against the mesh aggregate",
+                         torch.from_numpy(out.host_values(c)),
+                         torch.from_numpy(ref.host_values(c)), _SUM_RTOL, 0.0)
+    return res
+
+
+def _multihost_worker(sizes: dict) -> int:
+    """One rank of phase 20 (``python3 chip_smoke.py --multihost-worker
+    SIZES``, the torchrun environment set by the parent): NCCL on card
+    LOCAL_RANK, this rank's share of every verb's rows, built on the card
+    from ``SEED`` and the rank. Prints one JSON line of its numbers."""
+    import torch.distributed as dist
+
+    import tensorframes_tpu_torch as tft
+    from tensorframes_tpu_torch.ops.flash_attention import flash_attention
+    from tensorframes_tpu_torch.parallel import data_mesh
+    from tensorframes_tpu_torch.parallel import multihost as mh
+
+    t_start = time.perf_counter()
+    tft.config.update(block_scheduler="off")
+    mh.initialize_distributed(timeout_s=_MULTIHOST_TIMEOUT_S)
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"the process group runs {dist.get_backend()}, not NCCL")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = mh.global_data_mesh()
+    if mesh.process_count != world or mesh.size != world:
+        raise AssertionError(f"global_data_mesh() is {mesh!r} in a world of {world}")
+    single = data_mesh() if world == 1 else None
+    dsl = tft.dsl
+    out = dict(rank=rank, world=world, backend=dist.get_backend(), mesh=repr(mesh),
+               init_s=time.perf_counter() - t_start)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20 + 1000 * rank)
+
+    # phase 17's rows: x+3 map_blocks, reduce_blocks sum and min
+    n = sizes["rows"] // world
+    x = torch.rand(n, device="cuda", generator=gen)
+    df = mh.host_local_frame_to_global(tft.TensorFrame([tft.Column("x", x)]), mesh)
+    plain = tft.TensorFrame([tft.Column("x", x)])
+
+    def timed(name, call):
+        """``call(frame, mesh)`` over the spanning frame, and at one rank
+        over the plain frame on ``mesh=data_mesh()`` (phase 17's verb)."""
+        got, secs = _barrier_best(lambda: call(df, mesh))
+        out[name] = dict(rows=n * world, seconds=secs, rows_per_s=n * world / secs)
+        if single is None:
+            return got, None
+        ref, out[name]["mesh_seconds"] = _barrier_best(lambda: call(plain, single))
+        return got, ref
+
+    z = (tft.block(df, "x") + 3.0).named("z")
+    mapped, ref = timed("map_blocks", lambda f, m: tft.map_blocks(z, f, mesh=m))
+    shard = mapped.shards("z")[0]
+    if not (shard.index == slice(rank * n, (rank + 1) * n) and torch.equal(shard.data, x + 3.0)):
+        raise AssertionError(f"rank {rank}: the x+3 shard {shard.index} differs from x + 3")
+    if ref is not None and not torch.equal(ref.column("z").values, shard.data):
+        raise AssertionError("multihost x+3 differs from the mesh verb's")
+    del mapped, shard, ref
+    xh = x.cpu().numpy()
+    want_sum = float(_reduced(torch.tensor(xh.sum(dtype=np.float64), device="cuda"),
+                              dist.ReduceOp.SUM))
+    want_min = float(_reduced(torch.tensor(xh.min(), device="cuda"), dist.ReduceOp.MIN))
+    del xh
+    for name, op in (("reduce_sum", dsl.reduce_sum), ("reduce_min", dsl.reduce_min)):
+        g = op(tft.block(df, "x", tf_name="x_input")).named("x")
+        got, ref = timed(name, lambda f, m: tft.reduce_blocks(g, f, mesh=m))
+        if name == "reduce_min":
+            err = 0.0
+            if got.item() != want_min:
+                raise AssertionError(f"multihost reduce_min {got.item()} != {want_min}")
+        else:
+            err = abs(got.item() - want_sum) / want_sum
+            if got.dtype != torch.float32 or err > _SUM_RTOL:
+                raise AssertionError(f"multihost reduce_sum rel err {err:.3e} > {_SUM_RTOL}")
+        if ref is not None and not torch.equal(got, ref):
+            raise AssertionError(f"multihost {name} differs from the mesh verb's")
+        out[name]["rel_err"] = err
+    if world > 1:
+        # where the cross-process combine's time goes: its one NCCL
+        # all-gather, a gloo gather of host metadata (aggregate_global's
+        # row counts), the whole partials gather of one float32 a rank,
+        # and the same reduce over this rank's rows without a mesh
+        import types
+
+        one = [(torch.ones((), device="cuda"),)]
+        scalar = [types.SimpleNamespace(shape=tft.Shape(()), dtype=tft.ScalarType.float32)]
+        parts = dict(
+            int64_gather_gloo=lambda: mh._allgather_host(np.zeros(1, np.int64)),
+            bytes_gather_nccl=lambda: mh._gather_padded(one[0][0].reshape(1), [1] * world),
+            gather_partials=lambda: mh.gather_partials(one, mesh, one[0][0].device, scalar),
+            local_reduce_sum=lambda: tft.reduce_blocks(
+                dsl.reduce_sum(tft.block(plain, "x", tf_name="x_input")).named("x"), plain),
+        )
+        out["combine_ms"] = {k: _barrier_best(f, calls=5)[1] * 1e3 for k, f in parts.items()}
+    del df, plain, x
+    torch.cuda.empty_cache()
+
+    # config 4's widths through aggregate_global: int64 keys, then strings
+    n = sizes["agg_rows"] // world
+    nkeys = sizes["nkeys"]
+    v = torch.rand(n, sizes["dim"], device="cuda", generator=gen)
+    keys = (torch.arange(n, device="cuda") + rank * n) % nkeys
+    codes = keys.cpu().numpy()
+    out["aggregate_int_keys"] = _multihost_keyed(
+        tft, mh, mesh, keys, codes, np.arange(nkeys), v, single, warm=True)
+    del keys
+    # ids in sorted order: key i has group id i
+    names = np.asarray([f"id-{i:02d}" for i in range(nkeys)], dtype=object)
+    t0 = time.perf_counter()
+    skeys = names[codes]
+    build_s = time.perf_counter() - t0
+    # phase 17 has no string keys: against numpy alone
+    out["aggregate_string_keys"] = dict(
+        _multihost_keyed(tft, mh, mesh, skeys, codes, names, v, None, warm=False),
+        key_build_s=build_s)
+    del v, skeys, codes
+    torch.cuda.empty_cache()
+
+    # analyze_global over ragged rows: lengths 1..max_len on every rank
+    cells = _ragged_column(sizes["ragged_rows"] // world, sizes["max_len"], SEED + 20 + rank)[0]
+    rdf = tft.TensorFrame.from_dict({"v": cells})
+    merged, secs = _barrier_best(lambda: mh.analyze_global(rdf), calls=1, warm=False)
+    dims = merged.info["v"].cell_shape.dims
+    if dims != (None,):
+        raise AssertionError(f"analyze_global merged the ragged cells to {dims}")
+    out["analyze_global"] = dict(rows=len(cells) * world, seconds=secs,
+                                 rows_per_s=len(cells) * world / secs, dims=list(dims))
+    out["flash_attention_launches"] = flash_attention.launches
+    out["seconds"] = time.perf_counter() - t_start
+    print(json.dumps({"multihost_worker": out}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multihost(tft, rows: int = 200_000_000, agg_rows: int = 100_000_000, dim: int = 8,
+                    nkeys: int = 16, ragged_rows: int = 1_000_000, max_len: int = 64) -> int:
+    """Phase 20: `parallel.multihost` with one process a card
+    (``torch.cuda.device_count()`` ranks, the torchrun environment, NCCL):
+    each rank owns 1/N of phase 17's ``rows`` float32 rows (x+3
+    `map_blocks`, `reduce_blocks` sum and min over a `SpanningFrame`),
+    of ``agg_rows`` x ``dim`` float32 rows with ``nkeys`` int64 keys
+    through `aggregate_global` (sum and mean), then with ``nkeys`` string
+    keys (sum and max), and of ``ragged_rows`` ragged rows through
+    `analyze_global`. Every rank returns the same results, held to numpy
+    float64 (sums rtol ``_SUM_RTOL``; min, max and keys exact) and, at
+    world size 1, to the single-process ``mesh=data_mesh()`` verbs. Any
+    rank's failure or timeout fails the phase. Returns the ranks'
+    flash_attention launches (none: no graph here holds attention)."""
+    import socket
+
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()  # the ranks share the cards with this process
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    root = os.path.dirname(os.path.abspath(__file__))
+    sizes = dict(rows=rows, agg_rows=agg_rows, dim=dim, nkeys=nkeys, ragged_rows=ragged_rows,
+                 max_len=max_len)
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port, WORLD_SIZE=str(world),
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.join(root, "chip_smoke.py"), "--multihost-worker",
+             json.dumps(sizes)],
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for r in range(world)
+    ]
+    outs = []
+    try:
+        for p in procs:
+            left = max(1.0, _MULTIHOST_TIMEOUT_S - (time.perf_counter() - t0))
+            outs.append(p.communicate(timeout=left))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost rank {r} exited {p.returncode}:\n{stderr[-4000:]}")
+        line = [ln for ln in stdout.splitlines() if ln.startswith('{"multihost_worker"')]
+        ranks.append(json.loads(line[-1])["multihost_worker"])
+    launches = sum(r.pop("flash_attention_launches") for r in ranks)
+    _emit("multihost", card=_CARD, world=world, sum_rtol=_SUM_RTOL, wall_s=wall, ranks=ranks)
+    return launches
+
+
 def phase_scheduled_lm(tft, cfg, n_seqs: int = 16, block_seqs: int = 4) -> int:
     """On two or more cards: `TransformerLM` scoring of ``n_seqs`` sequences
     with ``devices=`` over every card, a copy of the model a card (the same
@@ -4275,11 +4556,13 @@ def main() -> int:
     phase_runtime_services(tft)
     phase_mesh_verbs(tft)
     phase_scheduler_and_global(tft)
-    if flash_attention.launches:
+    # the ranks' launches are their own processes' counts
+    launched = flash_attention.launches + phase_multihost(tft)
+    if launched:
         raise AssertionError(
             f"the verb, aggregate, k-means, Inception, control-flow, freezing, "
             f"frame-breadth, streaming, lazy-plan, training, serving, runtime-services, "
-            f"mesh and scheduler phases launched flash_attention {flash_attention.launches} "
+            f"mesh, scheduler and multihost phases launched flash_attention {launched} "
             f"times; none of their graphs holds attention"
         )
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)
@@ -4326,4 +4609,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(_multihost_worker(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -132,6 +132,22 @@ def _pandas_in_out(verb):
     return wrapper
 
 
+def _spanning_in_out(verb):
+    """A verb that takes a `parallel.multihost.SpanningFrame` (rows in
+    several processes) where it takes a frame: it runs over this process's
+    rows with the frame's mesh (`multihost.run_verb`)."""
+
+    @functools.wraps(verb)
+    def wrapper(fetches, frame, *args, **kwargs):
+        if not getattr(frame, "_spanning", False):
+            return verb(fetches, frame, *args, **kwargs)
+        from .parallel import multihost as _mh
+
+        return _mh.run_verb(verb, fetches, frame, args, kwargs)
+
+    return wrapper
+
+
 # ---------------------------------------------------------------------------
 # graph normalization + placeholder <-> column matching
 # ---------------------------------------------------------------------------
@@ -711,8 +727,14 @@ class _Place:
 def _place(frame, device, devices, mesh, ex, weights=None) -> _Place:
     """The placement of one verb call (see `_Place`): the mesh's shards,
     the one ``device`` given, a block schedule (`scheduler.schedule_weights`
-    over ``weights``, by default the block sizes), or the one card."""
+    over ``weights``, by default the block sizes), or the one card. A
+    mesh over several processes, or a `SpanningFrame`'s rows, place this
+    process's shards (`parallel.multihost.local_place`)."""
     if mesh is not None:
+        if mesh.process_count > 1 or getattr(frame, "_span_mesh", None) is not None:
+            from .parallel import multihost as _mh
+
+            return _mh.local_place(frame, mesh)
         devs = mesh.device_list()
         _, ranges, (tlo, thi) = _shards(frame.nrows, len(devs))
         items = [(d, lo, hi) for d, (lo, hi) in enumerate(ranges) if hi > lo]
@@ -848,6 +870,7 @@ def _mesh_loop(
 
 
 @_pandas_in_out
+@_spanning_in_out
 @_deadline_entry("map_blocks")
 @torch.no_grad()
 def map_blocks(
@@ -1017,7 +1040,7 @@ def _row_plan_kind(graph, fetch_list, feed_names, summary, bindings) -> str:
     if not any(n.op in _vec.CONTROL_OPS for n in graph.toposort(fetch_list)):
         return "vmap"
     if not _vec.enabled():
-        _vec.note_fallback("disabled")
+        _vec.note_fallback("disabled", probe=False)
         return "per_row"
     block_rank = {n: summary.inputs[n].shape.rank + 1 for n in feed_names}
     if not bindings and _rowwise_transform(graph, fetch_list, block_rank.get):
@@ -1076,6 +1099,7 @@ def _row_runner(plan, ex, graph, fetch_list, feed_names, summary, bindings, dev,
 
 
 @_pandas_in_out
+@_spanning_in_out
 @_deadline_entry("map_rows")
 @torch.no_grad()
 def map_rows(
@@ -1343,12 +1367,25 @@ def _stack_parts(parts: List, anchor=None) -> Union[np.ndarray, torch.Tensor]:
     return torch.stack([as_tensor(p, anchor or dev) for p in parts])
 
 
+def _across_processes(place: _Place, partials: List[Tuple], outputs) -> List[Tuple]:
+    """Over a mesh of several processes, every process's partials in
+    global shard order (`parallel.multihost.gather_partials`; ``outputs``:
+    the fetches' analyzed outputs), after the block loop and its retries:
+    this process's alone otherwise."""
+    if place.mesh is None or place.mesh.process_count == 1:
+        return partials
+    from .parallel import multihost as _mh
+
+    return _mh.gather_partials(partials, place.mesh, place.anchor, outputs)
+
+
 def _results(bases: List[str], values):
     """One tensor for one fetch, a dict of tensors for several."""
     return values[0] if len(bases) == 1 else dict(zip(bases, values))
 
 
 @_pandas_in_out
+@_spanning_in_out
 @_deadline_entry("reduce_blocks")
 @torch.no_grad()
 def reduce_blocks(
@@ -1425,6 +1462,8 @@ def reduce_blocks(
         fscope=fscope, split=_reduce_split(graph, fetch_list, summary),
         refuse="unclassifiable-reduce",
     )
+    partials = _across_processes(
+        place, partials, [summary.outputs[base_name(f)] for f in fetch_list])
     if not partials:
         raise ValueError("reduce_blocks on an empty frame")
     # a verb whose budget ran out during the blocks must not start the
@@ -1535,6 +1574,7 @@ def _fold(rows: List[torch.Tensor], monoid, pair) -> Tuple[torch.Tensor, ...]:
 
 
 @_pandas_in_out
+@_spanning_in_out
 @torch.no_grad()
 def reduce_rows(
     fetches,
@@ -1624,6 +1664,7 @@ def reduce_rows(
         place, "reduce_rows", "reduce_rows.block", graph.fingerprint(), run, rows_for,
         lambda outs, what: maybe_check_numerics(bases, outs, what), fscope=fscope,
     )
+    partials = _across_processes(place, partials, [summary.outputs[b] for b in bases])
     if not partials:
         raise ValueError("reduce_rows on an empty frame")
     anchor = place.anchor
@@ -1741,6 +1782,10 @@ def aggregate(
         from . import globalframe as _gf
 
         _gf._reject_overrides("aggregate", mesh, devices, device, grouped._global)
+    if getattr(grouped.frame, "_spanning", False):
+        from .parallel import multihost as _mh
+
+        grouped = _mh.spanning_grouped(grouped, "aggregate")
     _check_mesh_args("aggregate", mesh, device, devices)
     if isinstance(grouped.frame, LazyFrame):
         grouped = GroupedFrame(

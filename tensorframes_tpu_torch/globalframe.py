@@ -239,6 +239,7 @@ class GlobalFrame:
             mesh = resolve_global_mesh()
         if "data" not in mesh.shape:
             raise ValueError("to_global needs a mesh with a 'data' axis")
+        mesh.require_one_process("a GlobalFrame")
         names = list(columns) if columns is not None else frame.columns
         for n in names:
             c = frame.column(n)

@@ -46,13 +46,17 @@ do. Decisions are counted in `utils.profiling` (``vectorize.lowered.
 ``vectorize.while.host_syncs``; a loop under `vmap` counts
 ``control.while.trips`` and ``control.while.host_syncs``) and in the
 telemetry registry as the JAX package's ``row_vectorize_lowered{kind=}`` /
-``row_vectorize_fallbacks{reason=}``.
+``row_vectorize_fallbacks{reason=}``. `state()` (the diagnostics'
+``row_vectorize`` section) counts as the JAX package's does: lowerings at
+trace time, classification probes as they happen (`note_lowered`,
+`note_fallback`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Sequence, Tuple
+import threading
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +71,8 @@ __all__ = [
     "enabled",
     "note_fallback",
     "note_lowered",
+    "reset_state",
+    "state",
     "vmap_select_cond",
     "vmap_while",
     "lift_to_block_level",
@@ -98,20 +104,63 @@ def enabled() -> bool:
     return bool(config.get().row_vectorize)
 
 
-def note_lowered(kind: str) -> None:
-    """One masked dense lowering run (kind: ``cond`` | ``while``)."""
+_state_lock = threading.Lock()
+_stats: Dict[str, Dict[str, int]] = {"lowered": {}, "fallbacks": {}}
+
+
+def note_lowered(kind: str, ctx=None, node=None) -> None:
+    """One masked dense lowering (kind: ``cond`` | ``while``), counted in
+    `utils.profiling` and telemetry every time it runs on a device.
+
+    `state()` counts it where the JAX package counts, at trace time: a
+    lowering of a graph lifted by hand (``ctx`` and ``node`` given) once a
+    built callable and node on a device (one executor cache entry, the
+    port's counterpart of a traced program), and every meta shape probe
+    (JAX's `jax.eval_shape`). A select or loop under `torch.func.vmap`,
+    and `api.map_rows`' lifted plan (``ctx.row_axis``), stand in for JAX's
+    `vmap`, whose batching rules the JAX package does not count."""
     from ..utils import telemetry as _tele
 
-    _count(f"vectorize.lowered.{kind}")
-    _tele.counter_inc("row_vectorize_lowered", 1.0, kind=kind)
+    if ctx is None or not ctx.is_meta:
+        _count(f"vectorize.lowered.{kind}")
+        _tele.counter_inc("row_vectorize_lowered", 1.0, kind=kind)
+    if ctx is None or ctx.row_axis:
+        return
+    if not ctx.is_meta:
+        key = ("vectorize.state", node.name)
+        if key in ctx.memo:
+            return
+        ctx.memo[key] = True
+    with _state_lock:
+        _stats["lowered"][kind] = _stats["lowered"].get(kind, 0) + 1
 
 
-def note_fallback(reason: str) -> None:
-    """One graph kept off a one-call-per-block plan, by reason."""
+def note_fallback(reason: str, probe: bool = True) -> None:
+    """One graph kept off a one-call-per-block plan, by reason. A
+    classification ``probe`` (`subgraphs_row_local`) also counts in
+    `state()`, once a probe as in the JAX package; `api.map_rows`' per-row
+    plan under ``row_vectorize=False`` is no probe (JAX's `vmap` takes
+    that graph)."""
     from ..utils import telemetry as _tele
 
     _count(f"vectorize.fallback.{reason}")
     _tele.counter_inc("row_vectorize_fallbacks", 1.0, reason=reason)
+    if probe:
+        with _state_lock:
+            _stats["fallbacks"][reason] = _stats["fallbacks"].get(reason, 0) + 1
+
+
+def state() -> Dict:
+    """Lowerings by kind and fallbacks by reason (`tft.diagnostics()`'s
+    ``row_vectorize`` section)."""
+    with _state_lock:
+        return {"lowered": dict(_stats["lowered"]), "fallbacks": dict(_stats["fallbacks"])}
+
+
+def reset_state() -> None:
+    with _state_lock:
+        _stats["lowered"] = {}
+        _stats["fallbacks"] = {}
 
 
 def lift_to_block_level(graph):
@@ -321,8 +370,7 @@ def select_cond(ctx, node, pred, then_outs, else_outs) -> Tuple:
                 "shapes"
             ) from None
         outs.append(torch.where(m, t, e))
-    if not ctx.is_meta:
-        note_lowered("cond")
+    note_lowered("cond", ctx, node)
     return tuple(outs)
 
 
@@ -469,6 +517,7 @@ def masked_while(
         node, carry, tuple(meta_body_fn(*[_meta(c) for c in carry])), n_vars
     )
     if ctx.is_meta:
+        note_lowered("while", ctx, node)
         return carry[:n_vars]
 
     def pred(c) -> torch.Tensor:
@@ -488,7 +537,7 @@ def masked_while(
         )
         active = torch.logical_and(active, pred(carry))
         trips += 1
-    note_lowered("while")
+    note_lowered("while", ctx, node)
     _count("vectorize.while.trips", trips)
     _count("vectorize.while.host_syncs", trips + 1)
     return carry[:n_vars]

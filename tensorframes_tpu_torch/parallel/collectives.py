@@ -20,7 +20,9 @@ named axes (the other axes fixed), so that a step can reduce over
 
 Several slots of a mesh may name one device (the one-card smoke runs meshes
 whose slots are all ``cuda:0``); a move between two such slots is then a
-no-op, and nothing here keys state by device.
+no-op, and nothing here keys state by device. A mesh over several
+processes (`parallel.multihost`) is refused (`axis_groups`): there the
+same move would drop another process's shard without an error.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ def axis_groups(mesh: Mesh, axes: Union[str, Sequence[str]]) -> List[List[Coord]
     """The mesh's coordinates grouped over ``axes``: one group for each
     position of the other axes (row-major), each group's coordinates
     row-major over ``axes`` in the order given."""
+    mesh.require_one_process("a lockstep collective")
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     for a in axes:
         if a not in mesh.axis_names:

@@ -11,6 +11,15 @@ and raises when there is none: a mesh never falls back to the CPU. The CPU
 runs only through an explicit device list, for example
 ``data_mesh(devices=["cpu"] * 8)``, the CPU tests' stand-in for the JAX
 package's 8 virtual CPU devices.
+
+A mesh may span processes (`parallel.multihost.global_data_mesh`): each
+slot then records the rank that owns it (``ranks``), and a slot's device
+names a device of that rank. Its identity (equality, hashing, the
+executor's cache keys) names the rank beside the device, since two
+processes' ``cuda:0`` are two slots. Only the data-mesh verbs run over such
+a mesh, each process its own slots; the lockstep paths, which move
+tensors between slots inside one process, refuse it
+(`require_one_process`).
 """
 
 from __future__ import annotations
@@ -27,9 +36,10 @@ __all__ = ["Mesh", "data_mesh", "mesh_2d", "shard_to_mesh"]
 
 
 class Mesh:
-    """Devices in an array whose axes carry names."""
+    """Devices in an array whose axes carry names; ``ranks`` (same shape,
+    default all 0) names the process that owns each slot."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], ranks=None):
         arr = np.asarray(devices, dtype=object)
         if arr.ndim != len(axis_names):
             raise ValueError(
@@ -37,6 +47,30 @@ class Mesh:
             )
         self.devices = arr
         self.axis_names = tuple(axis_names)
+        self.ranks = (
+            np.zeros(arr.shape, dtype=np.int64) if ranks is None
+            else np.asarray(ranks, dtype=np.int64).reshape(arr.shape)
+        )
+
+    @property
+    def process_count(self) -> int:
+        """The number of processes owning the mesh's slots."""
+        return len(set(self.ranks.flat))
+
+    def local_slots(self, rank: int) -> List[int]:
+        """The row-major indices of the slots ``rank`` owns."""
+        return [i for i, r in enumerate(self.ranks.flat) if r == rank]
+
+    def require_one_process(self, what: str) -> None:
+        """Raise when the mesh spans processes: ``what`` moves tensors
+        between slots in one process, and another process's slot would
+        silently drop its data."""
+        if self.process_count > 1:
+            raise ValueError(
+                f"{what} runs every slot of its mesh in lockstep in one process, "
+                f"and this mesh spans {self.process_count} processes; across "
+                "processes only the data-mesh verbs run (parallel.multihost)"
+            )
 
     @property
     def shape(self) -> "OrderedDict[str, int]":
@@ -51,7 +85,8 @@ class Mesh:
         return list(self.devices.flat)
 
     def _key(self):
-        return (self.axis_names, self.devices.shape, tuple(str(d) for d in self.devices.flat))
+        return (self.axis_names, self.devices.shape, tuple(str(d) for d in self.devices.flat),
+                tuple(int(r) for r in self.ranks.flat))
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Mesh) and self._key() == other._key()
@@ -61,7 +96,11 @@ class Mesh:
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{n}={s}" for n, s in self.shape.items())
-        return f"Mesh({axes}; {[str(d) for d in self.devices.flat]})"
+        if self.process_count > 1:
+            slots = [f"r{r}/{d}" for r, d in zip(self.ranks.flat, self.devices.flat)]
+        else:
+            slots = [str(d) for d in self.devices.flat]
+        return f"Mesh({axes}; {slots})"
 
 
 def _devices(devices: Sequence[DeviceLike]) -> List[torch.device]:

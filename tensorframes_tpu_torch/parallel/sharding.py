@@ -56,6 +56,7 @@ class Sharded:
     ``shards[coord]`` is the block on mesh slot ``coord``."""
 
     def __init__(self, mesh: Mesh, spec: PartitionSpec, shape, shards: np.ndarray):
+        mesh.require_one_process("a sharded tensor")
         self.mesh = mesh
         self.spec = PartitionSpec(*spec)
         self.shape = torch.Size(shape)

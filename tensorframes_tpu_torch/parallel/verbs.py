@@ -37,7 +37,6 @@ Left out: the mesh shape bucketing of the JAX package (`_bucketed_or_split`,
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -55,6 +54,7 @@ from ..runtime.faults import maybe_check_numerics
 from ..runtime.scheduler import device_label
 from ..utils import telemetry as _tele
 from ..utils.profiling import count as _count
+from ..utils.profiling import record as _record
 from .mesh import Mesh
 
 __all__ = ["map_blocks", "map_rows", "reduce_blocks", "reduce_rows", "aggregate"]
@@ -62,29 +62,30 @@ __all__ = ["map_blocks", "map_rows", "reduce_blocks", "reduce_rows", "aggregate"
 
 def _mesh_sig(mesh: Mesh) -> str:
     """The mesh's device identity for cache keys: its shape and every
-    device's label. Two meshes of one size over other devices never share
-    an executor entry."""
+    device's label (prefixed by its rank on a mesh over several
+    processes). Two meshes of one size over other devices never share an
+    executor entry."""
     shape = "x".join(str(int(n)) for n in mesh.devices.shape)
-    return f"{shape}@{','.join(device_label(d) for d in mesh.devices.flat)}"
+    labels = [device_label(d) for d in mesh.devices.flat]
+    if mesh.process_count > 1:
+        labels = [f"r{r}/{lab}" for r, lab in zip(mesh.ranks.flat, labels)]
+    return f"{shape}@{','.join(labels)}"
 
 
 def _mesh_call(name: str, program, rows: int, shards: int, fn: Callable, device, **attrs):
-    """One mesh dispatch, ``fn()``: a ``verb`` span (and ``name.calls`` /
-    ``.seconds`` / ``.rows`` counters) around a ``dispatch`` span labeled
-    with the program, the shard count and ``attrs``, through a fault scope
-    (transient errors retry with backoff; no OOM split)."""
+    """One mesh dispatch, ``fn()``: a `utils.profiling.record` span (a
+    ``verb`` span, ``name.calls`` / ``.seconds`` / ``.rows`` counters and
+    the ``verb_seconds`` histogram) around a ``dispatch`` span labeled with
+    the program, the shard count and ``attrs``, through a fault scope
+    (transient errors retry with backoff; no OOM split). ``fn`` runs this
+    process's shards only: a retry never re-enters a collective, which
+    would hang the processes that moved on."""
 
     def thunk():
-        t0 = time.perf_counter()
-        try:
-            with _tele.span(name, kind="verb", rows=rows), _tele.dispatch_span(
-                name, program=program, rows=rows, shards=shards, torch_device=device, **attrs
-            ):
-                return fn()
-        finally:
-            _tele.counter_inc(f"{name}.calls")
-            _tele.counter_inc(f"{name}.seconds", time.perf_counter() - t0)
-            _tele.counter_inc(f"{name}.rows", float(rows))
+        with _record(name, rows), _tele.dispatch_span(
+            name, program=program, rows=rows, shards=shards, torch_device=device, **attrs
+        ):
+            return fn()
 
     return _flt.scope(name).dispatch(thunk, what=name)
 
@@ -208,6 +209,11 @@ def aggregate(
     this one plan for classified graphs, whatever
     ``config.aggregate_segment_fast`` says: cross-shard sums are summed in
     another order than the exact plan's anyway."""
+    if mesh.process_count > 1:
+        raise ValueError(
+            f"aggregate over a mesh of {mesh.process_count} processes: aggregate each "
+            "process's rows with parallel.multihost.aggregate_global"
+        )
     ex = executor or default_executor()
     frame = grouped.frame
     graph, fetch_list = _api._as_graph(fetches, fetch_names)

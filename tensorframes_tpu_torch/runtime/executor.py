@@ -26,8 +26,9 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from .. import config as _config
@@ -216,9 +217,39 @@ class Executor:
             lambda d: build_callable(graph, list(fetches), list(feed_names), d),
         )
 
+    def run(
+        self,
+        graph: Graph,
+        fetches: Sequence[str],
+        feeds: Dict[str, object],
+        materialize: bool = False,
+        device=None,
+    ) -> List[Union[torch.Tensor, np.ndarray]]:
+        """Execute the graph once over ``feeds`` (placeholder name -> array
+        or tensor) on ``device`` (default the card; ``"cpu"`` when asked),
+        through the cached callable of `callable_for`.
+
+        Returns device tensors by default, so chained runs stay on the
+        device; ``materialize=True`` copies the results to host numpy."""
+        from ..device import resolve_device
+        from ..frame import _to_numpy, as_tensor
+
+        dev = resolve_device(device)
+        feed_names = sorted(feeds)
+        fn = self.callable_for(graph, fetches, feed_names, dev)
+        out = fn(*[as_tensor(feeds[n], dev) for n in feed_names])
+        if materialize:
+            return [_to_numpy(o) for o in out]
+        return list(out)
+
     def cache_keys(self) -> List[Tuple]:
         with self._lock:
             return list(self._cache)
+
+    def clear(self) -> None:
+        """Drop every cached callable (the counters stay)."""
+        with self._lock:
+            self._cache.clear()
 
     def program_shape_compiles(self) -> Dict[Tuple, int]:
         """Per-program distinct input shape signatures dispatched: cache

@@ -6,7 +6,7 @@ module imports `utils.profiling`, and the checkpoint module imports the
 frame module.
 """
 
-from .profiling import annotate, reset_stats, stats, trace
+from .profiling import annotate, record, reset_stats, stats, trace
 
 __all__ = [
     "load_frame",
@@ -14,6 +14,7 @@ __all__ = [
     "save_frame",
     "save_params",
     "annotate",
+    "record",
     "reset_stats",
     "stats",
     "trace",

@@ -30,6 +30,10 @@ keys:
 
 Meta-device probes (`graph.analysis`) count nothing.
 
+`record(verb, rows)` times one verb call on one clock, as the JAX
+package's: a ``verb`` span, the telemetry counters ``<verb>.calls`` /
+``.seconds`` / ``.rows`` and the ``verb_seconds{verb=}`` histogram.
+
 `trace(logdir)` records a `torch.profiler` trace of the enclosed region
 (CPU and, on a card, CUDA activity) into ``logdir`` as Chrome trace JSON;
 `annotate(name)` labels a region on that timeline
@@ -40,10 +44,11 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from collections import Counter
 from typing import Dict
 
-__all__ = ["count", "stats", "reset_stats", "trace", "annotate"]
+__all__ = ["count", "stats", "reset_stats", "record", "trace", "annotate"]
 
 _counts: Counter = Counter()
 _lock = threading.Lock()
@@ -64,6 +69,32 @@ def stats() -> Dict[str, float]:
 def reset_stats() -> None:
     with _lock:
         _counts.clear()
+
+
+@contextlib.contextmanager
+def record(verb: str, rows: int = 0):
+    """Time one verb call: a ``verb`` span (when telemetry is on), the
+    telemetry counters ``<verb>.calls`` / ``.seconds`` (and ``.rows`` for a
+    nonzero ``rows``), and the ``verb_seconds{verb=}`` histogram. One
+    clock: the span's own ``t0``/``t1`` feed the counter and the histogram;
+    a second pair is read only when telemetry is off and no span is kept."""
+    from . import telemetry as _tele
+
+    ctx = _tele.span(verb, kind="verb", rows=rows or None)
+    t0 = time.perf_counter()
+    try:
+        with ctx:
+            yield
+    finally:
+        dt = getattr(ctx, "seconds", None)
+        if dt is None:  # telemetry off: the shared no-op context
+            dt = time.perf_counter() - t0
+        _tele.counter_inc(f"{verb}.calls")
+        _tele.counter_inc(f"{verb}.seconds", dt)
+        if rows:
+            _tele.counter_inc(f"{verb}.rows", float(rows))
+        if _tele.enabled():
+            _tele.histogram_observe("verb_seconds", dt, verb=verb)
 
 
 @contextlib.contextmanager

@@ -38,6 +38,7 @@ def reset_port() -> None:
     touch."""
     from tensorframes_tpu_torch import globalframe as tglobal
     from tensorframes_tpu_torch.graph import plan as tplan
+    from tensorframes_tpu_torch.graph import vectorize as tvec
     from tensorframes_tpu_torch.runtime import autotune as tautotune
     from tensorframes_tpu_torch.runtime import blackbox as tblackbox
     from tensorframes_tpu_torch.runtime import costmodel as tcost
@@ -56,6 +57,7 @@ def reset_port() -> None:
     tdl.reset()
     tblackbox.reset_state()
     tplan.reset_state()
+    tvec.reset_state()
     tsched.device_health().reset()
     tglobal.reset_state()
     tprof.reset_stats()

@@ -596,7 +596,7 @@ class TestPublicNames:
         "module,names",
         [
             ("utils", ["save_frame", "load_frame", "save_params", "load_params", "stats",
-                       "reset_stats", "diagnostics", "trace", "annotate"]),
+                       "reset_stats", "diagnostics", "trace", "annotate", "record"]),
             ("ops", ["register", "registered_ops", "get_rule", "GraphLoweringError", "OpRule",
                      "LowerCtx", "build_callable", "supported"]),
             ("graph", ["analyze_graph", "freeze_variables", "has_variables", "GraphSummary",
@@ -628,3 +628,112 @@ class TestPublicNames:
         names = {e.key for e in prof.key_averages()}
         assert "tfs-region" in names
         assert (tmp_path / "trace.json").stat().st_size > 0
+
+
+class TestLastPublicNames:
+    """The names the port lacked until the multi-process slice:
+    `graph.vectorize.state` / `reset_state` behind the diagnostics'
+    ``row_vectorize`` section, `Executor.run` / `clear` and
+    `utils.profiling.record`, each against the JAX package."""
+
+    @staticmethod
+    def _branchy_calls(side):
+        """The same map_rows and lifted map_blocks calls in one package,
+        from a clean count: its vectorize state, shape-analysis memo and a
+        fresh executor (a program traced by an earlier test in this
+        process would not trace again)."""
+        from tensorframes_tpu.graph import analysis as janalysis
+        from tensorframes_tpu.graph import vectorize as jvec
+        from tensorframes_tpu.graph.control_flow import functionalize as jfun
+        from tensorframes_tpu.runtime.executor import Executor as JExecutor
+        from tensorframes_tpu_torch.graph import analysis as tanalysis
+        from tensorframes_tpu_torch.graph import vectorize as tvec
+        from tensorframes_tpu_torch.graph.control_flow import functionalize as tfun
+        from tensorframes_tpu_torch.runtime.executor import Executor
+
+        from test_torch_vectorize import _branchy_bytes
+
+        pkg, vec, fun, memo, ex = {
+            "jax": (tfs, jvec, jfun, janalysis._analysis_cache, JExecutor()),
+            "torch": (tft, tvec, tfun, tanalysis._cache, Executor()),
+        }[side]
+        vec.reset_state()
+        memo.clear()
+        dev = dict(SIDES[side]["dev"], executor=ex)
+        data = _branchy_bytes()
+        x = np.array([2.0, -1.0, 0.5, -300.0, 0.0, 77.0, 8.0, 3.0], np.float32)
+        df = pkg.TensorFrame.from_dict({"x": x}, num_blocks=2)
+        lifted, fetches = fun(pkg.Graph.from_bytes(data), ["out", "trips"])
+        vec.lift_to_block_level(lifted)
+        for _ in range(2):
+            pkg.map_rows(data, df, fetch_names=["out", "trips"], **dev)
+            pkg.map_blocks(lifted, df, fetch_names=fetches, **dev)
+        with pkg.config.override(row_vectorize=False):
+            pkg.map_rows(data, df, fetch_names=["out", "trips"], **dev)
+        return vec
+
+    def test_row_vectorize_diagnostics_equal_jax(self):
+        from tensorframes_tpu_torch.graph import vectorize as tvec
+
+        got = {}
+        for side, tele in (("jax", jtele), ("torch", ttele)):
+            vec = self._branchy_calls(side)
+            got[side] = tele.diagnostics_data()["row_vectorize"]
+            vec.reset_state()
+            assert vec.state() == {"lowered": {}, "fallbacks": {}}
+        assert got["torch"] == got["jax"]
+        # lowerings count once a traced program: the lifted graph's cond and
+        # loop, not every dispatch of them
+        assert set(got["torch"]["lowered"]) == {"cond", "while"}
+        assert tvec.state() == {"lowered": {}, "fallbacks": {}}
+
+    def test_no_diagnostics_section_errors_on_a_plain_run(self):
+        df = tft.TensorFrame.from_dict({"x": np.arange(8.0)}, num_blocks=2)
+        tft.map_blocks((tft.block(df, "x") + 1.0).named("z"), df, device=CPU)
+        tft.reduce_blocks(_sum_graph("torch", df), df, device=CPU)
+        data = ttele.diagnostics_data()
+        broken = {k: v for k, v in data.items() if isinstance(v, dict) and "error" in v}
+        assert broken == {}
+
+    def test_executor_run_and_clear_match_jax(self):
+        from tensorframes_tpu.runtime.executor import Executor as JExecutor
+        from tensorframes_tpu_torch.runtime.executor import Executor
+
+        x = np.arange(6.0).reshape(3, 2)
+        outs = {}
+        for side, ex_cls in (("jax", JExecutor), ("torch", Executor)):
+            pkg = SIDES[side]["pkg"]
+            ph = pkg.dsl.placeholder(pkg.ScalarType.float64, pkg.Shape((None, 2)), name="x")
+            g, f = pkg.dsl.build([(ph * 2.0).named("y"), pkg.dsl.reduce_sum(ph, axes=[0]).named("s")])
+            ex = ex_cls()
+            kw = {"device": CPU} if side == "torch" else {}
+            lazy = ex.run(g, f, {"x": x}, **kw)
+            host_out = ex.run(g, f, {"x": x}, materialize=True, **kw)
+            assert all(isinstance(o, np.ndarray) for o in host_out)
+            assert len(ex.cache_keys()) == 1
+            ex.clear()
+            assert ex.cache_keys() == []
+            outs[side] = ([host(o) for o in lazy], host_out)
+        assert isinstance(Executor().run(*tft.dsl.build(
+            (tft.dsl.placeholder(tft.ScalarType.float64, tft.Shape(()), name="x") + 1.0)
+            .named("y")), {"x": np.float64(1.0)}, device=CPU)[0], torch.Tensor)
+        for t, j in zip(outs["torch"][0] + outs["torch"][1], outs["jax"][0] + outs["jax"][1]):
+            np.testing.assert_array_equal(t, j)
+
+    def test_profiling_record_matches_jax(self):
+        from tensorframes_tpu.utils import profiling as jprof
+
+        for side, prof, tele in (("jax", jprof, jtele), ("torch", tprof, ttele)):
+            tele.reset()
+            with prof.record("probe", rows=5):
+                time.sleep(0.002)
+            with prof.record("probe"):
+                pass
+            flat = tele.flat_counters()
+            assert flat["probe.calls"] == 2.0 and flat["probe.rows"] == 5.0, side
+            verb = [s for s in tele.spans() if s.kind == "verb" and s.name == "probe"]
+            assert len(verb) == 2, side
+            # one clock: the counter is the spans' own seconds
+            assert flat["probe.seconds"] == pytest.approx(sum(s.seconds for s in verb)), side
+            hist = tele.metrics_snapshot()[2]
+            assert sum(h[3] for k, h in hist.items() if k[0] == "verb_seconds") == 2, side
