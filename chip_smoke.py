@@ -168,9 +168,24 @@ main path through the entry points a user calls:
     one rank, to the single-process ``mesh=data_mesh()`` verbs, with each
     verb's wall time and rows/s; any rank's failure or timeout (300 s)
     fails the run;
-21. one JSON line listing every kernel with its launches on the main path
-    (phases 3-18 and 20), its error and its times, and the ring's launches;
-22. as the last line, ``{"ok": true, "device": {...}}``.
+21. attention at every width and dtype, after phase 19, its launches
+    counted apart from the main path's: both kernel entries against the
+    plain version at head_dim 1, 15, 24, 120, 136, 200, 256 and 512 (ragged
+    S, causal and not), negative and zero scales, JAX's ``(S, D)`` and
+    ``(B, H, S, D)`` layouts, transposed and misaligned inputs, float64
+    and int32 (through float32), bf16 and fp16 loaded by the kernel (within
+    one unit in their last place); one causal head of 65,535 x 64 + 1 rows;
+    phase 7's scoring route and widths with 2, 1 and 16 heads (head_dim
+    128, 256 and 15; d_model 240 for the last) and phase 19's ``mesh=``
+    ring at head_dim 15 and 256, each against the plain attention; the
+    kernel at D 128 and D 256 (BH 16, S 2048, float32) and in bf16 and
+    fp16 at the LM's shape, timed beside the plain version, SDPA of the
+    same dtype and the bound. ``python3 chip_smoke.py --phase 21`` runs
+    phases 1 and 21 alone and prints no result line;
+22. one JSON line listing every kernel with its launches on the main path
+    (phases 3-18 and 20), its error and its times, the ring's launches and
+    phase 21's variants;
+23. as the last line, ``{"ok": true, "device": {...}}``.
 
 Phases 3-17 run with ``block_scheduler="off"``: they measure one card.
 Phases 8-18 and 20 run after phase 6 and before phase 7. Phases 3-6, 8-18
@@ -292,27 +307,46 @@ def _plan_ran(what: str, key: str) -> None:
         raise AssertionError(f"{what}: expected plan {key}, counters say {stats()}")
 
 
-def _attention_bound(bh: int, s: int, d: int, causal: bool):
-    """(bound_ms, bound_by) of attention over (bh, s, d) float32: the two
-    products Q K^T and P V at 2 operations per multiply-add over the pairs
-    the mask keeps, against q, k, v read once and o written once."""
+def _attention_bound(bh: int, s: int, d: int, causal: bool, elem_bytes: int = 4,
+                     peak_flops: float = _PEAK_F32_FLOPS):
+    """(bound_ms, bound_by) of attention over (bh, s, d) elements of
+    ``elem_bytes`` bytes: the two products Q K^T and P V at 2 operations per
+    multiply-add over the pairs the mask keeps, at ``peak_flops``, against
+    q, k, v read once and o written once."""
     pairs = s * (s + 1) // 2 if causal else s * s
-    t_ops = 4 * d * pairs * bh / _PEAK_F32_FLOPS
-    t_bytes = 4 * bh * s * d * 4 / _PEAK_HBM_BYTES
+    t_ops = 4 * d * pairs * bh / peak_flops
+    t_bytes = 4 * bh * s * d * elem_bytes / _PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def _ptxas_line(log: str, d: int, lse: bool = False):
-    """ptxas's resource and spill lines for the head_dim-``d`` attention
-    kernel (the instantiation that stores the log-sum-exp with ``lse``),
-    from the build log, or None for a cached build."""
+    """ptxas's resource and spill lines for the float32 head_dim-``d``
+    attention kernel (the instantiation that stores the log-sum-exp with
+    ``lse``), from the build log, or None for a cached build."""
     m = re.search(
-        rf"Compiling entry function '[^']*flash_attention_f32_kernelILi{d}ELb{int(lse)}E.*?"
+        rf"Compiling entry function '[^']*flash_attention_kernelIfLi{d}ELb{int(lse)}E.*?"
         r"(\d+ bytes stack frame, \d+ bytes spill stores, \d+ bytes spill loads)"
         r".*?(Used [^\n]*)",
         log, re.S,
     )
     return f"{m.group(2)}; {m.group(1)}" if m else None
+
+
+def _ptxas_table(logs) -> dict:
+    """Every kernel instantiation in the build logs: its mangled name's
+    template arguments -> (registers, spill store bytes, spill load bytes,
+    stack frame bytes)."""
+    table = {}
+    for name, log in sorted(logs.items()):
+        for m in re.finditer(
+            r"Compiling entry function '[^']*?(flash_attention\w*kernel)(I\w*?EE)\w*'.*?"
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
+            r".*?Used (\d+) registers",
+            log, re.S,
+        ):
+            key = f"{name}:{m.group(1)}{m.group(2)}"
+            table[key] = [int(m.group(6)), int(m.group(4)), int(m.group(5)), int(m.group(3))]
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -339,12 +373,20 @@ def phase_card_and_build() -> None:
     t0 = time.perf_counter()
     libs = _cuda_build.build_all()
     seconds = time.perf_counter() - t0
-    # ptxas's registers and spills for the head_dim-64 kernel the LM runs
-    # and the widest, head_dim 128
+    # ptxas's registers and spills for the float32 head_dim-64 kernel the LM
+    # runs and for head_dim 128; every instantiation (three element types,
+    # head_dim 8-128 and the wide kernel, with and without the log-sum-exp)
+    # must spill nothing
     log = _cuda_build.build_logs.get("flash_attention", "")
+    ptxas = _ptxas_table(_cuda_build.build_logs)
+    spilled = {k: r for k, r in ptxas.items() if r[1] or r[2]}
+    if spilled:
+        raise AssertionError(f"ptxas spilled in {spilled} ([registers, stores, loads, stack])")
     _emit(
         "build", libraries=sorted(libs), seconds=seconds,
         ptxas_d64=_ptxas_line(log, 64), ptxas_d128=_ptxas_line(log, 128),
+        ptxas_instantiations=len(ptxas), ptxas_spill_bytes=0,
+        ptxas_registers=ptxas,
     )
 
 
@@ -395,14 +437,22 @@ def phase_kernel_vs_plain(lm_shape):
     # times at the LM's shape (q, k, v of the last case)
     ms = _time_ms(lambda: flash_attention(q, k, v, causal=True), 20)
     plain_ms = _time_ms(lambda: flash_attention_reference(q, k, v, causal=True), 10)
+    # SDPA on a (1, BH, S, D) view, where its fused kernels run; on the
+    # (BH, S, D) tensors themselves it takes its plain math path, the
+    # yardstick PERF.md's earlier rows record (library_ms_3d)
     library_ms = _time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True),
+        20,
+    )
+    library_ms_3d = _time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True),
         20,
     )
     bound_ms, bound_by = _attention_bound(*lm_shape, True)
     result = dict(
         max_abs_err=max(errs + scale_errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
+        bound_by=bound_by, library_ms=library_ms, library_ms_3d=library_ms_3d,
     )
     _emit(
         "flash_attention_vs_plain",
@@ -4172,7 +4222,8 @@ def phase_scheduled_lm(tft, cfg, n_seqs: int = 16, block_seqs: int = 4) -> int:
     return launches
 
 
-def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int) -> float:
+def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int,
+                      phase: str = "transformer_map_blocks") -> float:
     from tensorframes_tpu_torch.models import TransformerLM
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention_reference
 
@@ -4195,7 +4246,7 @@ def phase_transformer(tft, cfg, n_seqs: int, block_seqs: int) -> float:
         "TransformerLM block 0 logits", logits[:block_seqs], want, _LOGIT_RTOL, _LOGIT_ATOL
     )
     _emit(
-        "transformer_map_blocks", config=cfg, sequences=n_seqs, block_sequences=block_seqs,
+        phase, config=cfg, sequences=n_seqs, block_sequences=block_seqs,
         seconds=secs, tokens_per_s=n_seqs * seq / secs, max_abs_err=err,
         tolerance={"rtol": _LOGIT_RTOL, "atol": _LOGIT_ATOL},
     )
@@ -4519,7 +4570,265 @@ def phase_parallel_models(cfg, lm_shape, cards: int = 1) -> dict:
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 21: attention at every width and dtype
+# ---------------------------------------------------------------------------
+
+# bf16 and fp16 outputs against the plain version's: both compute in float32
+# and round once to the dtype, so they may differ by one unit in its last
+# place, a relative 2^-7 (bf16) or 2^-10 (fp16); atol for values near 0
+_HALF_RTOL = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
+_HALF_ATOL = 1e-5
+# bf16 and fp16 products could run on the tensor cores (dense, NVIDIA's
+# data sheet): the bound of a half-precision call is taken against them
+_PEAK_HALF_FLOPS = 989e12
+
+
+def _close_in_dtype(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """`_check_close` at the tolerance of ``want``'s dtype: float32 and
+    float64 (float32 arithmetic) at the kernel's bar, bf16 and fp16 within
+    one unit in their last place."""
+    if want.dtype in _HALF_RTOL:
+        if got.dtype != want.dtype:
+            raise AssertionError(f"{what}: {got.dtype} vs {want.dtype}")
+        return _check_close(what, got.float(), want.float(), _HALF_RTOL[want.dtype], _HALF_ATOL)
+    return _check_close(what, got, want, _ATTN_RTOL, _ATTN_ATOL)
+
+
+def _both_entries(what: str, q, k, v, causal: bool, scale=None) -> float:
+    """`flash_attention` and `flash_attention_lse` on the card against
+    `flash_attention_lse_reference` on the same tensors: output (q's shape
+    and dtype) and log-sum-exp (float32, q's shape without D); the two
+    entries' outputs equal. Returns the max abs error."""
+    from tensorframes_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_lse,
+        flash_attention_lse_reference,
+    )
+
+    out = flash_attention(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    out_l, lse = flash_attention_lse(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_lse_reference(q, k, v, causal=causal, scale=scale)
+    if not torch.equal(out, out_l):
+        raise AssertionError(f"{what}: the two entries' outputs differ")
+    return max(
+        _close_in_dtype(what + " out", out, ref),
+        _check_close(what + " lse", lse, ref_lse, _ATTN_RTOL, _ATTN_ATOL),
+    )
+
+
+def _width_and_layout_cases(gen) -> dict:
+    """Every head width class, layouts, strides, offsets and dtypes through
+    both entries against the plain version; max abs error by case."""
+    from tensorframes_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    errs = {}
+    # widths not a multiple of 8 (zero-padded), up to 128 (one slice) and
+    # past it (column slices), at ragged lengths
+    for d, s in zip((1, 15, 24, 120, 136, 200, 256, 512), (75, 129, 200, 1000) * 2):
+        for causal in (False, True):
+            q, k, v = (rand(2, s, d) for _ in range(3))
+            errs[f"2x{s}x{d}{'-causal' if causal else ''}"] = _both_entries(
+                f"(2, {s}, {d}) causal={causal}", q, k, v, causal)
+    # the wide kernel's and the padded width's negative and zero scales
+    for d in (15, 256):
+        q, k, v = (rand(2, 200, d) for _ in range(3))
+        for scale in (-0.05, 0.0):
+            errs[f"2x200x{d}-causal-scale{scale}"] = _both_entries(
+                f"(2, 200, {d}) causal scale={scale}", q, k, v, True, scale)
+    # JAX's (S, D) signature and (B, H, S, D)
+    for shape in ((200, 15), (129, 256), (2, 3, 129, 24), (2, 2, 200, 136)):
+        q, k, v = (rand(*shape) for _ in range(3))
+        errs["x".join(map(str, shape)) + "-causal"] = _both_entries(
+            f"{shape} causal", q, k, v, True)
+    # strided (a transposed view) and misaligned (a view 4 bytes into its
+    # storage) inputs
+    q, k, v = (rand(3, 64, 200).transpose(1, 2) for _ in range(3))
+    errs["transposed-3x200x64-causal"] = _both_entries("transposed (3, 200, 64)", q, k, v, True)
+    n = 3 * 129 * 40
+    q, k, v = (rand(n + 1)[1:].view(3, 129, 40) for _ in range(3))
+    if q.data_ptr() % 16 == 0:
+        raise AssertionError("misaligned case: the view is aligned")
+    errs["misaligned-3x129x40-causal"] = _both_entries("misaligned (3, 129, 40)", q, k, v, True)
+    # float64 goes through float32 (the Pallas kernel's cast of each block):
+    # the same as the float32 call, widened
+    for shape in ((2, 200, 24), (3, 75, 15)):
+        q, k, v = (rand(*shape, dtype=torch.float64) for _ in range(3))
+        what = f"float64 {shape}"
+        errs["float64-" + "x".join(map(str, shape)) + "-causal"] = _both_entries(
+            what, q, k, v, True)
+        f32 = flash_attention(q.float(), k.float(), v.float(), causal=True).double()
+        if not torch.equal(flash_attention(q, k, v, causal=True), f32):
+            raise AssertionError(f"{what}: differs from the float32 call widened")
+    # int32: the float32 result truncated, as JAX's astype truncates; a
+    # truncation may fall either side of an integer where the two float32
+    # results differ by rounding, so the plain version's integers are held
+    # within 1 and the float32 results at the kernel's bar
+    qi, ki, vi = (torch.randint(-3, 4, (2, 129, 16), device="cuda", generator=gen,
+                                dtype=torch.int32) for _ in range(3))
+    got = flash_attention(qi, ki, vi, causal=True)
+    torch.cuda.synchronize()
+    f32 = flash_attention(qi.float(), ki.float(), vi.float(), causal=True)
+    if got.dtype != torch.int32 or not torch.equal(got, f32.to(torch.int32)):
+        raise AssertionError("int32 (2, 129, 16): not the float32 call truncated")
+    plain = flash_attention_reference(qi, ki, vi, causal=True)
+    if (got - plain).abs().max() > 1:
+        raise AssertionError("int32 (2, 129, 16): more than 1 from the plain version")
+    errs["int32-2x129x16-causal"] = _check_close(
+        "int32 (2, 129, 16) as float32", f32,
+        flash_attention_reference(qi.float(), ki.float(), vi.float(), causal=True),
+        _ATTN_RTOL, _ATTN_ATOL)
+    return errs
+
+
+def _half_cases(gen, lm_shape) -> dict:
+    """bf16 and fp16 loaded by the kernel itself, against the plain version
+    within one unit in their last place; max abs error by case."""
+    errs = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
+        for shape, causals in (((3, 200, 64), (False, True)), ((2, 129, 128), (False, True)),
+                               ((4, 300, 256), (False, True)), (lm_shape, (True,))):
+            for causal in causals:
+                q, k, v = (torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+                           for _ in range(3))
+                errs[f"{name}-" + "x".join(map(str, shape)) + ("-causal" if causal else "")] = (
+                    _both_entries(f"{name} {shape} causal={causal}", q, k, v, causal))
+        # a negative scale negates the staged Q tile's 2-byte elements (one
+        # slice) or the scores (the wide kernel)
+        for shape in ((3, 200, 64), (4, 300, 256)):
+            q, k, v = (torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+                       for _ in range(3))
+            errs[f"{name}-" + "x".join(map(str, shape)) + "-causal-scale-0.125"] = (
+                _both_entries(f"{name} {shape} causal scale=-0.125", q, k, v, True, -0.125))
+    return errs
+
+
+def _long_sequence(gen, d: int = 8) -> dict:
+    """One causal head of 65,535 x 64 + 1 rows: one query tile past the
+    65,535 that a grid's y dimension would count. The plain version cannot
+    hold S^2 scores, so the first query tile (the lightest, scheduled last),
+    the last (one row over every key) and one in the middle are held against
+    the plain arithmetic over the keys they see."""
+    from tensorframes_tpu_torch.ops.flash_attention import flash_attention
+
+    s = 65535 * 64 + 1
+    q, k, v = (torch.randn(1, s, d, device="cuda", generator=gen) for _ in range(3))
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = flash_attention(q, k, v, causal=True)
+    end.record()
+    end.synchronize()
+    scale = 1.0 / math.sqrt(d)
+    errs = {}
+    for r0 in (0, 32768 * 64, s - 1):
+        r1 = min(r0 + 64, s)
+        scores = (q[0, r0:r1] @ k[0, :r1].T) * scale
+        seen = torch.arange(r1, device="cuda")[None, :] <= torch.arange(r0, r1, device="cuda")[:, None]
+        w = torch.softmax(scores.masked_fill(~seen, -math.inf), dim=-1)
+        errs[f"rows {r0}-{r1 - 1}"] = _check_close(
+            f"S {s} rows {r0}-{r1 - 1}", out[0, r0:r1], w @ v[0, :r1], _ATTN_RTOL, _ATTN_ATOL)
+        del scores, seen, w
+    return dict(seq=s, head_dim=d, ms=start.elapsed_time(end), max_abs_err_each=errs,
+                max_abs_err=max(errs.values()))
+
+
+def _variant_times(bh: int, s: int, d: int, dtype, gen) -> dict:
+    """The kernel, its plain version and SDPA of the same dtype, causal, at
+    (bh, s, d): ms each, and the bound at the peak the dtype could use."""
+    from tensorframes_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dtype) for _ in range(3))
+    # SDPA on a (1, BH, S, D) view: its fused kernels take 4-D inputs only
+    q4, k4, v4 = q[None], k[None], v[None]
+    half = dtype in _HALF_RTOL
+    peak = _PEAK_HALF_FLOPS if half else _PEAK_F32_FLOPS
+    bound_ms, bound_by = _attention_bound(bh, s, d, True, q.element_size(), peak)
+    ms = _time_ms(lambda: flash_attention(q, k, v, causal=True), 20)
+    return dict(
+        shape=[bh, s, d], dtype=str(dtype).replace("torch.", ""), causal=True, ms=ms,
+        plain_ms=_time_ms(lambda: flash_attention_reference(q, k, v, causal=True), 5),
+        library_ms=_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 20),
+        bound_ms=bound_ms, bound_by=bound_by,
+        bound_peak=("989 TFLOP/s bf16/fp16 tensor cores" if half
+                    else "67 TFLOP/s float32 CUDA cores"),
+        share_of_bound=bound_ms / ms,
+    )
+
+
+def phase_attention_widths(tft, cfg, lm_shape, n_seqs: int, block_seqs: int) -> dict:
+    """Phase 21: the kernel at every head width, dtype and layout the Pallas
+    kernel takes, against its plain version; `TransformerLM` scoring at head
+    widths 128, 256 and 15 (phase 7's route and widths, other head counts)
+    and the ``mesh=`` ring at 15 and 256, their launches counted apart from
+    the main path's; times of the new variants beside SDPA and their
+    bounds. Returns what the kernels line carries."""
+    from tensorframes_tpu_torch.ops.flash_attention import flash_attention
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    flash_attention.launches = 0
+    errs = _width_and_layout_cases(gen)
+    half_errs = _half_cases(gen, lm_shape)
+    case_launches = flash_attention.launches
+    long_seq = _long_sequence(gen)
+    torch.cuda.empty_cache()
+
+    lms = {}
+    for name, over in (("head_dim_128", dict(n_heads=2)), ("head_dim_256", dict(n_heads=1)),
+                       ("head_dim_15", dict(d_model=240, n_heads=16))):
+        lm_cfg = {**cfg, **over}
+        flash_attention.launches = 0
+        secs = phase_transformer(tft, lm_cfg, n_seqs, block_seqs, phase=f"transformer_{name}")
+        expected = lm_cfg["n_layers"] * (n_seqs // block_seqs)
+        if flash_attention.launches != expected:
+            raise AssertionError(
+                f"TransformerLM {name}: {flash_attention.launches} kernel launches, "
+                f"expected n_layers x blocks = {expected}")
+        lms[name] = dict(config=lm_cfg, launches=flash_attention.launches, seconds=secs,
+                         tokens_per_s=n_seqs * lm_cfg["max_seq"] / secs)
+        torch.cuda.empty_cache()
+    rings = {}
+    for name, over in (("head_dim_15", dict(d_model=240, n_heads=16)),
+                       ("head_dim_256", dict(n_heads=1))):
+        rings[name] = _ring_scoring({**cfg, **over}, cards=1)
+        torch.cuda.empty_cache()
+
+    times = {
+        # the main path's shape again, beside SDPA on 4-D inputs
+        "f32-lm": _variant_times(*lm_shape, torch.float32, gen),
+        "f32-16x2048x128": _variant_times(16, 2048, 128, torch.float32, gen),
+        "f32-16x2048x256": _variant_times(16, 2048, 256, torch.float32, gen),
+        "bf16-lm": _variant_times(*lm_shape, torch.bfloat16, gen),
+        "fp16-lm": _variant_times(*lm_shape, torch.float16, gen),
+    }
+    out = dict(
+        card=_CARD, max_abs_err_each={**errs, **half_errs},
+        max_abs_err=max(errs.values()), half_max_abs_err=max(half_errs.values()),
+        tolerance={"float32": {"rtol": _ATTN_RTOL, "atol": _ATTN_ATOL},
+                   "bf16": {"rtol": _HALF_RTOL[torch.bfloat16], "atol": _HALF_ATOL},
+                   "fp16": {"rtol": _HALF_RTOL[torch.float16], "atol": _HALF_ATOL},
+                   "int32": "float32 results at the float32 bar; integers within 1"},
+        case_launches=case_launches, long_sequence=long_seq, lm_scoring=lms,
+        ring_scoring=rings, times=times, seconds=time.perf_counter() - t0,
+    )
+    _emit("attention_widths", **out)
+    return out
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -4533,6 +4842,13 @@ def main() -> int:
     lm_shape = (block_seqs * cfg["n_heads"], cfg["max_seq"], cfg["d_model"] // cfg["n_heads"])
 
     phase_card_and_build()
+    if argv == ["--phase", "21"]:
+        # phase 21 alone, after the build: no main path, no result line
+        phase_attention_widths(tft, cfg, lm_shape, n_seqs, block_seqs)
+        return 0
+    if argv:
+        print(f"chip_smoke.py: unknown arguments {argv} (none, or --phase 21)", file=sys.stderr)
+        return 2
     attn = phase_kernel_vs_plain(lm_shape)
     # phases 3-17 and 7 measure one card, as their checks and numbers
     # assume; phase 18 places its blocks itself (devices=, "on", "global")
@@ -4580,6 +4896,8 @@ def main() -> int:
     par = phase_parallel_models(cfg, lm_shape)
     if torch.cuda.device_count() >= 2:
         phase_parallel_models(cfg, lm_shape, cards=torch.cuda.device_count())
+    # phase 21 counts its launches apart, from 0 before each part
+    widths = phase_attention_widths(tft, cfg, lm_shape, n_seqs, block_seqs)
     lse = par["lse_entry"]
     lm_times = lse["times"]["x".join(map(str, lm_shape)) + "-causal"]
     # every launch of the main path is in the scoring call: the kernel's
@@ -4592,13 +4910,27 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
         "route": "cuda",
-        "source": "tensorframes_tpu_torch/csrc/flash_attention.cu",
+        "source": "tensorframes_tpu_torch/csrc/flash_attention.cuh",
+        # one library an element type, each instantiating the template
+        "builds": ["tensorframes_tpu_torch/csrc/flash_attention.cu",
+                   "tensorframes_tpu_torch/csrc/flash_attention_f16.cu",
+                   "tensorframes_tpu_torch/csrc/flash_attention_bf16.cu"],
         "replaces": "tensorframes_tpu/ops/pallas_kernels.py:122",
         "launches": launches,
         **attn,
         "lse_ms": min(lm_times["lse_ms"]),
         "lse_max_abs_err": lse["max_abs_err"],
         "ring_launches": par["ring_scoring"]["ring_launches"],
+        # phase 21: every width, dtype and layout, counted apart
+        "widths_max_abs_err": widths["max_abs_err"],
+        "half_max_abs_err": widths["half_max_abs_err"],
+        "widths_case_launches": widths["case_launches"],
+        "lm_launches_by_head_dim": {k: r["launches"] for k, r in widths["lm_scoring"].items()},
+        "ring_launches_by_head_dim": {
+            k: r["ring_launches"] for k, r in widths["ring_scoring"].items()},
+        "variants": {k: {n: t[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                            "bound_by", "bound_peak")}
+                     for k, t in widths["times"].items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -4611,4 +4943,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-worker"]:
         sys.exit(_multihost_worker(json.loads(sys.argv[2])))
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

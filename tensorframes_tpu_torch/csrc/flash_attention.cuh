@@ -1,0 +1,791 @@
+// Blockwise (flash) attention for Hopper (sm_90a), forward only: the kernel
+// template that flash_attention.cu (float32), flash_attention_f16.cu
+// (float16) and flash_attention_bf16.cu (bfloat16) instantiate, one shared
+// library each, so that nvcc builds the three at once.
+//
+// Replaces the Pallas TPU kernel `_flash_kernel` / `flash_attention` in
+// tensorframes_tpu/ops/pallas_kernels.py (pallas_call at :122). Same
+// function: per head, out = softmax(Q K^T * scale) V with an online
+// softmax; `causal` masks key > query and skips whole key tiles above the
+// diagonal; keys past the end of a ragged sequence are masked; a row whose
+// denominator is 0 is guarded to 1. Layout: q, k, v, o are contiguous,
+// 16-byte aligned (BH, S, D) arrays of one element type (float, __half or
+// __nv_bfloat16), all heads of a batch in one launch, D any multiple of 8
+// (the wrapper, ops/flash_attention.py, pads other widths with zero
+// columns, casts other dtypes to float32 and copies strided or misaligned
+// inputs). Like the Pallas kernel, which casts every block to float32, the
+// kernel computes in float32 whatever it loads: half-precision elements are
+// converted as they are read from shared memory into registers, scores,
+// softmax and the output accumulate in float32, and the output is rounded
+// to the input type to nearest even (`astype`'s rounding). A second entry
+// also stores each row's log-sum-exp of its scaled scores, (BH, S) float32
+// (-inf where the denominator is 0): the softmax statistics that let a
+// caller merge the outputs of launches over different keys (the ring
+// attention of parallel/ring.py) and that a backward pass needs. It is
+// written in the epilogue only, by a second instantiation of the kernel;
+// the main loop is the same for both entries.
+//
+// Translation from the TPU kernel: the TPU grid walks key tiles in order on
+// one core and carries the running max / denominator / accumulator in VMEM
+// scratch across grid steps. Blocks on Hopper run in parallel and in no
+// order, so the key-tile walk is a loop inside one thread block and the
+// carried state lives in registers.
+//
+// What bounds it on an H100 (the main path's shape, BH 32, S 2048, D 64,
+// causal, float32): Q K^T and P V over the causal pairs are 17.2 GFLOP per
+// layer against 67 MB of q/k/v/o traffic, about 256 FLOP per byte, far
+// above the card's float32 ridge (67 TFLOP/s / 3.35 TB/s = 20): it is bound
+// by operations, at least 0.257 ms. TF32 tensor cores keep ~10 mantissa
+// bits and miss the rtol 1e-4 parity bar, so every product here is a
+// float32 FFMA on the CUDA cores, half-precision inputs included (their
+// products would fit the tensor cores; that is later work). What the
+// design does about each limit:
+//
+// 1. Shared-memory instructions, not FFMAs, set the pace of a scalar inner
+//    loop. Register tiling: a block takes a Q tile of kBlockQ = 64 rows and
+//    walks K/V tiles of kBlockK = 64 rows with 128 threads as 8 row groups
+//    x 16 lanes. Thread (ty, tx) owns query rows 8 ty .. 8 ty + 7 and keys
+//    tx + 16 j (j < 4) of the score tile, and the same 8 rows x output
+//    columns 4 tx + 64 h .. +3 (h < ceil(D / 64)) of O. Every Q and K
+//    operand is a 128-bit shared load (4 floats or 8 half values), every V
+//    operand 4 elements: in float32, Q K^T issues 128 FFMA per 12 loads and
+//    P V 32 FFMA per 3 loads at D 64, against 2 FFMA per scalar load. Rows
+//    are d-contiguous with a stride of the row's bytes rounded up to 32,
+//    plus 16 (D + 4 floats, D + 8 or D + 16 half values): 16-byte aligned,
+//    and the 8 rows a quarter-warp reads fall on 8 distinct bank groups;
+//    Q's odd 8-row groups are shifted by 16 more bytes so the two row
+//    groups of one warp read distinct banks. P is float32 and written
+//    key-major, so P V reads a thread's 8 rows as two float4. The row max
+//    reduces with shuffles over the 16 lanes of a row group; the row sum
+//    stays split over those lanes until the end.
+// 2. Staging is asynchronous: Q and the K/V stream are copied with 16-byte
+//    cp.async.cg (8 half values a copy); rows past the ragged end are
+//    zero-filled by the copy's source-size operand. K and V go through a
+//    two-slot ring in the order K0, V0, K1, V1, ...: V_kb is in flight
+//    while Q K_kb^T is computed, and K_kb+1 while P V_kb is. Two barriers
+//    per key tile. At D 64 a float32 block holds 70 KB of shared memory and
+//    an SM three blocks; a two-stage ring of whole K+V tiles would take
+//    104 KB and allow two.
+// 3. Heaviest tiles first: the grid is one dimension of BH x ceil(S /
+//    kBlockQ) blocks (x, not y, so that no sequence length meets y's limit
+//    of 65,535), and block b takes head b % BH and query tile nq - 1 - b /
+//    BH: the longest causal rows of every head are scheduled before any
+//    short one, and the tail wave is short.
+// 4. Masks only where needed: interior key tiles skip the compares; only
+//    tiles that straddle the diagonal or the ragged end take them. Scores
+//    stay unscaled; scale * log2(e) folds into one FFMA before exp2f. A
+//    negative scale negates the staged Q tile once, so the running max of
+//    the unscaled scores is the max of the scaled ones.
+//
+// Heads wider than 128 (flash_attention_wide_kernel, any multiple of 8):
+// a thread's output block is 8 rows x 4 ceil(D / 64) floats, 64 registers
+// at D 128 (218 in all); at D 256 it would spill, and a block's Q, K, V and
+// P tiles would need 217 KB. So a block takes a slice of at most kSliceD =
+// 128 output columns of one query tile (the slices of a tile are
+// neighbours in the grid), computes the full-width scores by walking the Q
+// tile and each K tile through shared memory in chunks of kChunkD = 64
+// columns, and accumulates only its own slice of V. The chunks have one
+// buffer: the next is staged after this one is multiplied; V's slice is
+// in flight during the last chunk's product, and the first chunk of the
+// next K tile during P V. Every slice recomputes the scores: at D 256 Q K^T is done
+// twice, so the kernel does 1.5x the operations of one pass, and it
+// re-reads the Q tile's chunks once a key tile. Its shared memory is
+// 86 KB in float32 (two blocks an SM), whatever D.
+//
+// Tiles by measurement at the LM shape (H100 80GB HBM3 at 700 W; the sweep
+// is in PERF.md): 64-row Q tiles with 128 threads took 0.461 ms against
+// 0.518 ms for 128-row tiles with 256 threads, whose 128-register cap (two
+// blocks per SM) spills at D 64. ptxas (CUDA 12.9, sm_90a), float32: D 64
+// uses 168 registers (three blocks per SM) and D 128 uses 214 (one); the
+// instantiation that stores the log-sum-exp uses 168 and 218. That
+// instantiation is kept apart because a runtime branch on the pointer cost
+// the entry without it 0.7% on an H100 (PERF.md). No instantiation of the
+// three element types spills (chip_smoke.py checks every one; the
+// registers of each are in PERF.md).
+
+#pragma once
+
+#include <climits>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlockQ = 64;                 // query rows per block
+constexpr int kBlockK = 64;                 // keys per tile
+constexpr int kThreads = 128;               // 16 lanes x 8 row groups of 8 rows
+constexpr int kSliceD = 128;                // widest head of the one-slice kernel;
+                                            // output columns a block of the wide one
+constexpr int kChunkD = 64;                 // Q and K columns a step of the wide kernel
+constexpr float kNegInf = -1e30f;           // the TPU kernel's mask value
+constexpr float kLog2e = 1.4426950408889634f;
+
+// elements of T in one 16-byte copy
+template <class T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+
+// Shared-memory layout of a block that holds whole rows of width D, in
+// elements of T (P in floats).
+template <class T, int D>
+struct Layout {
+  static constexpr int kSize = static_cast<int>(sizeof(T));
+  // the row's bytes rounded up to 32, plus 16: 16-byte aligned, and 8
+  // consecutive rows start on 8 distinct 16-byte bank groups
+  static constexpr int kStride = ((D * kSize + 31) / 32 * 32 + 16) / kSize;
+  static constexpr int kPStride = kBlockQ + 4;  // P is key-major: one key per row
+  static constexpr int kQ = kBlockQ * kStride;
+  static constexpr int kKV = kBlockK * kStride;
+  static constexpr int kP = kBlockK * kPStride;
+  static constexpr int kBytes = (kQ + 2 * kKV) * kSize + kP * 4;
+  static constexpr int kNV = (D + 63) / 64;     // 4-column output groups a thread
+  // Blocks an SM should hold: at D <= 64 float32 shared memory (at most 68
+  // KB a block) allows three; a wider head keeps a 64-register accumulator
+  // and takes one; half-precision operands take 16 more registers than
+  // three blocks leave, so those kernels are not capped.
+  static constexpr int kMinBlocks = kSize == 4 && D <= 64 ? 3 : 1;
+};
+
+// Shared memory of the wide kernel: a column chunk of the Q tile and of a K
+// tile, a column slice of a V tile, P.
+template <class T>
+struct WideLayout {
+  using Chunk = Layout<T, kChunkD>;
+  using Slice = Layout<T, kSliceD>;
+  static constexpr int kQ = kBlockQ * Chunk::kStride;
+  static constexpr int kK = kBlockK * Chunk::kStride;
+  static constexpr int kV = kBlockK * Slice::kStride;
+  static constexpr int kP = kBlockK * (kBlockQ + 4);
+  static constexpr int kBytes = (kQ + kK + kV) * Chunk::kSize + kP * 4;
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <class T>
+__device__ __forceinline__ float2 unpack2(unsigned u);
+
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(unsigned u) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&u));
+}
+
+template <>
+__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(unsigned u) {
+  // a bfloat16 is the top half of the float32 with the same value
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+template <class T>
+__device__ __forceinline__ unsigned pack2(float a, float b);
+
+template <>
+__device__ __forceinline__ unsigned pack2<__half>(float a, float b) {
+  const __half2 h = __floats2half2_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+template <>
+__device__ __forceinline__ unsigned pack2<__nv_bfloat16>(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// 8 half-precision elements at a 16-byte aligned shared address, as floats
+template <class T>
+__device__ __forceinline__ void ld8f(const T* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const float2 a = unpack2<T>(u.x), b = unpack2<T>(u.y);
+  const float2 c = unpack2<T>(u.z), d = unpack2<T>(u.w);
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+  f[4] = c.x; f[5] = c.y; f[6] = d.x; f[7] = d.y;
+}
+
+// 4 elements as floats: one 16-byte load of floats, one 8-byte load of
+// half-precision values
+template <class T>
+__device__ __forceinline__ float4 ld4f(const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    return ld4(p);
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = unpack2<T>(u.x), b = unpack2<T>(u.y);
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+}
+
+// 4 floats stored as T, rounded to nearest even
+template <class T>
+__device__ __forceinline__ void st4(T* p, float a, float b, float c, float d) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+  } else {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack2<T>(a, b), pack2<T>(c, d));
+  }
+}
+
+template <class T>
+__device__ __forceinline__ void negate(T& x) {
+  if constexpr (sizeof(T) == 4) {
+    x = -x;
+  } else {
+    reinterpret_cast<unsigned short&>(x) ^= 0x8000u;  // the sign bit
+  }
+}
+
+// 16-byte global -> shared copy; src_bytes 0 writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Offset of row r of a tile of width D: with kSwizzle, odd 8-row groups
+// are shifted by 16 bytes (still inside the row's padded slot).
+template <class T, int D, bool kSwizzle>
+__device__ __forceinline__ int row_offset(int r) {
+  return r * Layout<T, D>::kStride + (kSwizzle ? ((r >> 3) & 1) * kVec<T> : 0);
+}
+
+// One 16-byte chunk, column c of row r of a tile, from global row row0 + r;
+// a row at or past seq is zero-filled (its address clamped to the last row).
+template <class T, int D, bool kSwizzle>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src, int r, int c, int row0,
+                                           int seq) {
+  const int gr = row0 + r;
+  cp_async16(dst + row_offset<T, D, kSwizzle>(r) + c,
+             src + static_cast<size_t>(min(gr, seq - 1)) * D + c, gr < seq ? 16 : 0);
+}
+
+// Issues the cp.async copies of rows row0 .. row0 + ROWS - 1 of one head
+// (row length D) into a tile. A thread copies one column chunk of every
+// kStep-th row, so its addresses are one base plus constants and nothing
+// per copy stays live across the key loop; where a row's chunk count does
+// not divide kThreads, the threads past the last whole row of chunks idle.
+template <class T, int D, int ROWS, bool kSwizzle>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int row0, int seq, int tid) {
+  constexpr int kV = kVec<T>;
+  constexpr int kChunks = D / kV;  // 16-byte chunks per row
+  constexpr int kStep = kThreads / kChunks;
+  const int r0 = tid / kChunks, c = (tid % kChunks) * kV;
+  if (kThreads % kChunks != 0 && r0 >= kStep) return;
+#pragma unroll
+  for (int it = 0; it < (ROWS + kStep - 1) / kStep; ++it) {
+    const int r = r0 + it * kStep;
+    if (ROWS % kStep == 0 || r < ROWS) copy_chunk<T, D, kSwizzle>(dst, src, r, c, row0, seq);
+  }
+}
+
+// x, opaque to the compiler: addresses computed from it are recomputed
+// where they are used instead of being hoisted out of the key loop, where
+// they would hold registers through it
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// The wide kernel's copies: columns col0 .. col0 + DC - 1 of rows row0 ..
+// row0 + ROWS - 1 of one head whose rows hold ld elements, into a tile of
+// width DC; columns at or past ld and rows at or past seq are zero-filled.
+template <class T, int DC, int ROWS, bool kSwizzle>
+__device__ __forceinline__ void stage_cols(T* dst, const T* src, int row0, int seq, int ld,
+                                           int col0, int tid) {
+  constexpr int kV = kVec<T>;
+  constexpr int kChunks = DC / kV;
+  static_assert(kThreads % kChunks == 0 && ROWS % (kThreads / kChunks) == 0, "tile shape");
+  constexpr int kStep = kThreads / kChunks;
+  const int r0 = tid / kChunks, c = (tid % kChunks) * kV;
+  const bool col_ok = col0 + c < ld;
+  const T* base = src + (col_ok ? col0 + c : 0);
+#pragma unroll
+  for (int it = 0; it < ROWS / kStep; ++it) {
+    const int r = r0 + it * kStep;
+    const int gr = row0 + r;
+    cp_async16(dst + row_offset<T, DC, kSwizzle>(r) + c,
+               base + static_cast<size_t>(min(gr, seq - 1)) * ld,
+               col_ok && gr < seq ? 16 : 0);
+  }
+}
+
+// s[i][j] += the product of Q row 8 ty + i and K row tx + 16 j over DC
+// columns; qr and kr point at this thread's first Q and K rows, in tiles of
+// row strides QS and KS.
+template <class T, int DC, int QS, int KS>
+__device__ __forceinline__ void qk(float (&s)[8][4], const T* qr, const T* kr) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll 4
+    for (int d = 0; d < DC; d += 4) {
+      float4 kf[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kf[j] = ld4(kr + 16 * j * KS + d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 qf = ld4(qr + i * QS + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+          s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+          s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+          s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
+        }
+      }
+    }
+  } else {
+#pragma unroll 2
+    for (int d = 0; d < DC; d += 8) {
+      float kf[4][8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ld8f(kr + 16 * j * KS + d, kf[j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float qf[8];
+        ld8f(qr + i * QS + d, qf);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s[i][j] = fmaf(qf[e], kf[j][e], s[i][j]);
+      }
+    }
+  }
+}
+
+// One key tile's online-softmax step for a thread's 8 rows x 4 keys: s holds
+// the unscaled scores on entry and the probabilities on exit; m is the
+// running max of the unscaled scores, l this thread's part of the running
+// denominator, acc the output rows (rescaled here).
+template <bool kMask, int NA>
+__device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[8], float (&l)[8],
+                                               float (&acc)[8][NA], float sc, int qr0,
+                                               int kc0, int seq, int causal) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    bool ok[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kc = kc0 + 16 * j;
+      ok[j] = !kMask || (kc < seq && !(causal && kc > qr0 + i));
+      if (!ok[j]) s[i][j] = kNegInf;
+    }
+    float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m[i], mx);
+    const float mc = m_new * sc;
+    const float alpha = exp2f((m[i] - m_new) * sc);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = exp2f(fmaf(s[i][j], sc, -mc));
+      s[i][j] = ok[j] ? p : 0.f;
+      sum += s[i][j];
+    }
+    l[i] = fmaf(l[i], alpha, sum);
+    m[i] = m_new;
+#pragma unroll
+    for (int a = 0; a < NA; ++a) acc[i][a] *= alpha;
+  }
+}
+
+// The scores' step of one key tile for the thread's 8 rows: masked where
+// the tile straddles the diagonal or the ragged end.
+template <int NA>
+__device__ __forceinline__ void softmax_step(float (&s)[8][4], float (&m)[8], float (&l)[8],
+                                             float (&acc)[8][NA], float sc, int q0, int k0,
+                                             int ty, int tx, int seq, int causal) {
+  const bool edge = k0 + kBlockK > seq || (causal && k0 + kBlockK - 1 > q0);
+  if (edge)
+    online_softmax<true>(s, m, l, acc, sc, q0 + 8 * ty, k0 + tx, seq, causal);
+  else
+    online_softmax<false>(s, m, l, acc, sc, q0 + 8 * ty, k0 + tx, seq, causal);
+}
+
+// The thread's probabilities into P, key-major.
+__device__ __forceinline__ void store_p(float* pw, const float (&s)[8][4]) {
+  constexpr int PS = kBlockQ + 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float* p = pw + 16 * j * PS;
+    st4(p, s[0][j], s[1][j], s[2][j], s[3][j]);
+    st4(p + 4, s[4][j], s[5][j], s[6][j], s[7][j]);
+  }
+}
+
+// O += P V for this thread's 8 rows x 4 NV columns (column group h only
+// where kFullV or tx + 16 h < kCols4); V rows of stride VS.
+template <class T, int NV, bool kFullV, int kCols4, int VS>
+__device__ __forceinline__ void accumulate_pv(float (&acc)[8][4 * NV], const float* pr,
+                                              const T* vr, int tx) {
+  constexpr int PS = kBlockQ + 4;
+#pragma unroll 8
+  for (int c = 0; c < kBlockK; ++c) {
+    const float4 p0 = ld4(pr + c * PS);
+    const float4 p1 = ld4(pr + c * PS + 4);
+    const float pc[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+    for (int h = 0; h < NV; ++h) {
+      if (kFullV || tx + 16 * h < kCols4) {
+        const float4 vf = ld4f(vr + c * VS + 64 * h);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][4 * h + 0] = fmaf(pc[i], vf.x, acc[i][4 * h + 0]);
+          acc[i][4 * h + 1] = fmaf(pc[i], vf.y, acc[i][4 * h + 1]);
+          acc[i][4 * h + 2] = fmaf(pc[i], vf.z, acc[i][4 * h + 2]);
+          acc[i][4 * h + 3] = fmaf(pc[i], vf.w, acc[i][4 * h + 3]);
+        }
+      }
+    }
+  }
+}
+
+// The row's denominator over its 16 lanes; with kLse, lane 0 stores the
+// log-sum-exp of the row's scaled scores, m |scale| + ln(l), where m is the
+// running max in unscaled units (of the negated scores when the scale is
+// negative); -inf for a row whose denominator is 0. Returns the
+// denominator guarded to 1.
+template <bool kLse>
+__device__ __forceinline__ float finish_row(float li, float mi, float scale, float* lse,
+                                            size_t at, bool store_lse) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
+  if constexpr (kLse) {
+    if (store_lse)
+      lse[at] = li == 0.f ? __int_as_float(0xff800000) : fmaf(mi, fabsf(scale), logf(li));
+  }
+  return li == 0.f ? 1.f : li;
+}
+
+// kLse: also store each row's log-sum-exp into lse (the second C entry);
+// the instantiation without it is the kernel as it was before that output.
+template <class T, int D, bool kLse>
+__global__ void __launch_bounds__(kThreads, Layout<T, D>::kMinBlocks)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                       int bh, int seq, float scale, int causal) {
+  using L = Layout<T, D>;
+  constexpr int S = L::kStride;
+  constexpr int PS = L::kPStride;
+  constexpr int NV = L::kNV;
+  constexpr bool kFullV = D % 64 == 0;  // every lane owns output columns
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);  // kBlockQ x S, odd 8-row groups shifted
+  T* ks = qs + L::kQ;                   // kBlockK x S
+  T* vs = ks + L::kKV;                  // kBlockK x S
+  float* ps = reinterpret_cast<float*>(vs + L::kKV);  // kBlockK x PS, key-major
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int nq = (seq + kBlockQ - 1) / kBlockQ;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x / bh)) * kBlockQ;  // heaviest first
+  const size_t head = static_cast<size_t>(blockIdx.x % bh) * seq * D;
+  const T* kh = k + head;
+  const T* vh = v + head;
+
+  stage_rows<T, D, kBlockQ, true>(qs, q + head, q0, seq, tid);
+  stage_rows<T, D, kBlockK, false>(ks, kh, 0, seq, tid);
+  cp_async_commit();
+
+  const int k_end = causal ? min(seq, q0 + kBlockQ) : seq;  // keys any row sees
+  const int nk = (k_end + kBlockK - 1) / kBlockK;
+  float sc = scale * kLog2e;  // p = 2^(s sc - m sc)
+
+  float m[8], l[8], acc[8][4 * NV];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int a = 0; a < 4 * NV; ++a) acc[i][a] = 0.f;
+  }
+
+  cp_async_wait_all();
+  __syncthreads();  // Q and K tile 0 are staged
+  if (sc < 0.f) {
+    for (int i = tid; i < L::kQ; i += kThreads) negate(qs[i]);
+    sc = -sc;
+    __syncthreads();
+  }
+
+  const T* qr = qs + row_offset<T, D, true>(8 * ty);  // this thread's Q rows
+  const T* kr = ks + tx * S;                          // and K rows (+ 16 j)
+  float* pw = ps + tx * PS + 8 * ty;                  // its P entries
+  const float* pr = ps + 8 * ty;                      // its P rows in P V
+  const T* vr = vs + 4 * tx;                          // its V columns
+
+  for (int kb = 0; kb < nk; ++kb) {
+    const int k0 = kb * kBlockK;
+    stage_rows<T, D, kBlockK, false>(vs, vh, k0, seq, tid);
+    cp_async_commit();
+
+    // S = Q K^T for this thread's 8 x 4 block
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    qk<T, D, S, S>(s, qr, kr);
+
+    softmax_step(s, m, l, acc, sc, q0, k0, ty, tx, seq, causal);
+    store_p(pw, s);
+
+    cp_async_wait_all();
+    __syncthreads();  // V tile kb and P are complete; K tile kb is consumed
+    if (kb + 1 < nk) {
+      stage_rows<T, D, kBlockK, false>(ks, kh, k0 + kBlockK, seq, tid);
+      cp_async_commit();
+    }
+
+    accumulate_pv<T, NV, kFullV, D / 4, S>(acc, pr, vr, tx);
+
+    cp_async_wait_all();
+    __syncthreads();  // K tile kb + 1 is staged; V and P are consumed
+  }
+
+  const size_t lse_row = static_cast<size_t>(blockIdx.x % bh) * seq;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + 8 * ty + i;
+    const float li = finish_row<kLse>(l[i], m[i], scale, lse, lse_row + row,
+                                      tx == 0 && row < seq);
+    if (row >= seq) continue;
+    T* orow = o + head + static_cast<size_t>(row) * D + 4 * tx;
+#pragma unroll
+    for (int h = 0; h < NV; ++h) {
+      if (kFullV || tx + 16 * h < D / 4) {
+        st4(orow + 64 * h, acc[i][4 * h] / li, acc[i][4 * h + 1] / li,
+            acc[i][4 * h + 2] / li, acc[i][4 * h + 3] / li);
+      }
+    }
+  }
+}
+
+// Heads wider than kSliceD, any multiple of 8 (see the header): block b
+// takes output slice b % slices of head (b / slices) % BH's query tile
+// nq - 1 - b / (slices BH).
+template <class T, bool kLse>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ o,
+                            float* __restrict__ lse, int bh, int seq, int d, int slices,
+                            float scale, int causal) {
+  using W = WideLayout<T>;
+  constexpr int CS = W::Chunk::kStride;
+  constexpr int VS = W::Slice::kStride;
+  constexpr int PS = kBlockQ + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);  // kBlockQ x CS: a column chunk of the Q tile
+  T* ks = qs + W::kQ;                   // kBlockK x CS: the same chunk of a K tile
+  T* vs = ks + W::kK;                   // kBlockK x VS: this block's slice of a V tile
+  float* ps = reinterpret_cast<float*>(vs + W::kV);  // kBlockK x PS, key-major
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int slice = static_cast<int>(blockIdx.x % slices);
+  const int rest = static_cast<int>(blockIdx.x / slices);
+  const int nq = (seq + kBlockQ - 1) / kBlockQ;
+  const int q0 = (nq - 1 - rest / bh) * kBlockQ;  // heaviest first
+  const int v0 = slice * kSliceD;                  // this block's output columns
+  const size_t head = static_cast<size_t>(rest % bh) * seq * d;
+  const T* qh = q + head;
+  const T* kh = k + head;
+  const T* vh = v + head;
+  const int chunks = (d + kChunkD - 1) / kChunkD;
+
+  stage_cols<T, kChunkD, kBlockQ, true>(qs, qh, q0, seq, d, 0, tid);
+  stage_cols<T, kChunkD, kBlockK, false>(ks, kh, 0, seq, d, 0, tid);
+  cp_async_commit();
+
+  const int k_end = causal ? min(seq, q0 + kBlockQ) : seq;
+  const int nk = (k_end + kBlockK - 1) / kBlockK;
+  // a negative scale negates the scores, so the running max of the
+  // unscaled scores is the max of the scaled ones
+  const bool neg = scale < 0.f;
+  const float sc = fabsf(scale) * kLog2e;
+
+  float m[8], l[8], acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int a = 0; a < 8; ++a) acc[i][a] = 0.f;
+  }
+
+  const T* qr = qs + row_offset<T, kChunkD, true>(8 * ty);
+  const T* kr = ks + tx * CS;
+  float* pw = ps + tx * PS + 8 * ty;
+  const float* pr = ps + 8 * ty;
+  const T* vr = vs + 4 * tx;
+
+  for (int kb = 0; kb < nk; ++kb) {
+    const int k0 = kb * kBlockK;
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      cp_async_wait_all();
+      // chunk c of Q and K is staged; at c = 0, P V of the last tile is done
+      __syncthreads();
+      if (c + 1 == chunks) {  // V's slice is in flight during the last chunk
+        stage_cols<T, kSliceD, kBlockK, false>(vs, vh, k0, seq, d, v0, tid);
+        cp_async_commit();
+      }
+      qk<T, kChunkD, CS, CS>(s, qr, kr);
+      if (c + 1 < chunks) {
+        __syncthreads();  // chunk c is consumed
+        stage_cols<T, kChunkD, kBlockQ, true>(qs, qh, opaque(q0), seq, d, (c + 1) * kChunkD,
+                                              tid);
+        stage_cols<T, kChunkD, kBlockK, false>(ks, kh, k0, seq, d, (c + 1) * kChunkD, tid);
+        cp_async_commit();
+      }
+    }
+    if (neg) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = -s[i][j];
+    }
+
+    softmax_step(s, m, l, acc, sc, q0, k0, ty, tx, seq, causal);
+    store_p(pw, s);
+
+    cp_async_wait_all();
+    __syncthreads();  // V's slice and P are complete; the last chunk is consumed
+    if (kb + 1 < nk) {
+      stage_cols<T, kChunkD, kBlockQ, true>(qs, qh, opaque(q0), seq, d, 0, tid);
+      stage_cols<T, kChunkD, kBlockK, false>(ks, kh, k0 + kBlockK, seq, d, 0, tid);
+      cp_async_commit();
+    }
+
+    accumulate_pv<T, 2, true, kSliceD / 4, VS>(acc, pr, vr, tx);
+  }
+
+  const size_t lse_row = static_cast<size_t>(rest % bh) * seq;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + 8 * ty + i;
+    const float li = finish_row<kLse>(l[i], m[i], scale, lse, lse_row + row,
+                                      slice == 0 && tx == 0 && row < seq);
+    if (row >= seq) continue;
+    T* orow = o + head + static_cast<size_t>(row) * d + v0 + 4 * tx;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (v0 + 4 * tx + 64 * h < d) {
+        st4(orow + 64 * h, acc[i][4 * h] / li, acc[i][4 * h + 1] / li,
+            acc[i][4 * h + 2] / li, acc[i][4 * h + 3] / li);
+      }
+    }
+  }
+}
+
+template <class Kernel>
+cudaError_t prepare(Kernel kernel, int bytes) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// blocks of a one-dimensional grid, or 0 past gridDim.x's limit
+inline unsigned grid_blocks(int slices, int bh, int seq) {
+  const long long n = static_cast<long long>(slices) * bh * ((seq + kBlockQ - 1) / kBlockQ);
+  return n > INT_MAX ? 0u : static_cast<unsigned>(n);
+}
+
+template <class T, int D, bool kLse>
+cudaError_t launch(const T* q, const T* k, const T* v, T* o, float* lse, int bh, int seq,
+                   float scale, int causal, cudaStream_t stream) {
+  using L = Layout<T, D>;
+  const auto kernel = flash_attention_kernel<T, D, kLse>;
+  const cudaError_t err = prepare(kernel, L::kBytes);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = grid_blocks(1, bh, seq);
+  if (blocks == 0) return cudaErrorInvalidConfiguration;
+  kernel<<<blocks, kThreads, L::kBytes, stream>>>(q, k, v, o, lse, bh, seq, scale, causal);
+  return cudaGetLastError();
+}
+
+template <class T, bool kLse>
+cudaError_t launch_wide(const T* q, const T* k, const T* v, T* o, float* lse, int bh, int seq,
+                        int d, float scale, int causal, cudaStream_t stream) {
+  using W = WideLayout<T>;
+  const auto kernel = flash_attention_wide_kernel<T, kLse>;
+  const cudaError_t err = prepare(kernel, W::kBytes);
+  if (err != cudaSuccess) return err;
+  const int slices = (d + kSliceD - 1) / kSliceD;
+  const unsigned blocks = grid_blocks(slices, bh, seq);
+  if (blocks == 0) return cudaErrorInvalidConfiguration;
+  kernel<<<blocks, kThreads, W::kBytes, stream>>>(q, k, v, o, lse, bh, seq, d, slices, scale,
+                                                  causal);
+  return cudaGetLastError();
+}
+
+// One launch at the given head_dim (a positive multiple of 8). Returns a
+// cudaError_t: 0 on success, cudaErrorInvalidValue for another head_dim,
+// cudaErrorInvalidConfiguration for a grid past 2^31 - 1 blocks.
+template <class T>
+int dispatch(const void* qv, const void* kv, const void* vv, void* ov, float* lse, int bh,
+             int seq, int head_dim, float scale, int causal, void* stream) {
+  if (bh <= 0 || seq <= 0) return 0;
+  if (head_dim <= 0 || head_dim % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const T* q = static_cast<const T*>(qv);
+  const T* k = static_cast<const T*>(kv);
+  const T* v = static_cast<const T*>(vv);
+  T* o = static_cast<T*>(ov);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim > kSliceD)
+    return lse != nullptr ? launch_wide<T, true>(q, k, v, o, lse, bh, seq, head_dim, scale,
+                                                 causal, s)
+                          : launch_wide<T, false>(q, k, v, o, lse, bh, seq, head_dim, scale,
+                                                  causal, s);
+  switch (head_dim) {
+#define TFS_CASE(D)                                                      \
+  case D:                                                                \
+    return lse != nullptr ? launch<T, D, true>(q, k, v, o, lse, bh, seq, scale, causal, s) \
+                          : launch<T, D, false>(q, k, v, o, lse, bh, seq, scale, causal, s);
+    TFS_CASE(8) TFS_CASE(16) TFS_CASE(24) TFS_CASE(32)
+    TFS_CASE(40) TFS_CASE(48) TFS_CASE(56) TFS_CASE(64)
+    TFS_CASE(72) TFS_CASE(80) TFS_CASE(88) TFS_CASE(96)
+    TFS_CASE(104) TFS_CASE(112) TFS_CASE(120) TFS_CASE(128)
+#undef TFS_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// The C interface of one element type (loaded with ctypes), SUFFIX naming
+// it; each entry returns dispatch's cudaError_t. The _lse entry also
+// stores each row's log-sum-exp of its scaled scores into lse, a
+// contiguous (bh, seq) float32 array.
+#define TFS_ATTENTION_ENTRIES(T, SUFFIX)                                                    \
+  extern "C" int tfs_flash_attention_##SUFFIX(const void* q, const void* k, const void* v,  \
+                                              void* o, int bh, int seq, int head_dim,       \
+                                              float scale, int causal, void* stream) {      \
+    return dispatch<T>(q, k, v, o, nullptr, bh, seq, head_dim, scale, causal, stream);      \
+  }                                                                                         \
+  extern "C" int tfs_flash_attention_lse_##SUFFIX(const void* q, const void* k,             \
+                                                  const void* v, void* o, float* lse,       \
+                                                  int bh, int seq, int head_dim,            \
+                                                  float scale, int causal, void* stream) {  \
+    return dispatch<T>(q, k, v, o, lse, bh, seq, head_dim, scale, causal, stream);          \
+  }                                                                                         \
+  extern "C" const char* tfs_cuda_error_string(int code) {                                  \
+    return cudaGetErrorString(static_cast<cudaError_t>(code));                              \
+  }

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``tensorframes_tpu_torch/_build/`` (named by a hash of the source and the
-flags, so an edited source rebuilds) and loaded with `ctypes`. A failed
-build raises; there is no fallback.
+``tensorframes_tpu_torch/_build/`` (named by a hash of the source, the
+``csrc/*.cuh`` headers and the flags, so an edited source or header
+rebuilds) and loaded with `ctypes`. A failed build raises; there is no
+fallback.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ def _nvcc() -> str:
 def _build(name: str) -> Path:
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(_FLAGS).encode())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     out = _BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
     if out.exists():
         build_logs.setdefault(name, "(cached build)")

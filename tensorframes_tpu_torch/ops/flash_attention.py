@@ -2,20 +2,31 @@
 PyTorch version.
 
 The counterpart of `tensorframes_tpu/ops/pallas_kernels.py::flash_attention`
-(the Pallas TPU kernel `_flash_kernel`). `flash_attention` takes all heads
-of a batch at once, ``(BH, S, D)``, and computes
+(the Pallas TPU kernel `_flash_kernel`). `flash_attention` takes q, k and v
+of one shape ``(..., S, D)``: JAX's ``(S, D)``, the model's ``(BH, S, D)``
+(all heads of a batch at once) or any other leading dimensions. It computes
 softmax(Q K^T * scale) V per head with the TPU kernel's conventions:
 ``scale`` defaults to 1/sqrt(D), ``causal`` masks key > query, a row whose
-softmax denominator is 0 is guarded to 1, the output has q's dtype.
+softmax denominator is 0 is guarded to 1, the arithmetic is float32 whatever
+the inputs' dtype, and the output has q's dtype.
 
-On a CUDA tensor it launches ``csrc/flash_attention.cu`` (float32, head_dim
-a multiple of 8 up to 128, contiguous 16-byte aligned inputs) and raises on
-anything else; on a CPU tensor it runs `flash_attention_reference`. There is
-no fallback from the kernel to the plain version.
-``flash_attention.launches`` counts kernel launches, of both entries.
+On a CUDA tensor it launches the kernel of ``csrc/flash_attention.cuh``
+(float32, float16 and bfloat16 builds) through one layout step,
+`_kernel_layout`, a plain function the CPU tests call too: the leading
+dimensions flattened to BH; float32, float16 and bfloat16 passed as they
+are when q, k and v share the dtype, any other dtype cast to float32 (what
+the Pallas kernel does to each block); D zero-padded to a multiple of 8
+(zero columns add 0 to every score); a contiguous, 16-byte aligned copy of
+a strided or misaligned input. The result is sliced and reshaped back and
+cast to q's dtype (a float cast to an integer truncates, as JAX's
+``astype`` does). The kernel takes any head width: up to 128 in one
+block's registers, wider heads in column slices. On a CPU tensor it runs
+`flash_attention_reference`. There is no fallback from the kernel to the
+plain version. ``flash_attention.launches`` counts kernel launches, of
+both entries.
 
 `flash_attention_lse` is the same function that also returns each row's
-log-sum-exp of its scaled scores, ``(BH, S)`` float32, -inf for a row whose
+log-sum-exp of its scaled scores, ``(..., S)`` float32, -inf for a row whose
 denominator is 0: the softmax statistics with which the ring attention
 (`parallel.ring.ring_attention`) merges the launches over its K/V shards.
 Its plain version is `flash_attention_lse_reference`; on a CUDA tensor it is
@@ -45,8 +56,15 @@ __all__ = [
 ]
 
 _NEG_INF = -1e30  # the TPU kernel's mask value
-_BLOCK_Q = 64  # query rows per block of csrc/flash_attention.cu (kBlockQ)
-_MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y, which counts query tiles
+# the kernel's builds: element type -> (C entry suffix, library of csrc/)
+_BUILDS = {
+    torch.float32: ("f32", "flash_attention"),
+    torch.float16: ("f16", "flash_attention_f16"),
+    torch.bfloat16: ("bf16", "flash_attention_bf16"),
+}
+_BLOCK_Q = 64  # query rows per block of csrc/flash_attention.cuh (kBlockQ)
+_SLICE_D = 128  # output columns per block (kSliceD)
+_MAX_BLOCKS = 2**31 - 1  # CUDA's limit on gridDim.x, which counts the blocks
 
 
 class AttentionGradientError(RuntimeError):
@@ -106,60 +124,82 @@ def flash_attention_lse_reference(
 
 
 def _check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """What the CUDA kernel takes: three contiguous, 16-byte aligned float32
-    (BH, S, D) tensors on one CUDA device, D a multiple of 8 up to 128, at
-    most 65535 query tiles of 64 rows."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype is not torch.float32:
-            raise TypeError(f"flash_attention: {name} is {t.dtype}, the kernel takes float32")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous")
-        if t.device != q.device:
-            raise ValueError("flash_attention: q, k and v must share a device")
-        if t.data_ptr() % 16:
-            raise ValueError(
-                f"flash_attention: {name} must start on a 16-byte boundary "
-                "(the kernel stages rows with 16-byte copies)"
-            )
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+    """What no layout makes fit the kernel: q, k and v must share one
+    ``(..., S, D)`` shape, D at least 1, and one device."""
+    if q.dim() < 2 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
-            "flash_attention: q, k, v must share one (BH, S, D) shape, got "
+            "flash_attention: q, k, v must share one (..., S, D) shape, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    d = q.shape[-1]
-    if d % 8 or not 8 <= d <= 128:
+    if q.shape[-1] == 0:
+        raise ValueError("flash_attention: head_dim 0")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k and v must share a device")
+
+
+def _kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale):
+    """The layout step of every CUDA launch, on any device: ``(q3, k3, v3,
+    scale, restore)``. q3, k3 and v3 are what the kernel takes, contiguous
+    16-byte aligned ``(BH, S, D8)`` tensors of one of its element types, D8
+    the head width rounded up to a multiple of 8 with zero columns;
+    ``scale`` is 1/sqrt(D) of the true D when None; ``restore(out3, lse3)``
+    turns the kernel's ``(BH, S, D8)`` output and ``(BH, S)`` log-sum-exp
+    (or None) back into ``(..., S, D)`` in q's dtype and ``(..., S)``
+    float32."""
+    _check_kernel_args(q, k, v)
+    *lead, seq, d = q.shape
+    bh = math.prod(lead)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    same = k.dtype == q.dtype and v.dtype == q.dtype
+    dtype = q.dtype if same and q.dtype in _BUILDS else torch.float32
+    d8 = -(-d // 8) * 8
+    blocks = -(-d8 // _SLICE_D) * bh * -(-seq // _BLOCK_Q)
+    if blocks > _MAX_BLOCKS:
         raise ValueError(
-            f"flash_attention: head_dim {d} is not a multiple of 8 in [8, 128]"
-        )
-    if -(-q.shape[1] // _BLOCK_Q) > _MAX_GRID_Y:
-        raise ValueError(
-            f"flash_attention: at most {_MAX_GRID_Y} query tiles of {_BLOCK_Q} rows "
-            f"per launch, got seq {q.shape[1]}"
+            f"flash_attention: {blocks} thread blocks for (BH {bh}, S {seq}, D {d}), "
+            f"one launch takes at most {_MAX_BLOCKS}"
         )
 
+    def prep(t):
+        t = t.reshape(bh, seq, d).to(dtype)
+        if d8 != d:
+            t = torch.nn.functional.pad(t, (0, d8 - d))
+        # .contiguous() keeps a contiguous view that starts off a 16-byte
+        # boundary; the kernel stages rows with 16-byte copies
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            t = t.clone(memory_format=torch.contiguous_format)
+        return t
 
-_lib = None
+    def restore(out, lse):
+        out = out[..., :d].reshape(*lead, seq, d).to(q.dtype)
+        return out, None if lse is None else lse.reshape(*lead, seq)
+
+    return prep(q), prep(k), prep(v), float(scale), restore
 
 
-def _kernel_lib():
-    global _lib
-    if _lib is None:
+_libs = {}
+
+
+def _kernel_entry(dtype: torch.dtype, with_lse: bool):
+    """(the C entry for ``dtype``'s build, its library), built and loaded
+    on first use."""
+    sfx, name = _BUILDS[dtype]
+    lib = _libs.get(sfx)
+    if lib is None:
         from ._cuda_build import load_library
 
-        lib = load_library("flash_attention")
+        lib = load_library(name)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tfs_flash_attention_f32.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32, ptr,
-        ]
-        lib.tfs_flash_attention_f32.restype = i32
-        lib.tfs_flash_attention_lse_f32.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32, ptr,
-        ]
-        lib.tfs_flash_attention_lse_f32.restype = i32
+        for entry, lse_arg in ((f"tfs_flash_attention_{sfx}", []),
+                               (f"tfs_flash_attention_lse_{sfx}", [ptr])):
+            fn = getattr(lib, entry)
+            fn.argtypes = [ptr, ptr, ptr, ptr, *lse_arg, i32, i32, i32, f32, i32, ptr]
+            fn.restype = i32
         lib.tfs_cuda_error_string.argtypes = [i32]
         lib.tfs_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[sfx] = lib
+    return getattr(lib, f"tfs_flash_attention{'_lse' if with_lse else ''}_{sfx}"), lib
 
 
 def _refuse_grad(q, k, v, what: str) -> None:
@@ -174,35 +214,31 @@ def _refuse_grad(q, k, v, what: str) -> None:
 
 
 def _launch(q, k, v, causal, scale, with_lse: bool):
-    """One launch of the kernel on CUDA tensors: (out, lse or None)."""
+    """One launch of the kernel on CUDA tensors, through the layout step:
+    (out, lse or None)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    _check_kernel_args(q, k, v)
-    bh, seq, d = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    out = torch.empty_like(q)
+    q3, k3, v3, scale, restore = _kernel_layout(q, k, v, scale)
+    bh, seq, d8 = q3.shape
+    out = torch.empty_like(q3)
     lse = torch.empty(bh, seq, dtype=torch.float32, device=q.device) if with_lse else None
-    lib = _kernel_lib()
+    if out.numel() == 0:
+        return restore(out, lse)
+    entry, lib = _kernel_entry(q3.dtype, with_lse)
+    lse_arg = (lse.data_ptr(),) if with_lse else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if with_lse:
-            rc = lib.tfs_flash_attention_lse_f32(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                bh, seq, d, float(scale), int(bool(causal)), stream,
-            )
-        else:
-            rc = lib.tfs_flash_attention_f32(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                bh, seq, d, float(scale), int(bool(causal)), stream,
-            )
+        rc = entry(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), *lse_arg,
+            bh, seq, d8, scale, int(bool(causal)), stream,
+        )
     if rc != 0:
         raise RuntimeError(
             "flash_attention kernel launch failed: "
             f"{lib.tfs_cuda_error_string(rc).decode()} (cudaError {rc})"
         )
     flash_attention.launches += 1
-    return out, lse
+    return restore(out, lse)
 
 
 def flash_attention(
@@ -212,9 +248,14 @@ def flash_attention(
     *,
     causal: bool = False,
     scale: Optional[float] = None,
+    block_q: int = 128,
+    block_k: int = 128,
 ) -> torch.Tensor:
-    """Attention over ``(BH, S, D)`` tensors: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. Raises
+    """Attention over q, k, v of one shape ``(..., S, D)``, output in q's
+    dtype: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors. ``block_q`` and ``block_k`` are JAX's keywords: they choose the
+    TPU kernel's tiles, which change only the order in which its sums
+    round, and leave the CUDA kernel's tiles as they are. Raises
     `AttentionGradientError` when autograd would need its gradient."""
     _refuse_grad(q, k, v, "flash_attention")
     if q.device.type == "cpu":
@@ -229,12 +270,15 @@ def flash_attention_lse(
     *,
     causal: bool = False,
     scale: Optional[float] = None,
+    block_q: int = 128,
+    block_k: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`flash_attention` and each row's log-sum-exp of its scaled scores:
-    ``(out (BH, S, D), lse (BH, S) float32)``. One launch of the kernel for
+    ``(out (..., S, D), lse (..., S) float32)``. One launch of the kernel for
     CUDA tensors (counted in ``flash_attention.launches``), the plain
-    version for CPU tensors; raises `AttentionGradientError` when autograd
-    would need its gradient."""
+    version for CPU tensors; ``block_q`` / ``block_k`` as in
+    `flash_attention`. Raises `AttentionGradientError` when autograd would
+    need its gradient."""
     _refuse_grad(q, k, v, "flash_attention_lse")
     if q.device.type == "cpu":
         return flash_attention_lse_reference(q, k, v, causal=causal, scale=scale)

@@ -196,12 +196,7 @@ def _ring_call(q, k, v, mesh, axis, causal, scale, kernel_ok: bool) -> torch.Ten
         scale = 1.0 / math.sqrt(q.shape[-1])
     qs, ks, vs = (_shards(t, devices, w) for t, w in ((q, "q"), (k, "k"), (v, "v")))
     kernel = kernel_ok and devices[0].type == "cuda"
-    if kernel:
-        lead = q.shape[:-2]
-        qs, ks, vs = ([t.reshape(-1, *t.shape[-2:]) for t in ts] for ts in (qs, ks, vs))
     out = _ring(qs, ks, vs, causal=causal, scale=scale, kernel=kernel)
-    if kernel:
-        out = [o.reshape(*lead, *o.shape[-2:]) for o in out]
     return torch.cat([o.to(q.device) for o in out], dim=-2)
 
 
@@ -218,8 +213,8 @@ def ring_attention(
     """Ring attention over ``(..., S, hd)`` q, k, v with the sequence split
     over ``mesh``'s ``axis``; returns the full-length output on q's device.
     On a mesh of CUDA devices every step that is not wholly masked is one
-    launch of the flash kernel (q, k, v of one shape, the kernel's dtype
-    and widths); on the CPU the plain steps. Raises
+    launch of the flash kernel (q, k, v of one shape); on the CPU the
+    plain steps. Raises
     `AttentionGradientError` when autograd would need its gradient (train
     through `ring_attention_reference`)."""
     _refuse_grad(q, k, v, "ring_attention")

@@ -11,6 +11,8 @@ sums scores tile by tile with an online softmax while the plain version
 takes one softmax over the full row, so the two round in different orders.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -131,22 +133,52 @@ class TestWrapper:
     @pytest.mark.parametrize(
         "make,err",
         [
-            (lambda: [torch.zeros(2, 16, 8, dtype=torch.float64)] * 3, TypeError),
-            (lambda: [torch.zeros(2, 8, 16).transpose(1, 2)] * 3, ValueError),
+            (lambda: [torch.zeros(2, 16, 8, dtype=torch.float64)] * 3, None),
+            (lambda: [torch.zeros(2, 8, 16).transpose(1, 2)] * 3, None),
             (lambda: [torch.zeros(2, 16, 8), torch.zeros(2, 8, 8), torch.zeros(2, 16, 8)], ValueError),
-            (lambda: [torch.zeros(2, 16, 12)] * 3, ValueError),
-            (lambda: [torch.zeros(2, 16, 136)] * 3, ValueError),
-            (lambda: [torch.zeros(16, 8)] * 3, ValueError),
-            (lambda: [torch.zeros(2 * 16 * 8 + 1)[1:].view(2, 16, 8)] * 3, ValueError),
-            # one query tile over gridDim.y's 65535; meta tensors allocate nothing
-            (lambda: [torch.empty(1, 65535 * fa._BLOCK_Q + 1, 8, device="meta")] * 3, ValueError),
+            (lambda: [torch.zeros(2, 16, 12)] * 3, None),
+            (lambda: [torch.zeros(2, 16, 136)] * 3, None),
+            (lambda: [torch.zeros(16, 8)] * 3, None),
+            (lambda: [torch.zeros(2 * 16 * 8 + 1)[1:].view(2, 16, 8)] * 3, None),
+            # one query tile past the 65535 a grid's y dimension counts;
+            # meta tensors allocate nothing
+            (lambda: [torch.empty(1, 65535 * fa._BLOCK_Q + 1, 8, device="meta")] * 3, None),
+            (lambda: [torch.zeros(2, 16, 8), torch.zeros(2, 16, 8, device="meta"),
+                      torch.zeros(2, 16, 8)], ValueError),
         ],
         ids=[
             "float64", "non-contiguous", "shape-mismatch", "d-not-multiple-of-8",
-            "d-over-128", "rank-2", "misaligned", "too-many-query-tiles",
+            "d-over-128", "rank-2", "misaligned", "too-many-query-tiles", "mixed-devices",
         ],
     )
     def test_kernel_arguments_are_checked(self, make, err):
-        """What the CUDA kernel cannot take raises before any launch."""
-        with pytest.raises(err):
-            fa._check_kernel_args(*make())
+        """The layout step hands the kernel a contiguous, 16-byte aligned
+        ``(BH, S, D8)`` tensor of a kernel dtype whatever the caller's
+        layout, dtype and width, and restores the caller's shape and dtype;
+        what no layout fits raises before any launch."""
+        q, k, v = make()
+        if err is not None:
+            with pytest.raises(err):
+                fa._kernel_layout(q, k, v, None)
+            return
+        q3, k3, v3, _, restore = fa._kernel_layout(q, k, v, None)
+        *lead, s, d = q.shape
+        bh = math.prod(lead)
+        for t in (q3, k3, v3):
+            assert t.shape == (bh, s, -(-d // 8) * 8)
+            assert t.dtype in (torch.float32, torch.float16, torch.bfloat16)
+            assert t.is_contiguous() and t.data_ptr() % 16 == 0
+        out, lse = restore(torch.zeros_like(q3), torch.zeros(bh, s, device=q.device))
+        assert out.shape == q.shape and out.dtype == q.dtype
+        assert lse.shape == q.shape[:-1] and lse.dtype == torch.float32
+
+    def test_grid_past_the_launch_limit_is_refused(self):
+        """More thread blocks than one launch takes (2^31 - 1)."""
+        q = torch.empty(2**25, 4097, 8, device="meta")
+        with pytest.raises(ValueError, match="thread blocks"):
+            fa._kernel_layout(q, q, q, None)
+
+    def test_zero_head_dim_is_refused(self):
+        q = torch.zeros(2, 16, 0)
+        with pytest.raises(ValueError, match="head_dim 0"):
+            fa._kernel_layout(q, q, q, None)

@@ -91,7 +91,7 @@ def _jax_ring(q, k, v, jmesh, causal):
 
 class TestRingAttention:
     @pytest.mark.parametrize("causal", [False, True])
-    @pytest.mark.parametrize("shape,seed", [((64, 16), 0), ((64, 8), 1)])
+    @pytest.mark.parametrize("shape,seed", [((64, 16), 0), ((64, 8), 1), ((64, 15), 2)])
     def test_single_head_matches_jax(self, jmesh, tmesh, causal, shape, seed):
         q, k, v = _arrays(shape, seed=seed)
         want = _jax_ring(q, k, v, jmesh, causal)
@@ -148,6 +148,33 @@ class TestRingAttention:
         np.testing.assert_allclose(got, np.asarray(full), rtol=_RTOL, atol=_ATOL)
         assert len(steps) == (n * (n + 1) // 2 if causal else n * n)
         assert sum(steps) == (n if causal else 0)  # the diagonal steps are causal
+
+    @pytest.mark.parametrize("causal", [False, True])
+    def test_kernel_route_at_head_dim_15(self, monkeypatch, jmesh, causal):
+        """The kernel route at a head width the kernel takes only through
+        the wrapper's layout step (zero-padded to 16): each step's
+        `flash_attention_lse` is what a CUDA shard goes through, the layout
+        step and its restore around the plain version, and the ring agrees
+        with JAX's ring and full attention."""
+        from tensorframes_tpu_torch.ops import flash_attention as fa
+
+        def routed(q, k, v, *, causal, scale):
+            q3, k3, v3, sc, restore = fa._kernel_layout(q, k, v, scale)
+            assert q3.shape[-1] == 16
+            return restore(*flash_attention_lse_reference(q3, k3, v3, causal=causal, scale=sc))
+
+        q, k, v = _arrays((4, 64, 15), seed=6)
+        n = 4
+        split = [list(torch.chunk(torch.from_numpy(t), n, dim=-2)) for t in (q, k, v)]
+        monkeypatch.setattr("tensorframes_tpu_torch.parallel.ring.flash_attention_lse", routed)
+        out = _ring(*split, causal=causal, scale=1.0 / math.sqrt(15), kernel=True)
+        got = torch.cat(out, dim=-2).numpy()
+        assert got.shape == (4, 64, 15)
+        np.testing.assert_allclose(got, _jax_ring(q, k, v, jmesh, causal),
+                                   rtol=_RTOL, atol=_ATOL)
+        full = jax.vmap(lambda a, b, c: j_full(a, b, c, causal=causal))(
+            *map(jnp.asarray, (q, k, v)))
+        np.testing.assert_allclose(got, np.asarray(full), rtol=_RTOL, atol=_ATOL)
 
     def test_merge_weighs_a_masked_step_zero(self):
         o = torch.ones(2, 3, 4)

@@ -1,10 +1,11 @@
 """Time the flash-attention kernel's entries at the LM's shape on the card.
 
-    python3 tests/torch_attention_timing.py [ROUNDS [ENTRY ...]]
+    python3 tests/torch_attention_timing.py [--shape BHxSxD] [ROUNDS [ENTRY ...]]
 
-Builds `tensorframes_tpu_torch/csrc/flash_attention.cu` of the checkout it
-runs from, then times `flash_attention` (and `flash_attention_lse`, where
-the checkout has it) at BH 32, S 2048, D 64, causal, float32: ROUNDS rounds
+Builds the float32 attention kernel (`tensorframes_tpu_torch/csrc/`) of the
+checkout it runs from, then times `flash_attention` (and
+`flash_attention_lse`, where the checkout has it) at BH 32, S 2048, D 64
+(or the ``--shape`` given, e.g. ``16x2048x128``), causal, float32: ROUNDS rounds
 (default 11), each the mean of 20 launches between CUDA events after a
 warm-up, the entries in turns within a round. Naming entries times only
 those, so that checkouts with and without an entry run the same loop. Prints one JSON line: the
@@ -45,25 +46,30 @@ def main() -> int:
         return 1
     from tensorframes_tpu_torch.ops import flash_attention as fa
 
-    rounds = int(sys.argv[1]) if len(sys.argv) > 1 else 11
+    args = sys.argv[1:]
+    shape = [32, 2048, 64]
+    if args[:1] == ["--shape"]:
+        shape = [int(n) for n in args[1].split("x")]
+        args = args[2:]
+    rounds = int(args[0]) if args else 11
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(32, 2048, 64, device="cuda", generator=gen) for _ in range(3))
+    q, k, v = (torch.randn(*shape, device="cuda", generator=gen) for _ in range(3))
     entries = {"flash_attention": lambda: fa.flash_attention(q, k, v, causal=True)}
     if hasattr(fa, "flash_attention_lse"):
         entries["flash_attention_lse"] = lambda: fa.flash_attention_lse(q, k, v, causal=True)
-    if len(sys.argv) > 2:
-        entries = {name: entries[name] for name in sys.argv[2:]}
+    if len(args) > 1:
+        entries = {name: entries[name] for name in args[1:]}
     times = {name: [] for name in entries}
     for r in range(rounds):
         order = list(entries) if r % 2 == 0 else list(reversed(entries))
         for name in order:
             times[name].append(_time_ms(entries[name]))
     print(json.dumps({
-        "card": card, "shape": [32, 2048, 64], "causal": True, "rounds": rounds,
+        "card": card, "shape": shape, "causal": True, "rounds": rounds,
         "median_ms": {n: float(np.median(t)) for n, t in times.items()},
         "quartiles_ms": {n: [float(np.percentile(t, 25)), float(np.percentile(t, 75))]
                          for n, t in times.items()},
