@@ -289,6 +289,25 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters: int) -> float:
+    """Mean device time of one call, by CUDA events around ``iters`` calls
+    after one warm-up call, the stream first held by a spin kernel long
+    enough for the host to queue every call: where a call's host work
+    (a wrapper's layout step, the launch) outlasts its kernel, back-to-back
+    calls leave the device waiting and `_time_ms` reads the host."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000 * iters)  # ~0.5 ms of clock cycles a call
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _wall(fn):
     """(result, seconds) of ``fn()`` ending in a device synchronise."""
     torch.cuda.synchronize()
@@ -308,15 +327,24 @@ def _plan_ran(what: str, key: str) -> None:
 
 
 def _attention_bound(bh: int, s: int, d: int, causal: bool, elem_bytes: int = 4,
-                     peak_flops: float = _PEAK_F32_FLOPS):
+                     peak_flops: float = _PEAK_F32_FLOPS, products: int = 2):
     """(bound_ms, bound_by) of attention over (bh, s, d) elements of
-    ``elem_bytes`` bytes: the two products Q K^T and P V at 2 operations per
+    ``elem_bytes`` bytes: ``products`` products of depth or width d (Q K^T
+    and P V; 3 where P V runs twice, for the P pair) at 2 operations per
     multiply-add over the pairs the mask keeps, at ``peak_flops``, against
     q, k, v read once and o written once."""
     pairs = s * (s + 1) // 2 if causal else s * s
-    t_ops = 4 * d * pairs * bh / peak_flops
+    t_ops = 2 * products * d * pairs * bh / peak_flops
     t_bytes = 4 * bh * s * d * elem_bytes / _PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# attention kernels the three libraries compile: float32 at head_dim 8-128
+# (16 widths), the tensor-core kernel of bf16 and fp16 at 1-8 k16 steps,
+# the wide kernel of each of the three types; each with and without the
+# log-sum-exp
+_TC_INSTANTIATIONS = 2 * 8 * 2
+_INSTANTIATIONS = 16 * 2 + _TC_INSTANTIATIONS + 3 * 2
 
 
 def _ptxas_line(log: str, d: int, lse: bool = False):
@@ -324,7 +352,7 @@ def _ptxas_line(log: str, d: int, lse: bool = False):
     attention kernel (the instantiation that stores the log-sum-exp with
     ``lse``), from the build log, or None for a cached build."""
     m = re.search(
-        rf"Compiling entry function '[^']*flash_attention_kernelIfLi{d}ELb{int(lse)}E.*?"
+        rf"Compiling entry function '[^']*flash_attention_kernelILi{d}ELb{int(lse)}E.*?"
         r"(\d+ bytes stack frame, \d+ bytes spill stores, \d+ bytes spill loads)"
         r".*?(Used [^\n]*)",
         log, re.S,
@@ -374,19 +402,33 @@ def phase_card_and_build() -> None:
     libs = _cuda_build.build_all()
     seconds = time.perf_counter() - t0
     # ptxas's registers and spills for the float32 head_dim-64 kernel the LM
-    # runs and for head_dim 128; every instantiation (three element types,
-    # head_dim 8-128 and the wide kernel, with and without the log-sum-exp)
-    # must spill nothing
+    # runs and for head_dim 128; every instantiation must spill nothing: the
+    # float32 kernel at head_dim 8-128, the tensor-core kernel of bf16 and
+    # fp16 at 1-8 k16 steps (padded head_dim up to 128), the wide kernel of
+    # the three types, each with and without the log-sum-exp. The
+    # tensor-core kernel is built for wgmma pipelines: ptxas must not
+    # serialize them (its C7510-C7520 notes)
     log = _cuda_build.build_logs.get("flash_attention", "")
     ptxas = _ptxas_table(_cuda_build.build_logs)
     spilled = {k: r for k, r in ptxas.items() if r[1] or r[2]}
     if spilled:
         raise AssertionError(f"ptxas spilled in {spilled} ([registers, stores, loads, stack])")
+    tc = {k: r[0] for k, r in ptxas.items() if "flash_attention_tc_kernel" in k}
+    if ptxas and (len(ptxas) != _INSTANTIATIONS or len(tc) != _TC_INSTANTIATIONS):
+        raise AssertionError(
+            f"ptxas compiled {len(ptxas)} attention kernels ({len(tc)} tensor-core), "
+            f"expected {_INSTANTIATIONS} ({_TC_INSTANTIATIONS})")
+    serialized = sorted({
+        line.strip() for build_log in _cuda_build.build_logs.values()
+        for line in build_log.splitlines()
+        if "wgmma.mma_async instructions are serialized" in line})
+    if serialized:
+        raise AssertionError(f"ptxas serialized the tensor-core kernel's wgmma: {serialized[:3]}")
     _emit(
         "build", libraries=sorted(libs), seconds=seconds,
         ptxas_d64=_ptxas_line(log, 64), ptxas_d128=_ptxas_line(log, 128),
         ptxas_instantiations=len(ptxas), ptxas_spill_bytes=0,
-        ptxas_registers=ptxas,
+        ptxas_tensor_core_registers=tc, ptxas_registers=ptxas,
     )
 
 
@@ -4579,8 +4621,8 @@ def phase_parallel_models(cfg, lm_shape, cards: int = 1) -> dict:
 # place, a relative 2^-7 (bf16) or 2^-10 (fp16); atol for values near 0
 _HALF_RTOL = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
 _HALF_ATOL = 1e-5
-# bf16 and fp16 products could run on the tensor cores (dense, NVIDIA's
-# data sheet): the bound of a half-precision call is taken against them
+# bf16 and fp16 products run on the tensor cores (dense, NVIDIA's data
+# sheet): the bound of a half-precision call is taken against them
 _PEAK_HALF_FLOPS = 989e12
 
 
@@ -4689,25 +4731,52 @@ def _width_and_layout_cases(gen) -> dict:
     return errs
 
 
+def _routes_since(before: dict) -> dict:
+    """Kernel launches by route since the counts ``before``."""
+    from tensorframes_tpu_torch.ops.flash_attention import flash_attention
+
+    now = flash_attention.launches_by_route
+    return {r: n - before[r] for r, n in now.items() if n != before[r]}
+
+
 def _half_cases(gen, lm_shape) -> dict:
-    """bf16 and fp16 loaded by the kernel itself, against the plain version
-    within one unit in their last place; max abs error by case."""
+    """bf16 and fp16 loaded by the kernels themselves, against the plain
+    version within one unit in their last place; max abs error by case.
+    Every case at a padded head width up to 128 must have run both entries
+    on the tensor-core kernel (the library's route report), wider ones on
+    the wide kernel."""
+    from tensorframes_tpu_torch.ops.flash_attention import flash_attention
+
+    cases = [  # (shape, causal, scale)
+        ((3, 200, 64), False, None), ((3, 200, 64), True, None),
+        ((2, 129, 128), False, None), ((2, 129, 128), True, None),
+        ((4, 300, 256), False, None), ((4, 300, 256), True, None),
+        (lm_shape, True, None),
+        # widths the k16 step does not divide (zero-filled box columns), a
+        # padded width, ragged lengths against the 128-row tiles, one row
+        ((2, 300, 8), True, None), ((2, 200, 24), False, None),
+        ((2, 1000, 120), True, None), ((2, 129, 15), True, None), ((1, 1, 8), False, None),
+        # scales: the scores are scaled before the row max (tensor cores), or
+        # the scores negated (the wide kernel)
+        ((3, 200, 64), True, -0.125), ((4, 300, 256), True, -0.125),
+        ((2, 200, 24), True, 0.0), ((2, 129, 120), False, -0.05),
+    ]
     errs = {}
     for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
-        for shape, causals in (((3, 200, 64), (False, True)), ((2, 129, 128), (False, True)),
-                               ((4, 300, 256), (False, True)), (lm_shape, (True,))):
-            for causal in causals:
-                q, k, v = (torch.randn(*shape, device="cuda", generator=gen).to(dtype)
-                           for _ in range(3))
-                errs[f"{name}-" + "x".join(map(str, shape)) + ("-causal" if causal else "")] = (
-                    _both_entries(f"{name} {shape} causal={causal}", q, k, v, causal))
-        # a negative scale negates the staged Q tile's 2-byte elements (one
-        # slice) or the scores (the wide kernel)
-        for shape in ((3, 200, 64), (4, 300, 256)):
+        for shape, causal, scale in cases:
             q, k, v = (torch.randn(*shape, device="cuda", generator=gen).to(dtype)
                        for _ in range(3))
-            errs[f"{name}-" + "x".join(map(str, shape)) + "-causal-scale-0.125"] = (
-                _both_entries(f"{name} {shape} causal scale=-0.125", q, k, v, True, -0.125))
+            key = f"{name}-" + "x".join(map(str, shape)) + ("-causal" if causal else "")
+            if scale is not None:
+                key += f"-scale{scale}"
+            before = dict(flash_attention.launches_by_route)
+            errs[key] = _both_entries(f"{name} {shape} causal={causal} scale={scale}",
+                                      q, k, v, causal, scale)
+            route = "tensor_core" if -(-shape[-1] // 8) * 8 <= 128 else "wide"
+            if _routes_since(before) != {route: 2}:
+                raise AssertionError(
+                    f"{key}: the two entries launched {_routes_since(before)}, expected "
+                    f"{{'{route}': 2}}")
     return errs
 
 
@@ -4743,7 +4812,10 @@ def _long_sequence(gen, d: int = 8) -> dict:
 
 def _variant_times(bh: int, s: int, d: int, dtype, gen) -> dict:
     """The kernel, its plain version and SDPA of the same dtype, causal, at
-    (bh, s, d): ms each, and the bound at the peak the dtype could use."""
+    (bh, s, d): device ms each, the wrapper's back-to-back ms, the route
+    the kernel took, and the bound at the peak the dtype could use (for
+    the tensor-core kernel also at the operations it does, P V twice for
+    the pair)."""
     from tensorframes_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
@@ -4755,11 +4827,21 @@ def _variant_times(bh: int, s: int, d: int, dtype, gen) -> dict:
     half = dtype in _HALF_RTOL
     peak = _PEAK_HALF_FLOPS if half else _PEAK_F32_FLOPS
     bound_ms, bound_by = _attention_bound(bh, s, d, True, q.element_size(), peak)
-    ms = _time_ms(lambda: flash_attention(q, k, v, causal=True), 20)
+    before = dict(flash_attention.launches_by_route)
+    flash_attention(q, k, v, causal=True)
+    (route,) = _routes_since(before)
+    ms = _device_ms(lambda: flash_attention(q, k, v, causal=True), 20)
+    extra = {}
+    if route == "tensor_core":
+        # the operations the kernel does: Q K^T once, P V twice (the pair)
+        extra["bound_pair_ms"] = _attention_bound(bh, s, d, True, q.element_size(), peak,
+                                                  products=3)[0]
     return dict(
-        shape=[bh, s, d], dtype=str(dtype).replace("torch.", ""), causal=True, ms=ms,
-        plain_ms=_time_ms(lambda: flash_attention_reference(q, k, v, causal=True), 5),
-        library_ms=_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        shape=[bh, s, d], dtype=str(dtype).replace("torch.", ""), causal=True, route=route,
+        ms=ms, **extra,
+        wrapper_ms=_time_ms(lambda: flash_attention(q, k, v, causal=True), 20),
+        plain_ms=_device_ms(lambda: flash_attention_reference(q, k, v, causal=True), 5),
+        library_ms=_device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True), 20),
         bound_ms=bound_ms, bound_by=bound_by,
         bound_peak=("989 TFLOP/s bf16/fp16 tensor cores" if half
@@ -4769,20 +4851,23 @@ def _variant_times(bh: int, s: int, d: int, dtype, gen) -> dict:
 
 
 def phase_attention_widths(tft, cfg, lm_shape, n_seqs: int, block_seqs: int) -> dict:
-    """Phase 21: the kernel at every head width, dtype and layout the Pallas
-    kernel takes, against its plain version; `TransformerLM` scoring at head
-    widths 128, 256 and 15 (phase 7's route and widths, other head counts)
-    and the ``mesh=`` ring at 15 and 256, their launches counted apart from
-    the main path's; times of the new variants beside SDPA and their
-    bounds. Returns what the kernels line carries."""
+    """Phase 21: the kernels at every head width, dtype and layout the
+    Pallas kernel takes, against their plain version, bf16 and fp16 up to
+    head_dim 128 asserted on the tensor-core kernel; `TransformerLM`
+    scoring at head widths 128, 256 and 15 (phase 7's route and widths,
+    other head counts) and the ``mesh=`` ring at 15 and 256, their launches
+    counted apart from the main path's; times of the variants beside SDPA
+    and their bounds. Returns what the kernels line carries."""
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
     flash_attention.launches = 0
+    flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
     errs = _width_and_layout_cases(gen)
     half_errs = _half_cases(gen, lm_shape)
     case_launches = flash_attention.launches
+    case_routes = dict(flash_attention.launches_by_route)
     long_seq = _long_sequence(gen)
     torch.cuda.empty_cache()
 
@@ -4813,6 +4898,11 @@ def phase_attention_widths(tft, cfg, lm_shape, n_seqs: int, block_seqs: int) -> 
         "f32-16x2048x256": _variant_times(16, 2048, 256, torch.float32, gen),
         "bf16-lm": _variant_times(*lm_shape, torch.bfloat16, gen),
         "fp16-lm": _variant_times(*lm_shape, torch.float16, gen),
+        # the tensor-core kernel at D 128, the wide kernel at D 256
+        "bf16-16x2048x128": _variant_times(16, 2048, 128, torch.bfloat16, gen),
+        "fp16-16x2048x128": _variant_times(16, 2048, 128, torch.float16, gen),
+        "bf16-16x2048x256": _variant_times(16, 2048, 256, torch.bfloat16, gen),
+        "fp16-16x2048x256": _variant_times(16, 2048, 256, torch.float16, gen),
     }
     out = dict(
         card=_CARD, max_abs_err_each={**errs, **half_errs},
@@ -4821,7 +4911,8 @@ def phase_attention_widths(tft, cfg, lm_shape, n_seqs: int, block_seqs: int) -> 
                    "bf16": {"rtol": _HALF_RTOL[torch.bfloat16], "atol": _HALF_ATOL},
                    "fp16": {"rtol": _HALF_RTOL[torch.float16], "atol": _HALF_ATOL},
                    "int32": "float32 results at the float32 bar; integers within 1"},
-        case_launches=case_launches, long_sequence=long_seq, lm_scoring=lms,
+        case_launches=case_launches, case_launches_by_route=case_routes,
+        long_sequence=long_seq, lm_scoring=lms,
         ring_scoring=rings, times=times, seconds=time.perf_counter() - t0,
     )
     _emit("attention_widths", **out)
@@ -4856,6 +4947,7 @@ def main(argv) -> int:
 
     # the main path: every launch counter starts at 0 here
     flash_attention.launches = 0
+    flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
     verbs_df = phase_graph_verbs(tft)
     phase_map_rows_mlp(tft)
     phase_aggregate(tft)
@@ -4883,11 +4975,12 @@ def main(argv) -> int:
         )
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)
     launches = flash_attention.launches
+    main_routes = {r: n for r, n in flash_attention.launches_by_route.items() if n}
     expected = cfg["n_layers"] * (n_seqs // block_seqs)
-    if launches != expected:
+    if launches != expected or main_routes != {"cuda_core": expected}:
         raise AssertionError(
-            f"flash_attention launched {launches} times on the main path, "
-            f"expected n_layers x blocks = {expected}"
+            f"flash_attention launched {launches} times on the main path ({main_routes}), "
+            f"expected n_layers x blocks = {expected}, all on the float32 kernel"
         )
     if torch.cuda.device_count() >= 2:
         # counted apart from the main path's launches read above
@@ -4911,12 +5004,17 @@ def main(argv) -> int:
         "name": "flash_attention",
         "route": "cuda",
         "source": "tensorframes_tpu_torch/csrc/flash_attention.cuh",
-        # one library an element type, each instantiating the template
+        # the CUDA-core kernels (float32; every type past head_dim 128) and
+        # the tensor-core kernel of bf16 and fp16 up to head_dim 128
+        "headers": ["tensorframes_tpu_torch/csrc/flash_attention.cuh",
+                    "tensorframes_tpu_torch/csrc/flash_attention_tc.cuh"],
+        # one library an element type; the 2-byte ones include both headers
         "builds": ["tensorframes_tpu_torch/csrc/flash_attention.cu",
                    "tensorframes_tpu_torch/csrc/flash_attention_f16.cu",
                    "tensorframes_tpu_torch/csrc/flash_attention_bf16.cu"],
         "replaces": "tensorframes_tpu/ops/pallas_kernels.py:122",
         "launches": launches,
+        "launches_by_route": main_routes,
         **attn,
         "lse_ms": min(lm_times["lse_ms"]),
         "lse_max_abs_err": lse["max_abs_err"],
@@ -4925,11 +5023,13 @@ def main(argv) -> int:
         "widths_max_abs_err": widths["max_abs_err"],
         "half_max_abs_err": widths["half_max_abs_err"],
         "widths_case_launches": widths["case_launches"],
+        "widths_case_launches_by_route": widths["case_launches_by_route"],
         "lm_launches_by_head_dim": {k: r["launches"] for k, r in widths["lm_scoring"].items()},
         "ring_launches_by_head_dim": {
             k: r["ring_launches"] for k, r in widths["ring_scoring"].items()},
-        "variants": {k: {n: t[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                            "bound_by", "bound_peak")}
+        "variants": {k: {n: t[n] for n in ("route", "ms", "wrapper_ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_pair_ms", "bound_by", "bound_peak")
+                         if n in t}
                      for k, t in widths["times"].items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,11 @@
-// Blockwise (flash) attention for Hopper (sm_90a), forward only: the kernel
-// template that flash_attention.cu (float32), flash_attention_f16.cu
-// (float16) and flash_attention_bf16.cu (bfloat16) instantiate, one shared
-// library each, so that nvcc builds the three at once.
+// Blockwise (flash) attention for Hopper (sm_90a), forward only: the CUDA-core
+// kernels and the dispatch that flash_attention.cu (float32),
+// flash_attention_f16.cu (float16) and flash_attention_bf16.cu (bfloat16)
+// instantiate, one shared library each, so that nvcc builds the three at
+// once. The one-slice kernel below is the float32 kernel; bf16 and fp16 at
+// padded head widths up to 128 run on the tensor cores
+// (flash_attention_tc.cuh, which the two 2-byte builds include); the wide
+// kernel takes every element type past 128.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `flash_attention` in
 // tensorframes_tpu/ops/pallas_kernels.py (pallas_call at :122). Same
@@ -14,10 +18,11 @@
 // (the wrapper, ops/flash_attention.py, pads other widths with zero
 // columns, casts other dtypes to float32 and copies strided or misaligned
 // inputs). Like the Pallas kernel, which casts every block to float32, the
-// kernel computes in float32 whatever it loads: half-precision elements are
-// converted as they are read from shared memory into registers, scores,
-// softmax and the output accumulate in float32, and the output is rounded
-// to the input type to nearest even (`astype`'s rounding). A second entry
+// kernels compute in float32 whatever they load: the wide kernel converts
+// half-precision elements as they are read from shared memory into
+// registers (the tensor-core kernel multiplies them as they are, exactly),
+// scores, softmax and the output accumulate in float32, and the output is
+// rounded to the input type to nearest even (`astype`'s rounding). A second entry
 // also stores each row's log-sum-exp of its scaled scores, (BH, S) float32
 // (-inf where the denominator is 0): the softmax statistics that let a
 // caller merge the outputs of launches over different keys (the ring
@@ -36,10 +41,10 @@
 // layer against 67 MB of q/k/v/o traffic, about 256 FLOP per byte, far
 // above the card's float32 ridge (67 TFLOP/s / 3.35 TB/s = 20): it is bound
 // by operations, at least 0.257 ms. TF32 tensor cores keep ~10 mantissa
-// bits and miss the rtol 1e-4 parity bar, so every product here is a
-// float32 FFMA on the CUDA cores, half-precision inputs included (their
-// products would fit the tensor cores; that is later work). What the
-// design does about each limit:
+// bits and miss the rtol 1e-4 parity bar, so every float32 product here is
+// an FFMA on the CUDA cores; bf16 and fp16 products are exact in float32
+// and run on the tensor cores instead (flash_attention_tc.cuh), except in
+// the wide kernel. What the design does about each limit:
 //
 // 1. Shared-memory instructions, not FFMAs, set the pace of a scalar inner
 //    loop. Register tiling: a block takes a Q tile of kBlockQ = 64 rows and
@@ -47,23 +52,25 @@
 //    x 16 lanes. Thread (ty, tx) owns query rows 8 ty .. 8 ty + 7 and keys
 //    tx + 16 j (j < 4) of the score tile, and the same 8 rows x output
 //    columns 4 tx + 64 h .. +3 (h < ceil(D / 64)) of O. Every Q and K
-//    operand is a 128-bit shared load (4 floats or 8 half values), every V
-//    operand 4 elements: in float32, Q K^T issues 128 FFMA per 12 loads and
-//    P V 32 FFMA per 3 loads at D 64, against 2 FFMA per scalar load. Rows
-//    are d-contiguous with a stride of the row's bytes rounded up to 32,
-//    plus 16 (D + 4 floats, D + 8 or D + 16 half values): 16-byte aligned,
-//    and the 8 rows a quarter-warp reads fall on 8 distinct bank groups;
+//    operand is a 128-bit shared load, every V operand 4 elements: in
+//    float32, Q K^T issues 128 FFMA per 12 loads and P V 32 FFMA per 3
+//    loads at D 64, against 2 FFMA per scalar load. Rows are d-contiguous
+//    with a stride of the row's bytes rounded up to 32, plus 16 (D + 4
+//    floats; in the wide kernel's 2-byte chunks D + 8 or D + 16 values):
+//    16-byte aligned, and the 8 rows a quarter-warp reads fall on 8
+//    distinct bank groups;
 //    Q's odd 8-row groups are shifted by 16 more bytes so the two row
 //    groups of one warp read distinct banks. P is float32 and written
 //    key-major, so P V reads a thread's 8 rows as two float4. The row max
 //    reduces with shuffles over the 16 lanes of a row group; the row sum
-//    stays split over those lanes until the end.
+//    stays split over those lanes until the end. The wide kernel keeps
+//    this arithmetic for 2-byte elements too (8 values a 16-byte load).
 // 2. Staging is asynchronous: Q and the K/V stream are copied with 16-byte
-//    cp.async.cg (8 half values a copy); rows past the ragged end are
-//    zero-filled by the copy's source-size operand. K and V go through a
-//    two-slot ring in the order K0, V0, K1, V1, ...: V_kb is in flight
-//    while Q K_kb^T is computed, and K_kb+1 while P V_kb is. Two barriers
-//    per key tile. At D 64 a float32 block holds 70 KB of shared memory and
+//    cp.async.cg (8 half values a copy in the wide kernel); rows past the
+//    ragged end are zero-filled by the copy's source-size operand. K and V
+//    go through a two-slot ring in the order K0, V0, K1, V1, ...: V_kb is
+//    in flight while Q K_kb^T is computed, and K_kb+1 while P V_kb is. Two
+//    barriers per key tile. At D 64 a float32 block holds 70 KB of shared memory and
 //    an SM three blocks; a two-stage ring of whole K+V tiles would take
 //    104 KB and allow two.
 // 3. Heaviest tiles first: the grid is one dimension of BH x ceil(S /
@@ -100,8 +107,8 @@
 // instantiation that stores the log-sum-exp uses 168 and 218. That
 // instantiation is kept apart because a runtime branch on the pointer cost
 // the entry without it 0.7% on an H100 (PERF.md). No instantiation of the
-// three element types spills (chip_smoke.py checks every one; the
-// registers of each are in PERF.md).
+// three libraries spills (chip_smoke.py checks every one; the registers of
+// each are in PERF.md).
 
 #pragma once
 
@@ -139,11 +146,10 @@ struct Layout {
   static constexpr int kP = kBlockK * kPStride;
   static constexpr int kBytes = (kQ + 2 * kKV) * kSize + kP * 4;
   static constexpr int kNV = (D + 63) / 64;     // 4-column output groups a thread
-  // Blocks an SM should hold: at D <= 64 float32 shared memory (at most 68
-  // KB a block) allows three; a wider head keeps a 64-register accumulator
-  // and takes one; half-precision operands take 16 more registers than
-  // three blocks leave, so those kernels are not capped.
-  static constexpr int kMinBlocks = kSize == 4 && D <= 64 ? 3 : 1;
+  // Blocks an SM should hold (the float32 one-slice kernel): at D <= 64
+  // shared memory (at most 68 KB a block) allows three; a wider head keeps
+  // a 64-register accumulator and takes one.
+  static constexpr int kMinBlocks = D <= 64 ? 3 : 1;
 };
 
 // Shared memory of the wide kernel: a column chunk of the Q tile and of a K
@@ -222,15 +228,6 @@ __device__ __forceinline__ void st4(T* p, float a, float b, float c, float d) {
     *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
   } else {
     *reinterpret_cast<uint2*>(p) = make_uint2(pack2<T>(a, b), pack2<T>(c, d));
-  }
-}
-
-template <class T>
-__device__ __forceinline__ void negate(T& x) {
-  if constexpr (sizeof(T) == 4) {
-    x = -x;
-  } else {
-    reinterpret_cast<unsigned short&>(x) ^= 0x8000u;  // the sign bit
   }
 }
 
@@ -465,13 +462,15 @@ __device__ __forceinline__ float finish_row(float li, float mi, float scale, flo
   return li == 0.f ? 1.f : li;
 }
 
-// kLse: also store each row's log-sum-exp into lse (the second C entry);
-// the instantiation without it is the kernel as it was before that output.
-template <class T, int D, bool kLse>
-__global__ void __launch_bounds__(kThreads, Layout<T, D>::kMinBlocks)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                       int bh, int seq, float scale, int causal) {
+// The float32 kernel at head widths up to kSliceD. kLse: also store each
+// row's log-sum-exp into lse (the second C entry); the instantiation
+// without it is the kernel as it was before that output.
+template <int D, bool kLse>
+__global__ void __launch_bounds__(kThreads, Layout<float, D>::kMinBlocks)
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, int bh, int seq, float scale, int causal) {
+  using T = float;
   using L = Layout<T, D>;
   constexpr int S = L::kStride;
   constexpr int PS = L::kPStride;
@@ -512,7 +511,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_wait_all();
   __syncthreads();  // Q and K tile 0 are staged
   if (sc < 0.f) {
-    for (int i = tid; i < L::kQ; i += kThreads) negate(qs[i]);
+    for (int i = tid; i < L::kQ; i += kThreads) qs[i] = -qs[i];
     sc = -sc;
     __syncthreads();
   }
@@ -707,11 +706,11 @@ inline unsigned grid_blocks(int slices, int bh, int seq) {
   return n > INT_MAX ? 0u : static_cast<unsigned>(n);
 }
 
-template <class T, int D, bool kLse>
-cudaError_t launch(const T* q, const T* k, const T* v, T* o, float* lse, int bh, int seq,
-                   float scale, int causal, cudaStream_t stream) {
-  using L = Layout<T, D>;
-  const auto kernel = flash_attention_kernel<T, D, kLse>;
+template <int D, bool kLse>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse, int bh,
+                   int seq, float scale, int causal, cudaStream_t stream) {
+  using L = Layout<float, D>;
+  const auto kernel = flash_attention_kernel<D, kLse>;
   const cudaError_t err = prepare(kernel, L::kBytes);
   if (err != cudaSuccess) return err;
   const unsigned blocks = grid_blocks(1, bh, seq);
@@ -735,12 +734,25 @@ cudaError_t launch_wide(const T* q, const T* k, const T* v, T* o, float* lse, in
   return cudaGetLastError();
 }
 
+// The tensor-core kernel of bf16 and fp16 at head widths up to kSliceD,
+// defined in flash_attention_tc.cuh, which only the 2-byte builds include.
+template <class T>
+cudaError_t launch_tc(const T* q, const T* k, const T* v, T* o, float* lse, int bh, int seq,
+                      int d8, float scale, int causal, cudaStream_t stream);
+
+// The kernel the last dispatch on this thread launched (tfs_flash_attention_
+// last_route): the float32 one-slice kernel, the wide kernel or the
+// tensor-core kernel.
+enum Route { kRouteNone = -1, kRouteCudaCore = 0, kRouteWide = 1, kRouteTensorCore = 2 };
+thread_local int last_route = kRouteNone;
+
 // One launch at the given head_dim (a positive multiple of 8). Returns a
 // cudaError_t: 0 on success, cudaErrorInvalidValue for another head_dim,
 // cudaErrorInvalidConfiguration for a grid past 2^31 - 1 blocks.
 template <class T>
 int dispatch(const void* qv, const void* kv, const void* vv, void* ov, float* lse, int bh,
              int seq, int head_dim, float scale, int causal, void* stream) {
+  last_route = kRouteNone;
   if (bh <= 0 || seq <= 0) return 0;
   if (head_dim <= 0 || head_dim % 8) return static_cast<int>(cudaErrorInvalidValue);
   const T* q = static_cast<const T*>(qv);
@@ -748,23 +760,31 @@ int dispatch(const void* qv, const void* kv, const void* vv, void* ov, float* ls
   const T* v = static_cast<const T*>(vv);
   T* o = static_cast<T*>(ov);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim > kSliceD)
+  if (head_dim > kSliceD) {
+    last_route = kRouteWide;
     return lse != nullptr ? launch_wide<T, true>(q, k, v, o, lse, bh, seq, head_dim, scale,
                                                  causal, s)
                           : launch_wide<T, false>(q, k, v, o, lse, bh, seq, head_dim, scale,
                                                   causal, s);
-  switch (head_dim) {
-#define TFS_CASE(D)                                                      \
-  case D:                                                                \
-    return lse != nullptr ? launch<T, D, true>(q, k, v, o, lse, bh, seq, scale, causal, s) \
-                          : launch<T, D, false>(q, k, v, o, lse, bh, seq, scale, causal, s);
-    TFS_CASE(8) TFS_CASE(16) TFS_CASE(24) TFS_CASE(32)
-    TFS_CASE(40) TFS_CASE(48) TFS_CASE(56) TFS_CASE(64)
-    TFS_CASE(72) TFS_CASE(80) TFS_CASE(88) TFS_CASE(96)
-    TFS_CASE(104) TFS_CASE(112) TFS_CASE(120) TFS_CASE(128)
+  }
+  if constexpr (sizeof(T) == 2) {
+    last_route = kRouteTensorCore;
+    return launch_tc<T>(q, k, v, o, lse, bh, seq, head_dim, scale, causal, s);
+  } else {
+    last_route = kRouteCudaCore;
+    switch (head_dim) {
+#define TFS_CASE(D)                                                                   \
+  case D:                                                                             \
+    return lse != nullptr ? launch<D, true>(q, k, v, o, lse, bh, seq, scale, causal, s) \
+                          : launch<D, false>(q, k, v, o, lse, bh, seq, scale, causal, s);
+      TFS_CASE(8) TFS_CASE(16) TFS_CASE(24) TFS_CASE(32)
+      TFS_CASE(40) TFS_CASE(48) TFS_CASE(56) TFS_CASE(64)
+      TFS_CASE(72) TFS_CASE(80) TFS_CASE(88) TFS_CASE(96)
+      TFS_CASE(104) TFS_CASE(112) TFS_CASE(120) TFS_CASE(128)
 #undef TFS_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
@@ -773,7 +793,9 @@ int dispatch(const void* qv, const void* kv, const void* vv, void* ov, float* ls
 // The C interface of one element type (loaded with ctypes), SUFFIX naming
 // it; each entry returns dispatch's cudaError_t. The _lse entry also
 // stores each row's log-sum-exp of its scaled scores into lse, a
-// contiguous (bh, seq) float32 array.
+// contiguous (bh, seq) float32 array. tfs_flash_attention_last_route gives
+// the Route of the calling thread's last dispatch, -1 where it launched
+// nothing.
 #define TFS_ATTENTION_ENTRIES(T, SUFFIX)                                                    \
   extern "C" int tfs_flash_attention_##SUFFIX(const void* q, const void* k, const void* v,  \
                                               void* o, int bh, int seq, int head_dim,       \
@@ -788,4 +810,5 @@ int dispatch(const void* qv, const void* kv, const void* vv, void* ov, float* ls
   }                                                                                         \
   extern "C" const char* tfs_cuda_error_string(int code) {                                  \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                              \
-  }
+  }                                                                                         \
+  extern "C" int tfs_flash_attention_last_route() { return last_route; }

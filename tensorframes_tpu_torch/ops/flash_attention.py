@@ -10,8 +10,8 @@ softmax(Q K^T * scale) V per head with the TPU kernel's conventions:
 softmax denominator is 0 is guarded to 1, the arithmetic is float32 whatever
 the inputs' dtype, and the output has q's dtype.
 
-On a CUDA tensor it launches the kernel of ``csrc/flash_attention.cuh``
-(float32, float16 and bfloat16 builds) through one layout step,
+On a CUDA tensor it launches a kernel of ``csrc/`` (float32, float16 and
+bfloat16 builds) through one layout step,
 `_kernel_layout`, a plain function the CPU tests call too: the leading
 dimensions flattened to BH; float32, float16 and bfloat16 passed as they
 are when q, k and v share the dtype, any other dtype cast to float32 (what
@@ -19,11 +19,15 @@ the Pallas kernel does to each block); D zero-padded to a multiple of 8
 (zero columns add 0 to every score); a contiguous, 16-byte aligned copy of
 a strided or misaligned input. The result is sliced and reshaped back and
 cast to q's dtype (a float cast to an integer truncates, as JAX's
-``astype`` does). The kernel takes any head width: up to 128 in one
-block's registers, wider heads in column slices. On a CPU tensor it runs
-`flash_attention_reference`. There is no fallback from the kernel to the
-plain version. ``flash_attention.launches`` counts kernel launches, of
-both entries.
+``astype`` does). The library's dispatch picks the kernel: float32 heads up
+to 128 wide run on the CUDA cores in one block's registers
+(``flash_attention.cuh``), bf16 and fp16 heads up to 128 on the tensor cores
+(``flash_attention_tc.cuh``), wider heads of any of the three in column
+slices. On a CPU tensor it runs `flash_attention_reference`. There is no
+fallback from a kernel to another or to the plain version.
+``flash_attention.launches`` counts kernel launches, of both entries;
+``flash_attention.launches_by_route`` counts them by the kernel the library
+reports it launched (``cuda_core``, ``wide``, ``tensor_core``).
 
 `flash_attention_lse` is the same function that also returns each row's
 log-sum-exp of its scaled scores, ``(..., S)`` float32, -inf for a row whose
@@ -63,7 +67,10 @@ _BUILDS = {
     torch.bfloat16: ("bf16", "flash_attention_bf16"),
 }
 _BLOCK_Q = 64  # query rows per block of csrc/flash_attention.cuh (kBlockQ)
+_TC_BLOCK_Q = 128  # query rows per block of csrc/flash_attention_tc.cuh (kTcRows)
 _SLICE_D = 128  # output columns per block (kSliceD)
+# the kernels, by the number tfs_flash_attention_last_route reports
+_ROUTES = ("cuda_core", "wide", "tensor_core")
 _MAX_BLOCKS = 2**31 - 1  # CUDA's limit on gridDim.x, which counts the blocks
 
 
@@ -154,7 +161,9 @@ def _kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale):
     same = k.dtype == q.dtype and v.dtype == q.dtype
     dtype = q.dtype if same and q.dtype in _BUILDS else torch.float32
     d8 = -(-d // 8) * 8
-    blocks = -(-d8 // _SLICE_D) * bh * -(-seq // _BLOCK_Q)
+    # bf16 and fp16 heads up to _SLICE_D wide take 128-row query tiles
+    tc = dtype in (torch.float16, torch.bfloat16) and d8 <= _SLICE_D
+    blocks = -(-d8 // _SLICE_D) * bh * -(-seq // (_TC_BLOCK_Q if tc else _BLOCK_Q))
     if blocks > _MAX_BLOCKS:
         raise ValueError(
             f"flash_attention: {blocks} thread blocks for (BH {bh}, S {seq}, D {d}), "
@@ -198,6 +207,8 @@ def _kernel_entry(dtype: torch.dtype, with_lse: bool):
             fn.restype = i32
         lib.tfs_cuda_error_string.argtypes = [i32]
         lib.tfs_cuda_error_string.restype = ctypes.c_char_p
+        lib.tfs_flash_attention_last_route.argtypes = []
+        lib.tfs_flash_attention_last_route.restype = i32
         _libs[sfx] = lib
     return getattr(lib, f"tfs_flash_attention{'_lse' if with_lse else ''}_{sfx}"), lib
 
@@ -237,7 +248,11 @@ def _launch(q, k, v, causal, scale, with_lse: bool):
             "flash_attention kernel launch failed: "
             f"{lib.tfs_cuda_error_string(rc).decode()} (cudaError {rc})"
         )
+    route = lib.tfs_flash_attention_last_route()
+    if not 0 <= route < len(_ROUTES):
+        raise RuntimeError(f"flash_attention: the library reports no kernel launched ({route})")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[_ROUTES[route]] += 1
     return restore(out, lse)
 
 
@@ -286,3 +301,4 @@ def flash_attention_lse(
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(_ROUTES, 0)

@@ -1,13 +1,17 @@
 """Time the flash-attention kernel's entries at the LM's shape on the card.
 
-    python3 tests/torch_attention_timing.py [--shape BHxSxD] [ROUNDS [ENTRY ...]]
+    python3 tests/torch_attention_timing.py [--shape BHxSxD] [--dtype DTYPE]
+        [ROUNDS [ENTRY ...]]
 
-Builds the float32 attention kernel (`tensorframes_tpu_torch/csrc/`) of the
-checkout it runs from, then times `flash_attention` (and
+Builds the attention kernel of the dtype (`tensorframes_tpu_torch/csrc/`) of
+the checkout it runs from, then times `flash_attention` (and
 `flash_attention_lse`, where the checkout has it) at BH 32, S 2048, D 64
-(or the ``--shape`` given, e.g. ``16x2048x128``), causal, float32: ROUNDS rounds
+(or the ``--shape`` given, e.g. ``16x2048x128``), causal, in ``--dtype``
+``float32`` (the default), ``bfloat16`` or ``float16``: ROUNDS rounds
 (default 11), each the mean of 20 launches between CUDA events after a
-warm-up, the entries in turns within a round. Naming entries times only
+warm-up, with the stream held by a spin kernel while the host queues
+them (so a kernel shorter than the wrapper's host work is timed on the
+device, not paced by the host), the entries in turns within a round. Naming entries times only
 those, so that checkouts with and without an entry run the same loop. Prints one JSON line: the
 card's name and power limit, the medians and quartiles in ms. Run it from
 the roots of two checkouts in turns (parent, change, change, parent) in one
@@ -32,6 +36,7 @@ def _time_ms(fn, iters: int = 20) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000 * iters)  # ~0.5 ms of clock cycles a call
     start.record()
     for _ in range(iters):
         fn()
@@ -48,8 +53,13 @@ def main() -> int:
 
     args = sys.argv[1:]
     shape = [32, 2048, 64]
-    if args[:1] == ["--shape"]:
-        shape = [int(n) for n in args[1].split("x")]
+    dtype = torch.float32
+    while args[:1] in (["--shape"], ["--dtype"]):
+        if args[0] == "--shape":
+            shape = [int(n) for n in args[1].split("x")]
+        else:
+            dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                     "float16": torch.float16}[args[1]]
         args = args[2:]
     rounds = int(args[0]) if args else 11
     card = subprocess.run(
@@ -57,7 +67,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(*shape, device="cuda", generator=gen) for _ in range(3))
+    q, k, v = (torch.randn(*shape, device="cuda", generator=gen).to(dtype) for _ in range(3))
     entries = {"flash_attention": lambda: fa.flash_attention(q, k, v, causal=True)}
     if hasattr(fa, "flash_attention_lse"):
         entries["flash_attention_lse"] = lambda: fa.flash_attention_lse(q, k, v, causal=True)
@@ -69,7 +79,8 @@ def main() -> int:
         for name in order:
             times[name].append(_time_ms(entries[name]))
     print(json.dumps({
-        "card": card, "shape": shape, "causal": True, "rounds": rounds,
+        "card": card, "shape": shape, "dtype": str(dtype).replace("torch.", ""),
+        "causal": True, "rounds": rounds,
         "median_ms": {n: float(np.median(t)) for n, t in times.items()},
         "quartiles_ms": {n: [float(np.percentile(t, 25)), float(np.percentile(t, 75))]
                          for n, t in times.items()},
