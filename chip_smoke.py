@@ -173,15 +173,18 @@ main path through the entry points a user calls:
     plain version at head_dim 1, 15, 24, 120, 136, 200, 256 and 512 (ragged
     S, causal and not), negative and zero scales, JAX's ``(S, D)`` and
     ``(B, H, S, D)`` layouts, transposed and misaligned inputs, float64
-    and int32 (through float32), bf16 and fp16 loaded by the kernel (within
-    one unit in their last place); one causal head of 65,535 x 64 + 1 rows;
+    and int32 (through float32), bf16 and fp16 loaded by the kernels (within
+    one unit in their last place; padded widths up to 256 asserted on the
+    tensor-core kernel, wider on the wide kernel); one causal head of
+    65,535 x 64 + 1 rows;
     phase 7's scoring route and widths with 2, 1 and 16 heads (head_dim
     128, 256 and 15; d_model 240 for the last) and phase 19's ``mesh=``
     ring at head_dim 15 and 256, each against the plain attention; the
-    kernel at D 128 and D 256 (BH 16, S 2048, float32) and in bf16 and
-    fp16 at the LM's shape, timed beside the plain version, SDPA of the
-    same dtype and the bound. ``python3 chip_smoke.py --phase 21`` runs
-    phases 1 and 21 alone and prints no result line;
+    kernels at D 128, 136 and 256 (BH 16, S 2048) and at the LM's shape,
+    float32, bf16 and fp16, and at D 512 in float32 and bf16, timed beside
+    the plain version, SDPA of the same dtype and the bound. ``python3
+    chip_smoke.py --phase 21`` runs phases 1 and 21 alone and prints no
+    result line;
 22. one JSON line listing every kernel with its launches on the main path
     (phases 3-18 and 20), its error and its times, the ring's launches and
     phase 21's variants;
@@ -340,10 +343,10 @@ def _attention_bound(bh: int, s: int, d: int, causal: bool, elem_bytes: int = 4,
 
 
 # attention kernels the three libraries compile: float32 at head_dim 8-128
-# (16 widths), the tensor-core kernel of bf16 and fp16 at 1-8 k16 steps,
-# the wide kernel of each of the three types; each with and without the
-# log-sum-exp
-_TC_INSTANTIATIONS = 2 * 8 * 2
+# (16 widths), the tensor-core kernel of bf16 and fp16 at 1-8, 10, 12, 14
+# and 16 k16 steps (12 widths), the wide kernel of each of the three types;
+# each with and without the log-sum-exp
+_TC_INSTANTIATIONS = 2 * 12 * 2
 _INSTANTIATIONS = 16 * 2 + _TC_INSTANTIATIONS + 3 * 2
 
 
@@ -404,10 +407,10 @@ def phase_card_and_build() -> None:
     # ptxas's registers and spills for the float32 head_dim-64 kernel the LM
     # runs and for head_dim 128; every instantiation must spill nothing: the
     # float32 kernel at head_dim 8-128, the tensor-core kernel of bf16 and
-    # fp16 at 1-8 k16 steps (padded head_dim up to 128), the wide kernel of
-    # the three types, each with and without the log-sum-exp. The
-    # tensor-core kernel is built for wgmma pipelines: ptxas must not
-    # serialize them (its C7510-C7520 notes)
+    # fp16 at 1-8, 10, 12, 14 and 16 k16 steps (padded head_dim up to 256),
+    # the wide kernel of the three types, each with and without the
+    # log-sum-exp. The tensor-core kernel is built for wgmma pipelines:
+    # ptxas must not serialize them (its C7510-C7520 notes)
     log = _cuda_build.build_logs.get("flash_attention", "")
     ptxas = _ptxas_table(_cuda_build.build_logs)
     spilled = {k: r for k, r in ptxas.items() if r[1] or r[2]}
@@ -4742,7 +4745,7 @@ def _routes_since(before: dict) -> dict:
 def _half_cases(gen, lm_shape) -> dict:
     """bf16 and fp16 loaded by the kernels themselves, against the plain
     version within one unit in their last place; max abs error by case.
-    Every case at a padded head width up to 128 must have run both entries
+    Every case at a padded head width up to 256 must have run both entries
     on the tensor-core kernel (the library's route report), wider ones on
     the wide kernel."""
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention
@@ -4757,9 +4760,17 @@ def _half_cases(gen, lm_shape) -> dict:
         ((2, 300, 8), True, None), ((2, 200, 24), False, None),
         ((2, 1000, 120), True, None), ((2, 129, 15), True, None), ((1, 1, 8), False, None),
         # scales: the scores are scaled before the row max (tensor cores), or
-        # the scores negated (the wide kernel)
+        # the scores negated (the wide kernel, past 256 below)
         ((3, 200, 64), True, -0.125), ((4, 300, 256), True, -0.125),
         ((2, 200, 24), True, 0.0), ((2, 129, 120), False, -0.05),
+        # three and four 64-column boxes a row: a width the k16 step does
+        # not divide (136: 9 steps run as 10), ragged lengths, a negative
+        # scale; past 256 the wide kernel, one slice and a partial second
+        # (a negative scale), two whole slices
+        ((2, 300, 136), False, None), ((2, 300, 136), True, None),
+        ((2, 1000, 200), True, None), ((2, 129, 200), False, None),
+        ((2, 200, 200), True, -0.125), ((2, 129, 264), False, -0.05),
+        ((2, 300, 512), True, None),
     ]
     errs = {}
     for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
@@ -4772,7 +4783,7 @@ def _half_cases(gen, lm_shape) -> dict:
             before = dict(flash_attention.launches_by_route)
             errs[key] = _both_entries(f"{name} {shape} causal={causal} scale={scale}",
                                       q, k, v, causal, scale)
-            route = "tensor_core" if -(-shape[-1] // 8) * 8 <= 128 else "wide"
+            route = "tensor_core" if -(-shape[-1] // 8) * 8 <= 256 else "wide"
             if _routes_since(before) != {route: 2}:
                 raise AssertionError(
                     f"{key}: the two entries launched {_routes_since(before)}, expected "
@@ -4853,7 +4864,7 @@ def _variant_times(bh: int, s: int, d: int, dtype, gen) -> dict:
 def phase_attention_widths(tft, cfg, lm_shape, n_seqs: int, block_seqs: int) -> dict:
     """Phase 21: the kernels at every head width, dtype and layout the
     Pallas kernel takes, against their plain version, bf16 and fp16 up to
-    head_dim 128 asserted on the tensor-core kernel; `TransformerLM`
+    head_dim 256 asserted on the tensor-core kernel; `TransformerLM`
     scoring at head widths 128, 256 and 15 (phase 7's route and widths,
     other head counts) and the ``mesh=`` ring at 15 and 256, their launches
     counted apart from the main path's; times of the variants beside SDPA
@@ -4895,14 +4906,21 @@ def phase_attention_widths(tft, cfg, lm_shape, n_seqs: int, block_seqs: int) -> 
         # the main path's shape again, beside SDPA on 4-D inputs
         "f32-lm": _variant_times(*lm_shape, torch.float32, gen),
         "f32-16x2048x128": _variant_times(16, 2048, 128, torch.float32, gen),
+        # the wide kernel: one slice at D 136 and at D 256, two at D 512
+        "f32-16x2048x136": _variant_times(16, 2048, 136, torch.float32, gen),
         "f32-16x2048x256": _variant_times(16, 2048, 256, torch.float32, gen),
+        "f32-16x2048x512": _variant_times(16, 2048, 512, torch.float32, gen),
         "bf16-lm": _variant_times(*lm_shape, torch.bfloat16, gen),
         "fp16-lm": _variant_times(*lm_shape, torch.float16, gen),
-        # the tensor-core kernel at D 128, the wide kernel at D 256
+        # the tensor-core kernel at two, three and four boxes a row
         "bf16-16x2048x128": _variant_times(16, 2048, 128, torch.bfloat16, gen),
         "fp16-16x2048x128": _variant_times(16, 2048, 128, torch.float16, gen),
+        "bf16-16x2048x136": _variant_times(16, 2048, 136, torch.bfloat16, gen),
+        "fp16-16x2048x136": _variant_times(16, 2048, 136, torch.float16, gen),
         "bf16-16x2048x256": _variant_times(16, 2048, 256, torch.bfloat16, gen),
         "fp16-16x2048x256": _variant_times(16, 2048, 256, torch.float16, gen),
+        # half precision past 256: the wide kernel, on the CUDA cores
+        "bf16-16x2048x512": _variant_times(16, 2048, 512, torch.bfloat16, gen),
     }
     out = dict(
         card=_CARD, max_abs_err_each={**errs, **half_errs},
@@ -5004,8 +5022,9 @@ def main(argv) -> int:
         "name": "flash_attention",
         "route": "cuda",
         "source": "tensorframes_tpu_torch/csrc/flash_attention.cuh",
-        # the CUDA-core kernels (float32; every type past head_dim 128) and
-        # the tensor-core kernel of bf16 and fp16 up to head_dim 128
+        # the CUDA-core kernels (float32 up to head_dim 128 in one slice,
+        # float32 past 128 and bf16 / fp16 past 256 in the wide kernel) and
+        # the tensor-core kernel of bf16 and fp16 up to head_dim 256
         "headers": ["tensorframes_tpu_torch/csrc/flash_attention.cuh",
                     "tensorframes_tpu_torch/csrc/flash_attention_tc.cuh"],
         # one library an element type; the 2-byte ones include both headers

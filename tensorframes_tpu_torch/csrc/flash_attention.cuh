@@ -2,10 +2,10 @@
 // kernels and the dispatch that flash_attention.cu (float32),
 // flash_attention_f16.cu (float16) and flash_attention_bf16.cu (bfloat16)
 // instantiate, one shared library each, so that nvcc builds the three at
-// once. The one-slice kernel below is the float32 kernel; bf16 and fp16 at
-// padded head widths up to 128 run on the tensor cores
+// once. The one-slice kernel below takes float32 heads up to 128 wide; bf16
+// and fp16 at padded head widths up to 256 run on the tensor cores
 // (flash_attention_tc.cuh, which the two 2-byte builds include); the wide
-// kernel takes every element type past 128.
+// kernel takes the rest: float32 past 128, bf16 and fp16 past 256.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `flash_attention` in
 // tensorframes_tpu/ops/pallas_kernels.py (pallas_call at :122). Same
@@ -43,8 +43,8 @@
 // by operations, at least 0.257 ms. TF32 tensor cores keep ~10 mantissa
 // bits and miss the rtol 1e-4 parity bar, so every float32 product here is
 // an FFMA on the CUDA cores; bf16 and fp16 products are exact in float32
-// and run on the tensor cores instead (flash_attention_tc.cuh), except in
-// the wide kernel. What the design does about each limit:
+// and run on the tensor cores instead (flash_attention_tc.cuh), except past
+// head width 256, in the wide kernel. What the design does about each limit:
 //
 // 1. Shared-memory instructions, not FFMAs, set the pace of a scalar inner
 //    loop. Register tiling: a block takes a Q tile of kBlockQ = 64 rows and
@@ -84,20 +84,46 @@
 //    negative scale negates the staged Q tile once, so the running max of
 //    the unscaled scores is the max of the scaled ones.
 //
-// Heads wider than 128 (flash_attention_wide_kernel, any multiple of 8):
-// a thread's output block is 8 rows x 4 ceil(D / 64) floats, 64 registers
-// at D 128 (218 in all); at D 256 it would spill, and a block's Q, K, V and
-// P tiles would need 217 KB. So a block takes a slice of at most kSliceD =
-// 128 output columns of one query tile (the slices of a tile are
-// neighbours in the grid), computes the full-width scores by walking the Q
-// tile and each K tile through shared memory in chunks of kChunkD = 64
-// columns, and accumulates only its own slice of V. The chunks have one
-// buffer: the next is staged after this one is multiplied; V's slice is
-// in flight during the last chunk's product, and the first chunk of the
-// next K tile during P V. Every slice recomputes the scores: at D 256 Q K^T is done
-// twice, so the kernel does 1.5x the operations of one pass, and it
-// re-reads the Q tile's chunks once a key tile. Its shared memory is
-// 86 KB in float32 (two blocks an SM), whatever D.
+// The wide kernel (flash_attention_wide_kernel, any multiple of 8 past the
+// other kernels' widths) replaces the same Pallas kernel for float32 heads
+// wider than 128 and bf16 / fp16 heads wider than 256. Its bound at BH 16,
+// S 2048, D 256, causal, float32: 34.4 GFLOP over the causal pairs, 0.513
+// ms at 67 TFLOP/s (q/k/v/o: 0.040 ms), so it is bound by operations. A
+// thread's output block at D 256 would be 8 rows x 32 floats, which spills,
+// and a block's Q, K, V and P tiles would need 217 KB: a block takes a
+// 64-row query tile and a slice of kWideSliceD = 256 output columns (the
+// slices of a tile are neighbours in the grid), and computes each key
+// tile's scores once for the whole slice (Q K^T runs ceil(D / 256) times,
+// once up to D 256). Its 256 threads are two groups of 128 with the
+// one-slice kernel's 8 x 4 score block a thread and its 128 FFMA per 12
+// shared loads: group g owns output columns 128 g .. 128 g + 127 of the
+// slice (64 accumulators a thread) and sums the scores over alternate
+// column chunks of 128 bytes (kWideChunkD: 32 floats, 64 half values).
+// Each group writes its partial sums to shared memory (8 float4 a thread),
+// and after one block barrier each adds the other's: a sum of two floats
+// does not depend on their order, so both groups hold the same scores, run
+// the same online softmax and keep the same row statistics. Group 0 writes
+// P; both then accumulate P V over their columns, skipping 64-column
+// halves that lie past D. Staging is by TMA: thread 0 of each group loads
+// its chunks of Q and of the K tile, 64 rows x 128 bytes each, into a
+// two-slot ring one chunk ahead (an mbarrier a slot; a named barrier a
+// group frees the slot), and its V columns once a key tile; the tensor
+// maps (D, S, BH) zero-fill rows past S and columns past D, and the
+// 128-byte swizzle puts the 8 rows a quarter-warp reads on distinct banks.
+// A thread holds query rows ty + 8 i, so a warp's two Q rows also differ
+// in row % 8. Per key tile: two block barriers (partial sums written, P
+// complete). Shared memory: 177 KB in float32 (the two rings 64, V 64, P
+// 17, the partial sums 32), 145 KB in half precision; one block of 8
+// warps an SM, as the parent's two blocks of 4. Dropped: the parent's
+// design, 128-column slices that each recomputed the full-width scores
+// (1.5x the operations at D 256) over 64-column chunks staged one at a
+// time after the last was multiplied; staging by 16-byte cp.async from
+// every thread, 128 copies a chunk (6% slower at D 256 in turns, PERF.md);
+// splitting the score tile by keys between the groups, which halves a
+// thread's score block to 8 x 2 (10 shared loads per 64 FFMA); spreading
+// the copies' issue over three warps, and prefetching the tensor maps (no
+// gain). Not tried: keeping the whole Q tile resident (66.6 KB at D 256,
+// no room past it).
 //
 // Tiles by measurement at the LM shape (H100 80GB HBM3 at 700 W; the sweep
 // is in PERF.md): 64-row Q tiles with 128 threads took 0.461 ms against
@@ -106,26 +132,35 @@
 // uses 168 registers (three blocks per SM) and D 128 uses 214 (one); the
 // instantiation that stores the log-sum-exp uses 168 and 218. That
 // instantiation is kept apart because a runtime branch on the pointer cost
-// the entry without it 0.7% on an H100 (PERF.md). No instantiation of the
-// three libraries spills (chip_smoke.py checks every one; the registers of
-// each are in PERF.md).
+// the entry without it 0.7% on an H100 (PERF.md). The wide kernel uses 236
+// and 238 registers in float32, 208 and 217 in half precision (its Q K^T
+// fully unrolled: 3.5% faster at D 256 than unrolled by 2). No
+// instantiation of the three libraries spills (chip_smoke.py checks every
+// one; the registers of each are in PERF.md).
 
 #pragma once
 
 #include <climits>
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kBlockQ = 64;                 // query rows per block
 constexpr int kBlockK = 64;                 // keys per tile
 constexpr int kThreads = 128;               // 16 lanes x 8 row groups of 8 rows
-constexpr int kSliceD = 128;                // widest head of the one-slice kernel;
-                                            // output columns a block of the wide one
-constexpr int kChunkD = 64;                 // Q and K columns a step of the wide kernel
+constexpr int kSliceD = 128;                // widest head of the one-slice kernel
+constexpr int kTcSliceD = 256;              // widest padded head of the tensor-core kernel
+constexpr int kWideThreads = 2 * kThreads;  // the wide kernel: two groups of kThreads
+constexpr int kWideSliceD = 256;            // output columns a block of the wide kernel
+constexpr int kWideBox = kBlockQ * 128;     // bytes of its TMA boxes: 64 rows of 128 bytes
 constexpr float kNegInf = -1e30f;           // the TPU kernel's mask value
+constexpr long long kWatchdog = 1LL << 34;  // clock cycles of one mbarrier wait
 constexpr float kLog2e = 1.4426950408889634f;
 
 // elements of T in one 16-byte copy
@@ -152,17 +187,26 @@ struct Layout {
   static constexpr int kMinBlocks = D <= 64 ? 3 : 1;
 };
 
-// Shared memory of the wide kernel: a column chunk of the Q tile and of a K
-// tile, a column slice of a V tile, P.
+// The wide kernel's chunk: the columns of a 128-byte row, a step of one
+// group's Q K^T and the width of its TMA boxes (the 128-byte swizzle's span)
+template <class T>
+constexpr int kWideChunkD = 128 / static_cast<int>(sizeof(T));
+
+// V boxes a group of the wide kernel loads a key tile: its 128 columns
+template <class T>
+constexpr int kWidePieces = kWideSliceD / 2 / kWideChunkD<T>;
+
+// Shared memory of the wide kernel, in boxes after up to 1024 bytes of
+// alignment (the swizzle repeats every 1024): each group's two slots of a Q
+// and a K box, each group's V boxes, then P and each group's partial
+// scores (8 float4 a thread).
 template <class T>
 struct WideLayout {
-  using Chunk = Layout<T, kChunkD>;
-  using Slice = Layout<T, kSliceD>;
-  static constexpr int kQ = kBlockQ * Chunk::kStride;
-  static constexpr int kK = kBlockK * Chunk::kStride;
-  static constexpr int kV = kBlockK * Slice::kStride;
-  static constexpr int kP = kBlockK * (kBlockQ + 4);
-  static constexpr int kBytes = (kQ + kK + kV) * Chunk::kSize + kP * 4;
+  static constexpr int kRing = 2 * 2 * 2 * kWideBox;        // [group][slot][Q, K]
+  static constexpr int kV = 2 * kWidePieces<T> * kWideBox;  // [group][box]
+  static constexpr int kP = kBlockK * (kBlockQ + 4) * 4;
+  static constexpr int kX = 2 * 8 * kThreads * 16;
+  static constexpr int kBytes = 1024 + kRing + kV + kP + kX;
 };
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -283,35 +327,62 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int row0, int s
   }
 }
 
-// x, opaque to the compiler: addresses computed from it are recomputed
-// where they are used instead of being hoisted out of the key loop, where
-// they would hold registers through it
-__device__ __forceinline__ int opaque(int x) {
-  asm volatile("" : "+r"(x));
-  return x;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The wide kernel's copies: columns col0 .. col0 + DC - 1 of rows row0 ..
-// row0 + ROWS - 1 of one head whose rows hold ld elements, into a tile of
-// width DC; columns at or past ld and rows at or past seq are zero-filled.
-template <class T, int DC, int ROWS, bool kSwizzle>
-__device__ __forceinline__ void stage_cols(T* dst, const T* src, int row0, int seq, int ld,
-                                           int col0, int tid) {
-  constexpr int kV = kVec<T>;
-  constexpr int kChunks = DC / kV;
-  static_assert(kThreads % kChunks == 0 && ROWS % (kThreads / kChunks) == 0, "tile shape");
-  constexpr int kStep = kThreads / kChunks;
-  const int r0 = tid / kChunks, c = (tid % kChunks) * kV;
-  const bool col_ok = col0 + c < ld;
-  const T* base = src + (col_ok ? col0 + c : 0);
-#pragma unroll
-  for (int it = 0; it < ROWS / kStep; ++it) {
-    const int r = r0 + it * kStep;
-    const int gr = row0 + r;
-    cp_async16(dst + row_offset<T, DC, kSwizzle>(r) + c,
-               base + static_cast<size_t>(min(gr, seq - 1)) * ld,
-               col_ok && gr < seq ? 16 : 0);
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// this thread's arrival, and the bytes the phase waits for besides
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits for the completion of the barrier's phase of this parity; a fresh
+// barrier counts its phase before the first as complete at parity 1.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity))
+    if (clock64() - t0 > kWatchdog) __trap();
+}
+
+// A box of the tensor map at element coordinates (c0, c1, c2), innermost
+// first, into shared memory; the barrier counts its bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the named barrier of group g of the wide kernel (barrier 0 is the block's)
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "n"(kThreads) : "memory");
 }
 
 // s[i][j] += the product of Q row 8 ty + i and K row tx + 16 j over DC
@@ -359,8 +430,8 @@ __device__ __forceinline__ void qk(float (&s)[8][4], const T* qr, const T* kr) {
 // One key tile's online-softmax step for a thread's 8 rows x 4 keys: s holds
 // the unscaled scores on entry and the probabilities on exit; m is the
 // running max of the unscaled scores, l this thread's part of the running
-// denominator, acc the output rows (rescaled here).
-template <bool kMask, int NA>
+// denominator, acc the output rows (rescaled here). Row i is qr0 + R i.
+template <bool kMask, int NA, int R>
 __device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[8], float (&l)[8],
                                                float (&acc)[8][NA], float sc, int qr0,
                                                int kc0, int seq, int causal) {
@@ -370,7 +441,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[8], 
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int kc = kc0 + 16 * j;
-      ok[j] = !kMask || (kc < seq && !(causal && kc > qr0 + i));
+      ok[j] = !kMask || (kc < seq && !(causal && kc > qr0 + R * i));
       if (!ok[j]) s[i][j] = kNegInf;
     }
     float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
@@ -394,17 +465,20 @@ __device__ __forceinline__ void online_softmax(float (&s)[8][4], float (&m)[8], 
   }
 }
 
-// The scores' step of one key tile for the thread's 8 rows: masked where
-// the tile straddles the diagonal or the ragged end.
-template <int NA>
+// The scores' step of one key tile for the thread's 8 rows (8 ty + i, or
+// with kInterleaved ty + 8 i): masked where the tile straddles the diagonal
+// or the ragged end.
+template <int NA, bool kInterleaved = false>
 __device__ __forceinline__ void softmax_step(float (&s)[8][4], float (&m)[8], float (&l)[8],
                                              float (&acc)[8][NA], float sc, int q0, int k0,
                                              int ty, int tx, int seq, int causal) {
+  constexpr int R = kInterleaved ? 8 : 1;
+  const int qr0 = q0 + (kInterleaved ? ty : 8 * ty);
   const bool edge = k0 + kBlockK > seq || (causal && k0 + kBlockK - 1 > q0);
   if (edge)
-    online_softmax<true>(s, m, l, acc, sc, q0 + 8 * ty, k0 + tx, seq, causal);
+    online_softmax<true, NA, R>(s, m, l, acc, sc, qr0, k0 + tx, seq, causal);
   else
-    online_softmax<false>(s, m, l, acc, sc, q0 + 8 * ty, k0 + tx, seq, causal);
+    online_softmax<false, NA, R>(s, m, l, acc, sc, qr0, k0 + tx, seq, causal);
 }
 
 // The thread's probabilities into P, key-major.
@@ -440,6 +514,87 @@ __device__ __forceinline__ void accumulate_pv(float (&acc)[8][4 * NV], const flo
           acc[i][4 * h + 2] = fmaf(pc[i], vf.z, acc[i][4 * h + 2]);
           acc[i][4 * h + 3] = fmaf(pc[i], vf.w, acc[i][4 * h + 3]);
         }
+      }
+    }
+  }
+}
+
+// The wide kernel's tiles are TMA boxes of 64 rows x 128 bytes, 128-byte
+// swizzled: the 16-byte chunk u of row r lies at r 128 + ((u ^ r % 8) 16).
+__device__ __forceinline__ int swizzled(int r, int u) { return r * 128 + ((u ^ (r & 7)) << 4); }
+
+// s[i][j] += the product of Q row ty + 8 i and K row tx + 16 j over one
+// chunk; both rows' chunk u at byte u ^ (row % 8), that is u ^ ty and
+// u ^ tx % 8, so the 8 rows a quarter-warp reads and a warp's two Q rows
+// fall on distinct banks.
+template <class T>
+__device__ __forceinline__ void qk_wide(float (&s)[8][4], const unsigned char* qt,
+                                        const unsigned char* kt, int ty, int tx) {
+  const unsigned char* qr = qt + ty * 128;
+  const unsigned char* kr = kt + tx * 128;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int qu = (u ^ ty) << 4, ku = (u ^ (tx & 7)) << 4;
+    if constexpr (sizeof(T) == 4) {
+      float4 kf[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kf[j] = ld4(reinterpret_cast<const float*>(kr + 2048 * j + ku));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 qf = ld4(reinterpret_cast<const float*>(qr + 1024 * i + qu));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+          s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+          s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+          s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
+        }
+      }
+    } else {
+      float kf[4][8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ld8f(reinterpret_cast<const T*>(kr + 2048 * j + ku), kf[j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float qf[8];
+        ld8f(reinterpret_cast<const T*>(qr + 1024 * i + qu), qf);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s[i][j] = fmaf(qf[e], kf[j][e], s[i][j]);
+      }
+    }
+  }
+}
+
+// O += P V for the thread's 8 rows x columns 4 tx + 64 h (h < NH) of its
+// group's 128, from the group's V boxes vg (kWideChunkD columns each)
+template <class T, int NH>
+__device__ __forceinline__ void pv_wide(float (&acc)[8][8], const float* pr,
+                                        const unsigned char* vg, int tx) {
+  constexpr int PS = kBlockQ + 4;
+  constexpr int kPerBox = kWideChunkD<T> / 4;  // 4-column groups a box row
+  // the thread's 4 columns of group h: box h 64 / kWideChunkD + tx / kPerBox,
+  // bytes (tx % kPerBox) 4 sizeof(T) of the row, in 16-byte chunk cu
+  const int cu = (tx % kPerBox) * 4 * static_cast<int>(sizeof(T)) / 16;
+  const int cb = ((tx % kPerBox) * 4 * static_cast<int>(sizeof(T))) & 15;
+  const unsigned char* vb = vg + (tx / kPerBox) * kWideBox + cb;
+#pragma unroll 8
+  for (int c = 0; c < kBlockK; ++c) {
+    const float4 p0 = ld4(pr + c * PS);
+    const float4 p1 = ld4(pr + c * PS + 4);
+    const float pc[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+    const int off = swizzled(c, cu);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const float4 vf =
+          ld4f(reinterpret_cast<const T*>(vb + h * (64 / kWideChunkD<T>) * kWideBox + off));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i][4 * h + 0] = fmaf(pc[i], vf.x, acc[i][4 * h + 0]);
+        acc[i][4 * h + 1] = fmaf(pc[i], vf.y, acc[i][4 * h + 1]);
+        acc[i][4 * h + 2] = fmaf(pc[i], vf.z, acc[i][4 * h + 2]);
+        acc[i][4 * h + 3] = fmaf(pc[i], vf.w, acc[i][4 * h + 3]);
       }
     }
   }
@@ -569,42 +724,75 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Heads wider than kSliceD, any multiple of 8 (see the header): block b
-// takes output slice b % slices of head (b / slices) % BH's query tile
-// nq - 1 - b / (slices BH).
+// Heads wider than the other kernels take (see the header): float32 past
+// kSliceD, bf16 / fp16 past kTcSliceD; any multiple of 8. Block b takes
+// output slice b % slices (kWideSliceD columns) of head (b / slices) % BH's
+// query tile nq - 1 - b / (slices BH). Group g (threads 128 g ..) owns the
+// slice's columns 128 g .. 128 g + 127 and sums the scores over column
+// chunks 1 - g, 3 - g, ...: where the chunk count is odd, group 1, whose
+// columns in the last slice are the fewer, takes the extra chunk. A
+// thread holds query rows ty + 8 i (not 8 ty + i: with the swizzle a
+// warp's two Q rows then fall on distinct banks) and keys tx + 16 j.
 template <class T, bool kLse>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, T* __restrict__ o,
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
                             float* __restrict__ lse, int bh, int seq, int d, int slices,
                             float scale, int causal) {
   using W = WideLayout<T>;
-  constexpr int CS = W::Chunk::kStride;
-  constexpr int VS = W::Slice::kStride;
+  constexpr int CD = kWideChunkD<T>;
+  constexpr int NP = kWidePieces<T>;
   constexpr int PS = kBlockQ + 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);  // kBlockQ x CS: a column chunk of the Q tile
-  T* ks = qs + W::kQ;                   // kBlockK x CS: the same chunk of a K tile
-  T* vs = ks + W::kK;                   // kBlockK x VS: this block's slice of a V tile
-  float* ps = reinterpret_cast<float*>(vs + W::kV);  // kBlockK x PS, key-major
-
+  constexpr int kHalf = kWideSliceD / 2;  // output columns a group
+  extern __shared__ unsigned char wide_smem[];
+  __shared__ __align__(8) uint64_t bars[2 * 3];  // a group's two chunk slots and its V boxes
+  unsigned char* base = wide_smem + ((1024u - (smem_u32(wide_smem) & 1023u)) & 1023u);
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int g = tid / kThreads;  // warp-uniform
+  const int t = tid % kThreads;
+  const int tx = t & 15;
+  const int ty = t >> 4;
+  unsigned char* ring = base + g * 4 * kWideBox;             // slot s: Q box, K box at 2 s
+  unsigned char* vg = base + W::kRing + g * NP * kWideBox;   // this group's V boxes
+  float* ps = reinterpret_cast<float*>(base + W::kRing + W::kV);  // kBlockK x PS, key-major
+  float4* xs = reinterpret_cast<float4*>(ps + kBlockK * PS);      // [group][row i][thread]
+  uint64_t* full = bars + 3 * g;  // the slots' barriers, then V's
+  uint64_t* v_full = full + 2;
+
   const int slice = static_cast<int>(blockIdx.x % slices);
   const int rest = static_cast<int>(blockIdx.x / slices);
   const int nq = (seq + kBlockQ - 1) / kBlockQ;
-  const int q0 = (nq - 1 - rest / bh) * kBlockQ;  // heaviest first
-  const int v0 = slice * kSliceD;                  // this block's output columns
-  const size_t head = static_cast<size_t>(rest % bh) * seq * d;
-  const T* qh = q + head;
-  const T* kh = k + head;
-  const T* vh = v + head;
-  const int chunks = (d + kChunkD - 1) / kChunkD;
+  const int q0 = (nq - 1 - rest / bh) * kBlockQ;   // heaviest first
+  const int vcol = slice * kWideSliceD + kHalf * g;  // this group's output columns
+  const int hd = rest % bh;
+  const int chunks = (d + CD - 1) / CD;
+  const int mine = (chunks + g) / 2;  // this group's chunks a key tile: at least 2
+  const int first = 1 - g;            // its first chunk
+  // its 64-column halves with a column before d; the boxes of the others
+  // are neither loaded nor multiplied
+  const int live = (vcol < d) + (vcol + 64 < d);
 
-  stage_cols<T, kChunkD, kBlockQ, true>(qs, qh, q0, seq, d, 0, tid);
-  stage_cols<T, kChunkD, kBlockK, false>(ks, kh, 0, seq, d, 0, tid);
-  cp_async_commit();
+  if (tid == 0) {
+#pragma unroll
+    for (int b = 0; b < 6; ++b) mbar_init(bars + b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 of each group issues its copies: chunk c of Q and of the K
+  // tile at k0 into a slot, the live boxes of the V tile at k0
+  const bool issuer = t == 0;
+  auto load_chunk = [&](int slot, int k0, int c) {
+    mbar_expect_tx(full + slot, 2 * kWideBox);
+    tma_load(ring + 2 * slot * kWideBox, &tq, full + slot, c * CD, q0, hd);
+    tma_load(ring + (2 * slot + 1) * kWideBox, &tk, full + slot, c * CD, k0, hd);
+  };
+  auto load_v = [&](int k0) {
+    mbar_expect_tx(v_full, live * (NP / 2) * kWideBox);
+    for (int p = 0; p < live * (NP / 2); ++p)
+      tma_load(vg + p * kWideBox, &tv, v_full, vcol + p * CD, k0, hd);
+  };
 
   const int k_end = causal ? min(seq, q0 + kBlockQ) : seq;
   const int nk = (k_end + kBlockK - 1) / kBlockK;
@@ -622,12 +810,13 @@ flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int a = 0; a < 8; ++a) acc[i][a] = 0.f;
   }
 
-  const T* qr = qs + row_offset<T, kChunkD, true>(8 * ty);
-  const T* kr = ks + tx * CS;
-  float* pw = ps + tx * PS + 8 * ty;
+  float* pw = ps + tx * PS + 8 * ty;  // P column 8 ty + i holds row ty + 8 i
   const float* pr = ps + 8 * ty;
-  const T* vr = vs + 4 * tx;
+  float4* x_out = xs + g * 8 * kThreads + t;
+  const float4* x_in = xs + (1 - g) * 8 * kThreads + t;
 
+  if (issuer) load_chunk(0, 0, first);
+  int n = 0;  // the group's chunks before this one: it is in slot n % 2
   for (int kb = 0; kb < nk; ++kb) {
     const int k0 = kb * kBlockK;
     float s[8][4];
@@ -635,60 +824,117 @@ flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < chunks; ++c) {
-      cp_async_wait_all();
-      // chunk c of Q and K is staged; at c = 0, P V of the last tile is done
-      __syncthreads();
-      if (c + 1 == chunks) {  // V's slice is in flight during the last chunk
-        stage_cols<T, kSliceD, kBlockK, false>(vs, vh, k0, seq, d, v0, tid);
-        cp_async_commit();
+    for (int i = 0; i < mine; ++i, ++n) {
+      // the group is done with chunk n - 1, whose slot takes chunk n + 1,
+      // and, at i = 0, with P V of the last tile: its V boxes are free
+      group_sync(g);
+      if (issuer) {
+        if (i + 1 < mine)
+          load_chunk((n + 1) & 1, k0, first + 2 * (i + 1));
+        else if (kb + 1 < nk)
+          load_chunk((n + 1) & 1, k0 + kBlockK, first);  // the next tile's first chunk
+        if (i == 0 && live > 0) load_v(k0);
       }
-      qk<T, kChunkD, CS, CS>(s, qr, kr);
-      if (c + 1 < chunks) {
-        __syncthreads();  // chunk c is consumed
-        stage_cols<T, kChunkD, kBlockQ, true>(qs, qh, opaque(q0), seq, d, (c + 1) * kChunkD,
-                                              tid);
-        stage_cols<T, kChunkD, kBlockK, false>(ks, kh, k0, seq, d, (c + 1) * kChunkD, tid);
-        cp_async_commit();
-      }
+      mbar_wait(full + (n & 1), (n >> 1) & 1);
+      const unsigned char* cs = ring + 2 * (n & 1) * kWideBox;
+      qk_wide<T>(s, cs, cs + kWideBox, ty, tx);
     }
-    if (neg) {
+
+    // the scores: this group's partial sums plus the other's. A float sum
+    // of two terms does not depend on their order, so both groups hold the
+    // same scores, run the same online softmax and keep the same row
+    // statistics (what merges them)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 8; ++i)
+      x_out[i * kThreads] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+    __syncthreads();  // both partial sums are written; both groups are done with P
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 x = x_in[i * kThreads];
+      s[i][0] += x.x;
+      s[i][1] += x.y;
+      s[i][2] += x.z;
+      s[i][3] += x.w;
+      if (neg) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = -s[i][j];
+      }
     }
 
-    softmax_step(s, m, l, acc, sc, q0, k0, ty, tx, seq, causal);
-    store_p(pw, s);
+    softmax_step<8, true>(s, m, l, acc, sc, q0, k0, ty, tx, seq, causal);
+    if (g == 0) store_p(pw, s);
 
-    cp_async_wait_all();
-    __syncthreads();  // V's slice and P are complete; the last chunk is consumed
-    if (kb + 1 < nk) {
-      stage_cols<T, kChunkD, kBlockQ, true>(qs, qh, opaque(q0), seq, d, 0, tid);
-      stage_cols<T, kChunkD, kBlockK, false>(ks, kh, k0 + kBlockK, seq, d, 0, tid);
-      cp_async_commit();
-    }
-
-    accumulate_pv<T, 2, true, kSliceD / 4, VS>(acc, pr, vr, tx);
+    if (live > 0) mbar_wait(v_full, kb & 1);  // this group's V boxes of tile kb
+    __syncthreads();                          // P is complete
+    if (live == 2)
+      pv_wide<T, 2>(acc, pr, vg, tx);
+    else if (live == 1)
+      pv_wide<T, 1>(acc, pr, vg, tx);
   }
 
-  const size_t lse_row = static_cast<size_t>(rest % bh) * seq;
+  const size_t head = static_cast<size_t>(hd) * seq;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int row = q0 + 8 * ty + i;
-    const float li = finish_row<kLse>(l[i], m[i], scale, lse, lse_row + row,
-                                      slice == 0 && tx == 0 && row < seq);
+    const int row = q0 + ty + 8 * i;
+    const float li = finish_row<kLse>(l[i], m[i], scale, lse, head + row,
+                                      slice == 0 && g == 0 && tx == 0 && row < seq);
     if (row >= seq) continue;
-    T* orow = o + head + static_cast<size_t>(row) * d + v0 + 4 * tx;
+    T* orow = o + (head + row) * d + vcol + 4 * tx;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if (v0 + 4 * tx + 64 * h < d) {
+      if (vcol + 4 * tx + 64 * h < d) {
         st4(orow + 64 * h, acc[i][4 * h] / li, acc[i][4 * h + 1] / li,
             acc[i][4 * h + 2] / li, acc[i][4 * h + 3] / li);
       }
     }
   }
+}
+
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave,
+                                     CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                     CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime loaded, or nullptr
+inline TensorMapEncode tensor_map_encoder() {
+  static const TensorMapEncode fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<TensorMapEncode>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The (D, S, BH) tensor map of one operand (D a multiple of 8): boxes of
+// cols columns (128 bytes) x rows rows of one head, 128-byte swizzled;
+// elements outside the tensor read 0.
+template <class T>
+bool encode_map(CUtensorMap* map, TensorMapEncode encode, const T* base, int bh, int seq, int d,
+                int cols, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * sizeof(T),
+                                 static_cast<cuuint64_t>(seq) * d * sizeof(T)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapDataType type = sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 3, const_cast<T*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <class Kernel>
@@ -722,20 +968,28 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
 template <class T, bool kLse>
 cudaError_t launch_wide(const T* q, const T* k, const T* v, T* o, float* lse, int bh, int seq,
                         int d, float scale, int causal, cudaStream_t stream) {
+  const TensorMapEncode encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv;
+  if (!encode_map(&mq, encode, q, bh, seq, d, kWideChunkD<T>, kBlockQ) ||
+      !encode_map(&mk, encode, k, bh, seq, d, kWideChunkD<T>, kBlockK) ||
+      !encode_map(&mv, encode, v, bh, seq, d, kWideChunkD<T>, kBlockK))
+    return cudaErrorInvalidValue;
   using W = WideLayout<T>;
   const auto kernel = flash_attention_wide_kernel<T, kLse>;
   const cudaError_t err = prepare(kernel, W::kBytes);
   if (err != cudaSuccess) return err;
-  const int slices = (d + kSliceD - 1) / kSliceD;
+  const int slices = (d + kWideSliceD - 1) / kWideSliceD;
   const unsigned blocks = grid_blocks(slices, bh, seq);
   if (blocks == 0) return cudaErrorInvalidConfiguration;
-  kernel<<<blocks, kThreads, W::kBytes, stream>>>(q, k, v, o, lse, bh, seq, d, slices, scale,
-                                                  causal);
+  kernel<<<blocks, kWideThreads, W::kBytes, stream>>>(mq, mk, mv, o, lse, bh, seq, d, slices,
+                                                      scale, causal);
   return cudaGetLastError();
 }
 
-// The tensor-core kernel of bf16 and fp16 at head widths up to kSliceD,
-// defined in flash_attention_tc.cuh, which only the 2-byte builds include.
+// The tensor-core kernel of bf16 and fp16 at padded head widths up to
+// kTcSliceD, defined in flash_attention_tc.cuh, which only the 2-byte
+// builds include.
 template <class T>
 cudaError_t launch_tc(const T* q, const T* k, const T* v, T* o, float* lse, int bh, int seq,
                       int d8, float scale, int causal, cudaStream_t stream);
@@ -760,7 +1014,7 @@ int dispatch(const void* qv, const void* kv, const void* vv, void* ov, float* ls
   const T* v = static_cast<const T*>(vv);
   T* o = static_cast<T*>(ov);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim > kSliceD) {
+  if (head_dim > (sizeof(T) == 2 ? kTcSliceD : kSliceD)) {
     last_route = kRouteWide;
     return lse != nullptr ? launch_wide<T, true>(q, k, v, o, lse, bh, seq, head_dim, scale,
                                                  causal, s)

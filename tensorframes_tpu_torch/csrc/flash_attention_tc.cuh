@@ -1,10 +1,11 @@
 // Blockwise (flash) attention on Hopper's tensor cores (sm_90a), forward
 // only: the kernel that the bfloat16 and float16 builds
 // (flash_attention_bf16.cu, flash_attention_f16.cu) launch at padded head
-// widths D8 <= 128, through both C entries. It includes after
-// flash_attention.cuh, whose dispatch<T> sends 2-byte T with head_dim <= 128
-// here; wider half-precision heads keep flash_attention_wide_kernel, and the
-// float32 build never includes this header.
+// widths D8 <= 256, through both C entries. It includes after
+// flash_attention.cuh, whose dispatch<T> sends 2-byte T with head_dim <=
+// kTcSliceD = 256 here; wider half-precision heads take
+// flash_attention_wide_kernel, and the float32 build never includes this
+// header.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `flash_attention` in
 // tensorframes_tpu/ops/pallas_kernels.py (pallas_call at :122, body
@@ -21,8 +22,10 @@
 // over the causal pairs are 17.2 GFLOP, 0.01738 ms at the 989 TFLOP/s of
 // the bf16 / fp16 tensor cores; carrying P as two 2-byte operands (below)
 // makes P V two products, 25.8 GFLOP and 0.0261 ms; q, k, v and o are
-// 33.5 MB, 0.010 ms at 3.35 TB/s. So it is bound by operations, and only
-// wgmma reaches the tensor cores' rate. What the design does about it:
+// 33.5 MB, 0.010 ms at 3.35 TB/s. At BH 16, S 2048, D 256 the products are
+// 34.4 GFLOP, 0.0348 ms (51.6 GFLOP and 0.0521 ms with the pair), the bytes
+// 0.020 ms. So it is bound by operations, and only wgmma reaches the
+// tensor cores' rate. What the design does about it:
 //
 // 1. Q K^T on wgmma, both operands in shared memory (m64n64k16 or
 //    m64n128k16, float32 sums in registers): K is stored (keys, D) with D
@@ -57,20 +60,34 @@
 //    time, spilled and serialized the wgmma. Up to D8 64 a key tile is
 //    64 keys and an SM holds two blocks (at most 128 registers a thread),
 //    so four warpgroups share the tensor cores and one block's prologue
-//    and epilogue overlap the other's loop; wider, 128 keys and one block
-//    (218 registers). K and V tiles come by TMA into rings of four stages
-//    (three above D8 64), each a full/empty mbarrier pair: thread 0 of
-//    warpgroup 1 loads K tile j + S and V tile j + S - 1 after its
-//    products of tile j, into stages both warpgroups released a turn
-//    before. The tensor maps are three-dimensional (D8, S, BH), so a
-//    ragged tile's rows past S are zero-filled instead of read from the
-//    next head, and their boxes are 64 columns of 128 bytes with the
-//    128-byte swizzle that wgmma's descriptors name: columns past D8 are
-//    zero-filled too, which covers the widths the k16 step does not
-//    divide (8, 24, ..., 120) while the wrapper pads to 8 only. At D8 > 64
-//    a row is two boxes, and the descriptors step across them. The maps
-//    are encoded on the host through cudaGetDriverEntryPoint, so the
-//    library needs no -lcuda, and passed as __grid_constant__ parameters.
+//    and epilogue overlap the other's loop; up to D8 128, 128 keys and one
+//    block (218 registers). Past 128 a warpgroup keeps the whole output
+//    row block, 96 or 128 float32 registers a thread at D8 192 or 256,
+//    beside 32 for a 64-key score tile and 32 for its P pair: key tiles of
+//    64 keys, one block, 188-196 registers up to D8 192 and 232-240 up to
+//    256. (Splitting the output columns over two blocks or two passes,
+//    each recomputing Q K^T, would have kept 128-key tiles at 1.33x the
+//    operations: not needed, since one pass fits.) K and V tiles come by
+//    TMA into rings of four stages up to D8 64, three up to 192 and two
+//    past it (the 64 KB Q tile leaves room for four 32 KB tiles), each a
+//    full/empty mbarrier pair: thread 0 of warpgroup 1 loads K tile j + S
+//    and V tile j + S - 1 after its products of tile j, into stages both
+//    warpgroups released a turn before; past D8 128 (kEarly) it loads K
+//    tile j + S + 1 and V tile j + S, into the stages released by the
+//    products it has just waited for, which gives a two-stage ring two
+//    turns to fill a stage. The tensor maps are three-dimensional (D8, S,
+//    BH), so a ragged tile's rows past S are zero-filled instead of read
+//    from the next head, and their boxes are 64 columns of 128 bytes with
+//    the 128-byte swizzle that wgmma's descriptors name: columns past D8
+//    are zero-filled too, which covers the widths the k16 step does not
+//    divide (8, 24, ..., 120, and past 128 every width up to the next
+//    multiple of 32: the k16 steps round up to an even count, four
+//    instantiations a dtype and entry instead of eight) while the wrapper
+//    pads to 8 only. At D8 > 64 a row is two to four boxes, the
+//    descriptors step across them, and P V is one m64nNk16 wgmma of N 128,
+//    192 or 256 a k16 step. The maps are encoded on the host through
+//    cudaGetDriverEntryPoint, so the library needs no -lcuda, and passed
+//    as __grid_constant__ parameters.
 // 4. The two warpgroups of a block take turns on the tensor cores (named
 //    barriers): one issues P V of its tile and Q K^T of the next as one
 //    batch while the other runs its softmax, so the exponentials and the
@@ -89,8 +106,9 @@
 //
 // An mbarrier wait that lasts ~9 s traps (a launch failure the wrapper
 // raises) instead of hanging the card. Shared memory: Q and the rings,
-// 81 KB a block up to D8 64, 225 KB above. Times, registers and what was
-// tried and dropped are in PERF.md (H100 80GB HBM3, 700 W).
+// 81 KB a block up to D8 64, 225 KB up to 128, 193 KB past it. Times,
+// registers and what was tried and dropped are in PERF.md (H100 80GB HBM3,
+// 700 W).
 
 #pragma once
 
@@ -109,78 +127,31 @@ constexpr int kTcThreads = 256;   // two consumer warpgroups
 constexpr int kTcConsumerWarps = 8;
 constexpr int kTcBox = 64;        // columns of a TMA box: 128 bytes, the swizzle's span
 constexpr int kTcBoxBytes = kTcRows * kTcBox * 2;  // 16 KB: a box of the Q tile
-constexpr long long kTcWatchdog = 1LL << 34;     // clock cycles of one mbarrier wait
 constexpr float kLn2 = 0.6931471805599453f;
 
 // The tiles of the instantiation with DK k16 steps (D8 <= 16 DK): one
 // 64-column box a row up to D8 64, with 64-key tiles, four stages and two
 // blocks an SM (at most 128 registers a thread; ptxas takes 123-128); two
-// boxes above, with 128-key tiles, three stages and one block (218).
+// boxes up to D8 128, with 128-key tiles, three stages and one block (218);
+// three or four boxes up to D8 256, with 64-key tiles (the output alone is
+// 96 or 128 registers a thread), one block, three or two stages (what 227 KB
+// holds beside the 48 or 64 KB Q tile), each loaded a turn earlier (kEarly).
 template <int DK>
 struct TcShape {
   static constexpr int kBoxes = (DK + 3) / 4;
-  static constexpr int kKeys = kBoxes == 1 ? 64 : 128;  // keys a tile
+  static constexpr int kKeys = kBoxes == 2 ? 128 : 64;  // keys a tile
   static constexpr int kBlocks = kBoxes == 1 ? 2 : 1;   // blocks an SM
-  static constexpr int kStages = kBoxes == 1 ? 4 : 3;   // K and V tiles in flight
+  static constexpr int kStages = kBoxes == 1 ? 4 : kBoxes == 4 ? 2 : 3;  // K and V tiles in flight
+  // 1: the loader refills a stage as soon as both warpgroups released it
+  // (K tile j + S + 1 and V tile j + S after the products of tile j);
+  // 0: a turn later (K tile j + S, V tile j + S - 1), as up to D8 128
+  static constexpr int kEarly = kBoxes >= 3 ? 1 : 0;
   static constexpr int kScores = kKeys / 2;             // score accumulators a thread
   static constexpr unsigned kQTile = kBoxes * kTcBoxBytes;     // bytes
   static constexpr unsigned kKVTile = kBoxes * kKeys * 128;
   // Q, the K and V rings, and 1024 bytes to align them
   static constexpr int kSmem = kQTile + 2 * kStages * kKVTile + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// this thread's arrival, and the bytes the phase waits for besides
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, unsigned parity) {
-  unsigned done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Waits for the completion of the barrier's phase of this parity; a fresh
-// barrier counts its phase before the first as complete at parity 1.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t a = smem_u32(bar);
-  if (mbar_try_wait(a, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(a, parity))
-    if (clock64() - t0 > kTcWatchdog) __trap();
-}
-
-// A box of the tensor map at element coordinates (c0, c1, c2), innermost
-// first, into shared memory; the barrier counts its bytes.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -228,6 +199,14 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
   TFS_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "   \
           "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, " \
           "%59, %60, %61, %62, %63"
+#define TFS_R96                                                                      \
+  TFS_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, "  \
+          "%78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "    \
+          "%92, %93, %94, %95"
+#define TFS_R128                                                                        \
+  TFS_R96 ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "      \
+          "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "    \
+          "%120, %121, %122, %123, %124, %125, %126, %127"
 #define TFS_ACC4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define TFS_ACC16(d, i) TFS_ACC4(d, i), TFS_ACC4(d, i + 4), TFS_ACC4(d, i + 8), TFS_ACC4(d, i + 12)
 #define TFS_ACC32(d, i) TFS_ACC16(d, i), TFS_ACC16(d, i + 16)
@@ -280,21 +259,46 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[N / 2], uint64_t da, uint64_
                "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                        \
                : TFS_ACC32(d, 0), TFS_ACC32(d, 32)                                     \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define TFS_WGMMA_PV192(TY)                                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"                                \
+               "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " {" TFS_R96       \
+               "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"                           \
+               : TFS_ACC32(d, 0), TFS_ACC32(d, 32), TFS_ACC32(d, 64)                        \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define TFS_WGMMA_PV256(TY)                                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                \
+               "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" TFS_R128      \
+               "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                       \
+               : TFS_ACC32(d, 0), TFS_ACC32(d, 32), TFS_ACC32(d, 64), TFS_ACC32(d, 96)      \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 
 template <class T, int N>
 __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t* a, uint64_t db) {
-  static_assert(N == 64 || N == 128, "P V takes one or two 64-column boxes");
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256,
+                "P V takes one to four 64-column boxes");
   if constexpr (N == 64) {
     if constexpr (std::is_same<T, __half>::value) {
       TFS_WGMMA_PV64("f16");
     } else {
       TFS_WGMMA_PV64("bf16");
     }
-  } else {
+  } else if constexpr (N == 128) {
     if constexpr (std::is_same<T, __half>::value) {
       TFS_WGMMA_PV128("f16");
     } else {
       TFS_WGMMA_PV128("bf16");
+    }
+  } else if constexpr (N == 192) {
+    if constexpr (std::is_same<T, __half>::value) {
+      TFS_WGMMA_PV192("f16");
+    } else {
+      TFS_WGMMA_PV192("bf16");
+    }
+  } else {
+    if constexpr (std::is_same<T, __half>::value) {
+      TFS_WGMMA_PV256("f16");
+    } else {
+      TFS_WGMMA_PV256("bf16");
     }
   }
 }
@@ -303,9 +307,13 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t* a, u
 #undef TFS_WGMMA_QK128
 #undef TFS_WGMMA_PV64
 #undef TFS_WGMMA_PV128
+#undef TFS_WGMMA_PV192
+#undef TFS_WGMMA_PV256
 #undef TFS_ACC32
 #undef TFS_ACC16
 #undef TFS_ACC4
+#undef TFS_R128
+#undef TFS_R96
 #undef TFS_R64
 #undef TFS_R32
 
@@ -499,6 +507,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           float* __restrict__ lse, int bh, int seq, int d8, float sc,
                           int causal) {
   using Shape = TcShape<DK>;
+  constexpr int E = Shape::kEarly;
   constexpr int NB = Shape::kBoxes;  // 64-column boxes a row
   constexpr int BK = Shape::kKeys;   // keys a tile
   constexpr int NS = Shape::kScores;
@@ -561,7 +570,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int b = 0; b < NB; ++b) tma_load(qs + b * kTcBoxBytes, &tq, q_full, b * kTcBox, q0, head);
     for (int j = 0; j < min(nk, S); ++j) load(&tk, ks, k_full, k_empty, j);
-    for (int j = 0; j < min(nk, S - 1); ++j) load(&tv, vs, v_full, v_empty, j);
+    for (int j = 0; j < min(nk, S - 1 + E); ++j) load(&tv, vs, v_full, v_empty, j);
   }
 
   const int t = tid % 128;
@@ -597,6 +606,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   wgmma_wait_all();
   hold(s_acc);
   if (lane == 0) mbar_arrive(k_empty);  // this warp is done with K tile 0
+  if constexpr (E == 1) {
+    if (loader && S < nk) load(&tk, ks, k_full, k_empty, S);  // into K tile 0's stage
+  }
 
   // every tile but the last: P V of this tile with Q K^T of the next
   for (int kb = 0; kb + 1 < nk; ++kb) {
@@ -623,12 +635,15 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(v_empty + s);
       mbar_arrive(k_empty + s1);
     }
-    // K tile kb + S into the stage of K tile kb, V tile kb + S - 1 into
-    // that of V tile kb - 1: both warpgroups' products that read those
-    // finished a turn ago, so the waits are short
+    // E 0: K tile kb + S into the stage of K tile kb, V tile kb + S - 1
+    // into that of V tile kb - 1: both warpgroups' products that read those
+    // finished a turn ago, so the waits are short. E 1: K tile kb + S + 1
+    // and V tile kb + S into the stages of K tile kb + 1 and V tile kb,
+    // which the other warpgroup released a turn ago and this one just now:
+    // a two-stage ring then still has two turns to fill a stage
     if (loader) {
-      if (kb + S < nk) load(&tk, ks, k_full, k_empty, kb + S);
-      if (kb + S - 1 < nk) load(&tv, vs, v_full, v_empty, kb + S - 1);
+      if (kb + S + E < nk) load(&tk, ks, k_full, k_empty, kb + S + E);
+      if (kb + S - 1 + E < nk) load(&tv, vs, v_full, v_empty, kb + S - 1 + E);
     }
   }
   // the last tile: P V alone (no wgmma sits under a condition: ptxas
@@ -654,71 +669,73 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   const size_t head_row = static_cast<size_t>(head) * seq;
+  if constexpr (NB <= 2) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float lh = l[h];
-    lh += __shfl_xor_sync(0xffffffffu, lh, 1);
-    lh += __shfl_xor_sync(0xffffffffu, lh, 2);
-    const int row = row0 + 8 * h;
-    if (row >= seq) continue;
-    if constexpr (kLse) {
-      if ((lane & 3) == 0)
-        lse[head_row + row] = lh == 0.f ? __int_as_float(0xff800000) : fmaf(m[h], kLn2, logf(lh));
+    for (int h = 0; h < 2; ++h) {
+      float lh = l[h];
+      lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+      lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+      const int row = row0 + 8 * h;
+      if (row >= seq) continue;
+      if constexpr (kLse) {
+        if ((lane & 3) == 0)
+          lse[head_row + row] =
+              lh == 0.f ? __int_as_float(0xff800000) : fmaf(m[h], kLn2, logf(lh));
+      }
+      const float inv = 1.f / (lh == 0.f ? 1.f : lh);  // one division, not DN / 4
+      T* orow = o + (head_row + row) * d8 + c_lo;
+#pragma unroll
+      for (int c = 0; c < DN / 8; ++c) {
+        if (8 * c + c_lo < d8)
+          *reinterpret_cast<unsigned*>(orow + 8 * c) =
+              pack2<T>(acc[4 * c + 2 * h] * inv, acc[4 * c + 2 * h + 1] * inv);
+      }
     }
-    const float inv = 1.f / (lh == 0.f ? 1.f : lh);  // one division, not DN / 4
-    T* orow = o + (head_row + row) * d8 + c_lo;
+  } else {
+    // Past D8 128 the output goes through shared memory: a store of the
+    // fragment's pairs writes 8 rows at once, 8 half-used sectors, and
+    // 64 of them a thread took ~8% of a block's time at D8 256. Each warp
+    // writes its 16 rows into its warpgroup's rows of the Q tile, which no
+    // product reads any more, in the 128-byte swizzle's order (no bank
+    // conflict either way), then stores whole rows, 16 bytes a lane.
+    const int w16 = 16 * (t >> 5);  // the warp's first row in the warpgroup
+    unsigned char* stage = qs + cw * 64 * 128;
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lh = l[h];
+      lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+      lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+      const int row = row0 + 8 * h;
+      if constexpr (kLse) {
+        if ((lane & 3) == 0 && row < seq)
+          lse[head_row + row] =
+              lh == 0.f ? __int_as_float(0xff800000) : fmaf(m[h], kLn2, logf(lh));
+      }
+      inv[h] = 1.f / (lh == 0.f ? 1.f : lh);
+    }
 #pragma unroll
     for (int c = 0; c < DN / 8; ++c) {
-      if (8 * c + c_lo < d8)
-        *reinterpret_cast<unsigned*>(orow + 8 * c) =
-            pack2<T>(acc[4 * c + 2 * h] * inv, acc[4 * c + 2 * h + 1] * inv);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = w16 + (lane >> 2) + 8 * h;  // r % 8 is lane / 4
+        *reinterpret_cast<uint32_t*>(stage + (c >> 3) * kTcBoxBytes + r * 128 +
+                                     (((c & 7) ^ (r & 7)) << 4) + 4 * (lane & 3)) =
+            pack2<T>(acc[4 * c + 2 * h] * inv[h], acc[4 * c + 2 * h + 1] * inv[h]);
+      }
+    }
+    __syncwarp();
+    if (8 * lane < d8) {  // lane: the row's 16-byte chunk
+      for (int rr = 0; rr < 16; ++rr) {
+        const int r = w16 + rr;
+        const int row = q0 + 64 * cw + r;
+        if (row < seq)
+          *reinterpret_cast<uint4*>(o + (head_row + row) * d8 + 8 * lane) =
+              *reinterpret_cast<const uint4*>(stage + (lane >> 3) * kTcBoxBytes + r * 128 +
+                                              (((lane & 7) ^ (r & 7)) << 4));
+      }
     }
   }
-}
-
-using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                     const cuuint32_t*, CUtensorMapInterleave,
-                                     CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                     CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime loaded, or nullptr
-inline TensorMapEncode tensor_map_encoder() {
-  static const TensorMapEncode fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<TensorMapEncode>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The (D8, S, BH) tensor map of one operand: boxes of 64 columns x rows
-// rows of one head, 128-byte swizzled; elements outside the tensor read 0.
-template <class T>
-bool encode_map(CUtensorMap* map, TensorMapEncode encode, const T* base, int bh, int seq,
-                int d8, int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d8), static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d8) * sizeof(T),
-                                 static_cast<cuuint64_t>(seq) * d8 * sizeof(T)};
-  const cuuint32_t box[3] = {kTcBox, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapDataType type = std::is_same<T, __half>::value
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  return encode(map, type, 3, const_cast<T*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <class T, int DK, bool kLse>
@@ -727,9 +744,9 @@ cudaError_t launch_tc_width(TensorMapEncode encode, const T* q, const T* k, cons
                             cudaStream_t stream) {
   using Shape = TcShape<DK>;
   CUtensorMap mq, mk, mv;
-  if (!encode_map(&mq, encode, q, bh, seq, d8, kTcRows) ||
-      !encode_map(&mk, encode, k, bh, seq, d8, Shape::kKeys) ||
-      !encode_map(&mv, encode, v, bh, seq, d8, Shape::kKeys))
+  if (!encode_map(&mq, encode, q, bh, seq, d8, kTcBox, kTcRows) ||
+      !encode_map(&mk, encode, k, bh, seq, d8, kTcBox, Shape::kKeys) ||
+      !encode_map(&mv, encode, v, bh, seq, d8, kTcBox, Shape::kKeys))
     return cudaErrorInvalidValue;
   const auto kernel = flash_attention_tc_kernel<T, DK, kLse>;
   const cudaError_t err = prepare(kernel, Shape::kSmem);
@@ -742,7 +759,7 @@ cudaError_t launch_tc_width(TensorMapEncode encode, const T* q, const T* k, cons
   return cudaGetLastError();
 }
 
-// One launch of the tensor-core kernel at a padded head width d8 <= 128
+// One launch of the tensor-core kernel at a padded head width d8 <= 256
 // (declared in flash_attention.cuh): cudaErrorNotSupported without the
 // driver's tensor-map encoder, cudaErrorInvalidValue for a map it refuses.
 template <class T>
@@ -750,6 +767,9 @@ cudaError_t launch_tc(const T* q, const T* k, const T* v, T* o, float* lse, int 
                       int d8, float scale, int causal, cudaStream_t stream) {
   const TensorMapEncode encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  // past D8 128 the k16 steps round up to an even count (D8 160, 192, 224,
+  // 256): the box's zero-filled columns add 0 to the scores, and four
+  // instantiations a dtype and entry take the place of eight
   switch ((d8 + 15) / 16) {
 #define TFS_TC_CASE(DK)                                                                      \
   case DK:                                                                                   \
@@ -759,6 +779,14 @@ cudaError_t launch_tc(const T* q, const T* k, const T* v, T* o, float* lse, int 
                                                           d8, scale, causal, stream);
     TFS_TC_CASE(1) TFS_TC_CASE(2) TFS_TC_CASE(3) TFS_TC_CASE(4)
     TFS_TC_CASE(5) TFS_TC_CASE(6) TFS_TC_CASE(7) TFS_TC_CASE(8)
+    case 9:
+    TFS_TC_CASE(10)
+    case 11:
+    TFS_TC_CASE(12)
+    case 13:
+    TFS_TC_CASE(14)
+    case 15:
+    TFS_TC_CASE(16)
 #undef TFS_TC_CASE
     default:
       return cudaErrorInvalidValue;

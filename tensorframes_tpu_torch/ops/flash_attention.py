@@ -21,10 +21,13 @@ a strided or misaligned input. The result is sliced and reshaped back and
 cast to q's dtype (a float cast to an integer truncates, as JAX's
 ``astype`` does). The library's dispatch picks the kernel: float32 heads up
 to 128 wide run on the CUDA cores in one block's registers
-(``flash_attention.cuh``), bf16 and fp16 heads up to 128 on the tensor cores
-(``flash_attention_tc.cuh``), wider heads of any of the three in column
-slices. On a CPU tensor it runs `flash_attention_reference`. There is no
-fallback from a kernel to another or to the plain version.
+(``flash_attention.cuh``, route ``cuda_core``), bf16 and fp16 heads up to
+256 wide (padded) on the tensor cores (``flash_attention_tc.cuh``, route
+``tensor_core``), wider heads (float32 past 128, bf16 / fp16 past 256) on
+the CUDA cores in slices of 256 output columns whose scores each block
+computes once (``flash_attention.cuh``, route ``wide``). On a CPU tensor it
+runs `flash_attention_reference`. There is no fallback from a kernel to
+another or to the plain version.
 ``flash_attention.launches`` counts kernel launches, of both entries;
 ``flash_attention.launches_by_route`` counts them by the kernel the library
 reports it launched (``cuda_core``, ``wide``, ``tensor_core``).
@@ -68,7 +71,9 @@ _BUILDS = {
 }
 _BLOCK_Q = 64  # query rows per block of csrc/flash_attention.cuh (kBlockQ)
 _TC_BLOCK_Q = 128  # query rows per block of csrc/flash_attention_tc.cuh (kTcRows)
-_SLICE_D = 128  # output columns per block (kSliceD)
+_SLICE_D = 128  # widest head of the float32 one-slice kernel (kSliceD)
+_TC_SLICE_D = 256  # widest padded head of the tensor-core kernel (kTcSliceD)
+_WIDE_SLICE_D = 256  # output columns per block of the wide kernel (kWideSliceD)
 # the kernels, by the number tfs_flash_attention_last_route reports
 _ROUTES = ("cuda_core", "wide", "tensor_core")
 _MAX_BLOCKS = 2**31 - 1  # CUDA's limit on gridDim.x, which counts the blocks
@@ -161,9 +166,16 @@ def _kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale):
     same = k.dtype == q.dtype and v.dtype == q.dtype
     dtype = q.dtype if same and q.dtype in _BUILDS else torch.float32
     d8 = -(-d // 8) * 8
-    # bf16 and fp16 heads up to _SLICE_D wide take 128-row query tiles
-    tc = dtype in (torch.float16, torch.bfloat16) and d8 <= _SLICE_D
-    blocks = -(-d8 // _SLICE_D) * bh * -(-seq // (_TC_BLOCK_Q if tc else _BLOCK_Q))
+    # the blocks of the kernel the library picks: bf16 and fp16 heads up to
+    # _TC_SLICE_D wide take 128-row query tiles (the tensor-core kernel);
+    # float32 heads up to _SLICE_D 64-row tiles; wider heads 64-row tiles
+    # in slices of _WIDE_SLICE_D output columns (the wide kernel)
+    if dtype in (torch.float16, torch.bfloat16) and d8 <= _TC_SLICE_D:
+        blocks = bh * -(-seq // _TC_BLOCK_Q)
+    elif d8 <= _SLICE_D:
+        blocks = bh * -(-seq // _BLOCK_Q)
+    else:
+        blocks = -(-d8 // _WIDE_SLICE_D) * bh * -(-seq // _BLOCK_Q)
     if blocks > _MAX_BLOCKS:
         raise ValueError(
             f"flash_attention: {blocks} thread blocks for (BH {bh}, S {seq}, D {d}), "

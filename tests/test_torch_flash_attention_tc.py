@@ -1,11 +1,12 @@
 """PyTorch port: the arithmetic of the tensor-core attention kernel
 (`tensorframes_tpu_torch/csrc/flash_attention_tc.cuh`, bf16 and fp16 at
-head widths up to 128), emulated in plain PyTorch on the CPU and held to
+head widths up to 256), emulated in plain PyTorch on the CPU and held to
 the Pallas kernel.
 
 The kernel cannot run here, so `_tc_emulation` below repeats what it
-computes, step by step: 64-key tiles (128 above head width 64) with the
-online rescale between them; the row max of the float32 scores scaled by
+computes, step by step: 64-key tiles (128 at padded head widths 72-128, 64
+again past 128, where the output alone takes 96 or 128 registers a thread)
+with the online rescale between them; the row max of the float32 scores scaled by
 ``scale * log2(e)`` (taken over the raw scores and scaled once, which is
 the same number); causal and ragged keys left out, their P 0; ``exp2`` of
 ``s * scale * log2(e) - m`` rounded once (the kernel's FFMA); the row sum
@@ -23,7 +24,8 @@ What the tests show. The pair meets the bar that phase 21 of
 place of the output (rtol 2^-7 for bf16, 2^-10 for fp16, atol 1e-5; the
 log-sum-exp rtol 1e-4, atol 1e-5), against the Pallas kernel in interpret
 mode on the same bf16 / fp16 inputs and against the plain version, causal
-and not, at a ragged length and at head widths 8, 24, 64 and 120. One
+and not, at a ragged length and at head widths 8, 24, 64, 120, 136, 200
+and 256 (one to four 64-column boxes a row). One
 rounding of P misses that bar in both dtypes, which is why the kernel
 carries the pair. Before the output's rounding the pair stays within 2^-16
 of the output's magnitude from float32 P (fp16's P_lo falls into fp16's
@@ -65,7 +67,8 @@ def _tc_emulation(q, k, v, causal, scale=None, p_rounding="pair"):
     bh, seq, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    block_k = 64 if -(-d // 8) * 8 <= 64 else 128  # keys a tile (TcShape::kKeys)
+    d8 = -(-d // 8) * 8
+    block_k = 128 if 64 < d8 <= 128 else 64  # keys a tile (TcShape::kKeys)
     sc = torch.tensor(np.float32(scale) * _LOG2E)  # scale * log2(e) in float32
     qf, kf, vf = q.float(), k.float(), v.float()
     m = torch.full((bh, seq), _NEG_INF)
@@ -125,10 +128,11 @@ def _violations(got, want, dtype) -> int:
 
 @_DTYPES
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("d", [8, 24, 64, 120])
+@pytest.mark.parametrize("d", [8, 24, 64, 120, 136, 200, 256])
 def test_pair_meets_the_bar_against_pallas_and_the_plain_version(dtype, causal, d):
     """S 300: five 64-key tiles (three of 128 at D 120), the last ragged, so
-    the online rescale and the ragged mask both run."""
+    the online rescale and the ragged mask both run; 136 and 200 are widths
+    the k16 step does not divide (the box's zero columns)."""
     q, k, v = _inputs((2, 300, d), seed=d + 17 * causal, dtype=dtype)
     out, lse, _ = _tc_emulation(q, k, v, causal)
     assert out.dtype == dtype and out.shape == q.shape
@@ -189,15 +193,19 @@ class TestWrapperRoute:
             (torch.float32, (2**25, 4097, 8), True),    # 65 tiles of 64 rows a head
             (torch.bfloat16, (2**25, 4097, 8), False),  # 33 tiles of 128 rows
             (torch.float16, (2**25, 8193, 8), True),    # 65 tiles of 128 rows
-            (torch.bfloat16, (2**24, 4097, 136), True),  # wide: 2 slices x 65 tiles of 64
+            (torch.bfloat16, (2**24, 4097, 136), False),  # 33 tiles of 128 rows
+            (torch.float32, (2**24, 4097, 136), False),  # wide: 1 slice x 65 tiles of 64
+            (torch.bfloat16, (2**24, 4097, 264), True),  # wide: 2 slices x 65 tiles of 64
         ],
-        ids=["f32-64-row-tiles", "bf16-128-row-tiles", "fp16-past-the-limit", "bf16-wide"],
+        ids=["f32-64-row-tiles", "bf16-128-row-tiles", "fp16-past-the-limit", "bf16-wide",
+             "f32-wide-one-slice", "bf16-past-256"],
     )
     def test_block_count_follows_the_kernels_query_tile(self, dtype, shape, refused):
         """The grid-limit check counts the blocks of the kernel the library
-        will pick: 128-row query tiles for bf16 / fp16 up to 128 wide, 64
-        rows for float32 and for the wide kernel. Meta tensors allocate
-        nothing."""
+        will pick: 128-row query tiles for bf16 / fp16 up to 256 wide (the
+        tensor-core kernel), 64 rows for float32 up to 128, 64 rows in
+        slices of 256 output columns for the wide kernel (float32 past 128,
+        bf16 / fp16 past 256). Meta tensors allocate nothing."""
         q = torch.empty(*shape, dtype=dtype, device="meta")
         if refused:
             with pytest.raises(ValueError, match="thread blocks"):

@@ -64,16 +64,14 @@ def _traced_header(src: str) -> str:
     src = _patch(src, "    hold(p_lo);\n  }\n\n  const size_t head_row",
                  "    hold(p_lo);\n    cyc[5] += clock64() - tt;\n  }\n  tt = clock64();\n\n"
                  "  const size_t head_row")
-    src = _patch(src, "            pack2<T>(acc[4 * c + 2 * h] * inv, acc[4 * c + 2 * h + 1] * inv);\n"
-                      "    }\n  }\n}\n",
-                 "            pack2<T>(acc[4 * c + 2 * h] * inv, acc[4 * c + 2 * h + 1] * inv);\n"
-                 "    }\n  }\n"
+    src = _patch(src, "  }\n}\n\nusing TensorMapEncode",
+                 "  }\n"
                  "  cyc[6] = clock64() - tt;\n"
                  f"  if (t == 0 && blockIdx.x < {_MAX_BLOCKS}) {{\n"
                  "    long long* r = tfs_tc_trace[blockIdx.x][cw];\n"
                  "    r[0] = clock64() - t_start;\n"
                  "    for (int i = 1; i < 7; ++i) r[i] = cyc[i];\n"
-                 "    r[7] = nk;\n  }\n}\n")
+                 "    r[7] = nk;\n  }\n}\n\nusing TensorMapEncode")
     return src
 
 
@@ -136,8 +134,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     lib = _build(os.path.join(_ROOT, "tensorframes_tpu_torch", "_build", "trace"))
     for bh, s, d in shapes:
-        if d % 8 or d > 128:
-            raise ValueError(f"the tensor-core kernel takes D a multiple of 8 up to 128, got {d}")
+        if d % 8 or d > 256:
+            raise ValueError(f"the tensor-core kernel takes D a multiple of 8 up to 256, got {d}")
         gen = torch.Generator(device="cuda").manual_seed(0)
         q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).to(torch.bfloat16)
                    for _ in range(3))
