@@ -174,15 +174,15 @@ main path through the entry points a user calls:
     S, causal and not), negative and zero scales, JAX's ``(S, D)`` and
     ``(B, H, S, D)`` layouts, transposed and misaligned inputs, float64
     and int32 (through float32), bf16 and fp16 loaded by the kernels (within
-    one unit in their last place; padded widths up to 256 asserted on the
-    tensor-core kernel, wider on the wide kernel); one causal head of
-    65,535 x 64 + 1 rows;
+    one unit in their last place, at widths up to 1000, every one asserted
+    on the tensor-core kernels); one causal head of 65,535 x 64 + 1 rows;
     phase 7's scoring route and widths with 2, 1 and 16 heads (head_dim
     128, 256 and 15; d_model 240 for the last) and phase 19's ``mesh=``
     ring at head_dim 15 and 256, each against the plain attention; the
     kernels at D 128, 136 and 256 (BH 16, S 2048) and at the LM's shape,
-    float32, bf16 and fp16, and at D 512 in float32 and bf16, timed beside
-    the plain version, SDPA of the same dtype and the bound. ``python3
+    float32, bf16 and fp16, at D 512 in float32 and at D 384, 512 and 576
+    in bf16 and fp16, timed beside the plain version, SDPA of the same
+    dtype and the bound. ``python3
     chip_smoke.py --phase 21`` runs phases 1 and 21 alone and prints no
     result line;
 22. one JSON line listing every kernel with its launches on the main path
@@ -343,11 +343,12 @@ def _attention_bound(bh: int, s: int, d: int, causal: bool, elem_bytes: int = 4,
 
 
 # attention kernels the three libraries compile: float32 at head_dim 8-128
-# (16 widths), the tensor-core kernel of bf16 and fp16 at 1-8, 10, 12, 14
-# and 16 k16 steps (12 widths), the wide kernel of each of the three types;
-# each with and without the log-sum-exp
-_TC_INSTANTIATIONS = 2 * 12 * 2
-_INSTANTIATIONS = 16 * 2 + _TC_INSTANTIATIONS + 3 * 2
+# (16 widths), the tensor-core kernels of bf16 and fp16 at 1-8, 10, 12, 14
+# and 16 k16 steps (12 widths) and past 256 (5 shapes: a resident Q tile of
+# 5, 6, 8 or 9 boxes, windows of 4 reloaded past it), the float32 wide
+# kernel; each with and without the log-sum-exp
+_TC_INSTANTIATIONS = 2 * (12 + 5) * 2
+_INSTANTIATIONS = 16 * 2 + _TC_INSTANTIATIONS + 2
 
 
 def _ptxas_line(log: str, d: int, lse: bool = False):
@@ -406,17 +407,17 @@ def phase_card_and_build() -> None:
     seconds = time.perf_counter() - t0
     # ptxas's registers and spills for the float32 head_dim-64 kernel the LM
     # runs and for head_dim 128; every instantiation must spill nothing: the
-    # float32 kernel at head_dim 8-128, the tensor-core kernel of bf16 and
-    # fp16 at 1-8, 10, 12, 14 and 16 k16 steps (padded head_dim up to 256),
-    # the wide kernel of the three types, each with and without the
-    # log-sum-exp. The tensor-core kernel is built for wgmma pipelines:
+    # float32 kernel at head_dim 8-128, the tensor-core kernels of bf16 and
+    # fp16 at 1-8, 10, 12, 14 and 16 k16 steps (padded head_dim up to 256)
+    # and past 256, the float32 wide kernel, each with and without the
+    # log-sum-exp. The tensor-core kernels are built for wgmma pipelines:
     # ptxas must not serialize them (its C7510-C7520 notes)
     log = _cuda_build.build_logs.get("flash_attention", "")
     ptxas = _ptxas_table(_cuda_build.build_logs)
     spilled = {k: r for k, r in ptxas.items() if r[1] or r[2]}
     if spilled:
         raise AssertionError(f"ptxas spilled in {spilled} ([registers, stores, loads, stack])")
-    tc = {k: r[0] for k, r in ptxas.items() if "flash_attention_tc_kernel" in k}
+    tc = {k: r[0] for k, r in ptxas.items() if "flash_attention_tc_" in k}
     if ptxas and (len(ptxas) != _INSTANTIATIONS or len(tc) != _TC_INSTANTIATIONS):
         raise AssertionError(
             f"ptxas compiled {len(ptxas)} attention kernels ({len(tc)} tensor-core), "
@@ -4745,9 +4746,8 @@ def _routes_since(before: dict) -> dict:
 def _half_cases(gen, lm_shape) -> dict:
     """bf16 and fp16 loaded by the kernels themselves, against the plain
     version within one unit in their last place; max abs error by case.
-    Every case at a padded head width up to 256 must have run both entries
-    on the tensor-core kernel (the library's route report), wider ones on
-    the wide kernel."""
+    Every case, at every width, must have run both entries on the
+    tensor-core kernels (the library's route report)."""
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention
 
     cases = [  # (shape, causal, scale)
@@ -4759,18 +4759,27 @@ def _half_cases(gen, lm_shape) -> dict:
         # padded width, ragged lengths against the 128-row tiles, one row
         ((2, 300, 8), True, None), ((2, 200, 24), False, None),
         ((2, 1000, 120), True, None), ((2, 129, 15), True, None), ((1, 1, 8), False, None),
-        # scales: the scores are scaled before the row max (tensor cores), or
-        # the scores negated (the wide kernel, past 256 below)
+        # scales: the scores are scaled before the row max
         ((3, 200, 64), True, -0.125), ((4, 300, 256), True, -0.125),
         ((2, 200, 24), True, 0.0), ((2, 129, 120), False, -0.05),
         # three and four 64-column boxes a row: a width the k16 step does
         # not divide (136: 9 steps run as 10), ragged lengths, a negative
-        # scale; past 256 the wide kernel, one slice and a partial second
-        # (a negative scale), two whole slices
+        # scale
         ((2, 300, 136), False, None), ((2, 300, 136), True, None),
         ((2, 1000, 200), True, None), ((2, 129, 200), False, None),
-        ((2, 200, 200), True, -0.125), ((2, 129, 264), False, -0.05),
-        ((2, 300, 512), True, None),
+        ((2, 200, 200), True, -0.125),
+        # past 256: two slices over a resident Q tile of 5-8 boxes (264 and
+        # 320 with a zero-filled V box in the second slice; 448 with a
+        # zero-filled box in its second window of Q K^T), three slices over
+        # 9 boxes (520, 576); windows of 4 with Q reloaded past them (640: a
+        # zero-filled window tail; 1000: four slices, four windows); negative
+        # and zero scales, ragged lengths against the 64- and 32-key tiles
+        ((2, 129, 264), False, -0.05), ((2, 200, 264), True, 0.0),
+        ((2, 200, 320), True, None), ((2, 129, 384), False, None),
+        ((2, 300, 448), True, -0.125), ((2, 300, 512), True, None),
+        ((2, 300, 520), True, None), ((2, 129, 576), False, None),
+        ((2, 200, 576), True, -0.05), ((2, 129, 640), True, None),
+        ((1, 200, 1000), True, None),
     ]
     errs = {}
     for dtype, name in ((torch.bfloat16, "bf16"), (torch.float16, "fp16")):
@@ -4783,11 +4792,10 @@ def _half_cases(gen, lm_shape) -> dict:
             before = dict(flash_attention.launches_by_route)
             errs[key] = _both_entries(f"{name} {shape} causal={causal} scale={scale}",
                                       q, k, v, causal, scale)
-            route = "tensor_core" if -(-shape[-1] // 8) * 8 <= 256 else "wide"
-            if _routes_since(before) != {route: 2}:
+            if _routes_since(before) != {"tensor_core": 2}:
                 raise AssertionError(
                     f"{key}: the two entries launched {_routes_since(before)}, expected "
-                    f"{{'{route}': 2}}")
+                    "{'tensor_core': 2}")
     return errs
 
 
@@ -4826,7 +4834,9 @@ def _variant_times(bh: int, s: int, d: int, dtype, gen) -> dict:
     (bh, s, d): device ms each, the wrapper's back-to-back ms, the route
     the kernel took, and the bound at the peak the dtype could use (for
     the tensor-core kernel also at the operations it does, P V twice for
-    the pair)."""
+    the pair). Both entries' outputs on the timed inputs are first held
+    against the plain version (`_both_entries`: the one-ulp bar for bf16
+    and fp16), and bf16 and fp16 must take the tensor-core route."""
     from tensorframes_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
@@ -4839,8 +4849,12 @@ def _variant_times(bh: int, s: int, d: int, dtype, gen) -> dict:
     peak = _PEAK_HALF_FLOPS if half else _PEAK_F32_FLOPS
     bound_ms, bound_by = _attention_bound(bh, s, d, True, q.element_size(), peak)
     before = dict(flash_attention.launches_by_route)
-    flash_attention(q, k, v, causal=True)
+    what = f"{dtype} ({bh}, {s}, {d}) causal"
+    err = _both_entries(what, q, k, v, True)
     (route,) = _routes_since(before)
+    if _routes_since(before) != {route: 2} or (half and route != "tensor_core"):
+        raise AssertionError(f"{what}: the two entries launched {_routes_since(before)}")
+    torch.cuda.empty_cache()
     ms = _device_ms(lambda: flash_attention(q, k, v, causal=True), 20)
     extra = {}
     if route == "tensor_core":
@@ -4849,7 +4863,7 @@ def _variant_times(bh: int, s: int, d: int, dtype, gen) -> dict:
                                                   products=3)[0]
     return dict(
         shape=[bh, s, d], dtype=str(dtype).replace("torch.", ""), causal=True, route=route,
-        ms=ms, **extra,
+        max_abs_err=err, ms=ms, **extra,
         wrapper_ms=_time_ms(lambda: flash_attention(q, k, v, causal=True), 20),
         plain_ms=_device_ms(lambda: flash_attention_reference(q, k, v, causal=True), 5),
         library_ms=_device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -4863,8 +4877,8 @@ def _variant_times(bh: int, s: int, d: int, dtype, gen) -> dict:
 
 def phase_attention_widths(tft, cfg, lm_shape, n_seqs: int, block_seqs: int) -> dict:
     """Phase 21: the kernels at every head width, dtype and layout the
-    Pallas kernel takes, against their plain version, bf16 and fp16 up to
-    head_dim 256 asserted on the tensor-core kernel; `TransformerLM`
+    Pallas kernel takes, against their plain version, bf16 and fp16 at every
+    head_dim asserted on the tensor-core kernels; `TransformerLM`
     scoring at head widths 128, 256 and 15 (phase 7's route and widths,
     other head counts) and the ``mesh=`` ring at 15 and 256, their launches
     counted apart from the main path's; times of the variants beside SDPA
@@ -4919,8 +4933,17 @@ def phase_attention_widths(tft, cfg, lm_shape, n_seqs: int, block_seqs: int) -> 
         "fp16-16x2048x136": _variant_times(16, 2048, 136, torch.float16, gen),
         "bf16-16x2048x256": _variant_times(16, 2048, 256, torch.bfloat16, gen),
         "fp16-16x2048x256": _variant_times(16, 2048, 256, torch.float16, gen),
-        # half precision past 256: the wide kernel, on the CUDA cores
+        # half precision past 256 on the tensor cores, over a resident Q
+        # tile: two slices (264, a width not a multiple of 64; 384, 512),
+        # three (576, the width of DeepSeek-V2/V3's absorbed MLA heads)
+        "bf16-16x2048x264": _variant_times(16, 2048, 264, torch.bfloat16, gen),
+        "fp16-16x2048x264": _variant_times(16, 2048, 264, torch.float16, gen),
+        "bf16-16x2048x384": _variant_times(16, 2048, 384, torch.bfloat16, gen),
+        "fp16-16x2048x384": _variant_times(16, 2048, 384, torch.float16, gen),
         "bf16-16x2048x512": _variant_times(16, 2048, 512, torch.bfloat16, gen),
+        "fp16-16x2048x512": _variant_times(16, 2048, 512, torch.float16, gen),
+        "bf16-16x2048x576": _variant_times(16, 2048, 576, torch.bfloat16, gen),
+        "fp16-16x2048x576": _variant_times(16, 2048, 576, torch.float16, gen),
     }
     out = dict(
         card=_CARD, max_abs_err_each={**errs, **half_errs},
@@ -5023,8 +5046,8 @@ def main(argv) -> int:
         "route": "cuda",
         "source": "tensorframes_tpu_torch/csrc/flash_attention.cuh",
         # the CUDA-core kernels (float32 up to head_dim 128 in one slice,
-        # float32 past 128 and bf16 / fp16 past 256 in the wide kernel) and
-        # the tensor-core kernel of bf16 and fp16 up to head_dim 256
+        # float32 past 128 in the wide kernel) and the tensor-core kernels
+        # of bf16 and fp16 at every head_dim
         "headers": ["tensorframes_tpu_torch/csrc/flash_attention.cuh",
                     "tensorframes_tpu_torch/csrc/flash_attention_tc.cuh"],
         # one library an element type; the 2-byte ones include both headers
@@ -5046,8 +5069,9 @@ def main(argv) -> int:
         "lm_launches_by_head_dim": {k: r["launches"] for k, r in widths["lm_scoring"].items()},
         "ring_launches_by_head_dim": {
             k: r["ring_launches"] for k, r in widths["ring_scoring"].items()},
-        "variants": {k: {n: t[n] for n in ("route", "ms", "wrapper_ms", "plain_ms", "library_ms",
-                                            "bound_ms", "bound_pair_ms", "bound_by", "bound_peak")
+        "variants": {k: {n: t[n] for n in ("route", "max_abs_err", "ms", "wrapper_ms", "plain_ms",
+                                            "library_ms", "bound_ms", "bound_pair_ms", "bound_by",
+                                            "bound_peak")
                          if n in t}
                      for k, t in widths["times"].items()},
     }]}), flush=True)

@@ -2,10 +2,10 @@
 // kernels and the dispatch that flash_attention.cu (float32),
 // flash_attention_f16.cu (float16) and flash_attention_bf16.cu (bfloat16)
 // instantiate, one shared library each, so that nvcc builds the three at
-// once. The one-slice kernel below takes float32 heads up to 128 wide; bf16
-// and fp16 at padded head widths up to 256 run on the tensor cores
-// (flash_attention_tc.cuh, which the two 2-byte builds include); the wide
-// kernel takes the rest: float32 past 128, bf16 and fp16 past 256.
+// once. The one-slice kernel below takes float32 heads up to 128 wide, the
+// wide kernel float32 heads past 128; bf16 and fp16 heads of every width run
+// on the tensor cores (flash_attention_tc.cuh, which the two 2-byte builds
+// include).
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `flash_attention` in
 // tensorframes_tpu/ops/pallas_kernels.py (pallas_call at :122). Same
@@ -18,9 +18,8 @@
 // (the wrapper, ops/flash_attention.py, pads other widths with zero
 // columns, casts other dtypes to float32 and copies strided or misaligned
 // inputs). Like the Pallas kernel, which casts every block to float32, the
-// kernels compute in float32 whatever they load: the wide kernel converts
-// half-precision elements as they are read from shared memory into
-// registers (the tensor-core kernel multiplies them as they are, exactly),
+// kernels compute in float32 whatever they load (the tensor-core kernels
+// multiply 2-byte elements as they are, exactly, into float32 sums),
 // scores, softmax and the output accumulate in float32, and the output is
 // rounded to the input type to nearest even (`astype`'s rounding). A second entry
 // also stores each row's log-sum-exp of its scaled scores, (BH, S) float32
@@ -43,8 +42,8 @@
 // by operations, at least 0.257 ms. TF32 tensor cores keep ~10 mantissa
 // bits and miss the rtol 1e-4 parity bar, so every float32 product here is
 // an FFMA on the CUDA cores; bf16 and fp16 products are exact in float32
-// and run on the tensor cores instead (flash_attention_tc.cuh), except past
-// head width 256, in the wide kernel. What the design does about each limit:
+// and run on the tensor cores instead (flash_attention_tc.cuh). What the
+// design does about each limit:
 //
 // 1. Shared-memory instructions, not FFMAs, set the pace of a scalar inner
 //    loop. Register tiling: a block takes a Q tile of kBlockQ = 64 rows and
@@ -56,17 +55,15 @@
 //    float32, Q K^T issues 128 FFMA per 12 loads and P V 32 FFMA per 3
 //    loads at D 64, against 2 FFMA per scalar load. Rows are d-contiguous
 //    with a stride of the row's bytes rounded up to 32, plus 16 (D + 4
-//    floats; in the wide kernel's 2-byte chunks D + 8 or D + 16 values):
-//    16-byte aligned, and the 8 rows a quarter-warp reads fall on 8
+//    floats): 16-byte aligned, and the 8 rows a quarter-warp reads fall on 8
 //    distinct bank groups;
 //    Q's odd 8-row groups are shifted by 16 more bytes so the two row
 //    groups of one warp read distinct banks. P is float32 and written
 //    key-major, so P V reads a thread's 8 rows as two float4. The row max
 //    reduces with shuffles over the 16 lanes of a row group; the row sum
-//    stays split over those lanes until the end. The wide kernel keeps
-//    this arithmetic for 2-byte elements too (8 values a 16-byte load).
+//    stays split over those lanes until the end.
 // 2. Staging is asynchronous: Q and the K/V stream are copied with 16-byte
-//    cp.async.cg (8 half values a copy in the wide kernel); rows past the
+//    cp.async.cg; rows past the
 //    ragged end are zero-filled by the copy's source-size operand. K and V
 //    go through a two-slot ring in the order K0, V0, K1, V1, ...: V_kb is
 //    in flight while Q K_kb^T is computed, and K_kb+1 while P V_kb is. Two
@@ -84,10 +81,9 @@
 //    negative scale negates the staged Q tile once, so the running max of
 //    the unscaled scores is the max of the scaled ones.
 //
-// The wide kernel (flash_attention_wide_kernel, any multiple of 8 past the
-// other kernels' widths) replaces the same Pallas kernel for float32 heads
-// wider than 128 and bf16 / fp16 heads wider than 256. Its bound at BH 16,
-// S 2048, D 256, causal, float32: 34.4 GFLOP over the causal pairs, 0.513
+// The wide kernel (flash_attention_wide_kernel, any multiple of 8 past 128)
+// replaces the same Pallas kernel for float32 heads wider than 128. Its
+// bound at BH 16, S 2048, D 256, causal: 34.4 GFLOP over the causal pairs, 0.513
 // ms at 67 TFLOP/s (q/k/v/o: 0.040 ms), so it is bound by operations. A
 // thread's output block at D 256 would be 8 rows x 32 floats, which spills,
 // and a block's Q, K, V and P tiles would need 217 KB: a block takes a
@@ -98,7 +94,7 @@
 // one-slice kernel's 8 x 4 score block a thread and its 128 FFMA per 12
 // shared loads: group g owns output columns 128 g .. 128 g + 127 of the
 // slice (64 accumulators a thread) and sums the scores over alternate
-// column chunks of 128 bytes (kWideChunkD: 32 floats, 64 half values).
+// column chunks of 128 bytes (kWideChunkD: 32 floats).
 // Each group writes its partial sums to shared memory (8 float4 a thread),
 // and after one block barrier each adds the other's: a sum of two floats
 // does not depend on their order, so both groups hold the same scores, run
@@ -112,9 +108,9 @@
 // 128-byte swizzle puts the 8 rows a quarter-warp reads on distinct banks.
 // A thread holds query rows ty + 8 i, so a warp's two Q rows also differ
 // in row % 8. Per key tile: two block barriers (partial sums written, P
-// complete). Shared memory: 177 KB in float32 (the two rings 64, V 64, P
-// 17, the partial sums 32), 145 KB in half precision; one block of 8
-// warps an SM, as the parent's two blocks of 4. Dropped: the parent's
+// complete). Shared memory: 177 KB (the two rings 64, V 64, P 17, the
+// partial sums 32); one block of 8 warps an SM, as the parent's two blocks
+// of 4. Dropped: the parent's
 // design, 128-column slices that each recomputed the full-width scores
 // (1.5x the operations at D 256) over 64-column chunks staged one at a
 // time after the last was multiplied; staging by 16-byte cp.async from
@@ -133,8 +129,8 @@
 // instantiation that stores the log-sum-exp uses 168 and 218. That
 // instantiation is kept apart because a runtime branch on the pointer cost
 // the entry without it 0.7% on an H100 (PERF.md). The wide kernel uses 236
-// and 238 registers in float32, 208 and 217 in half precision (its Q K^T
-// fully unrolled: 3.5% faster at D 256 than unrolled by 2). No
+// and 238 registers (its Q K^T fully unrolled: 3.5% faster at D 256 than
+// unrolled by 2). No
 // instantiation of the three libraries spills (chip_smoke.py checks every
 // one; the registers of each are in PERF.md).
 
@@ -187,23 +183,21 @@ struct Layout {
   static constexpr int kMinBlocks = D <= 64 ? 3 : 1;
 };
 
-// The wide kernel's chunk: the columns of a 128-byte row, a step of one
-// group's Q K^T and the width of its TMA boxes (the 128-byte swizzle's span)
-template <class T>
-constexpr int kWideChunkD = 128 / static_cast<int>(sizeof(T));
+// The wide kernel's chunk: the float32 columns of a 128-byte row, a step of
+// one group's Q K^T and the width of its TMA boxes (the 128-byte swizzle's
+// span)
+constexpr int kWideChunkD = 128 / static_cast<int>(sizeof(float));
 
 // V boxes a group of the wide kernel loads a key tile: its 128 columns
-template <class T>
-constexpr int kWidePieces = kWideSliceD / 2 / kWideChunkD<T>;
+constexpr int kWidePieces = kWideSliceD / 2 / kWideChunkD;
 
 // Shared memory of the wide kernel, in boxes after up to 1024 bytes of
 // alignment (the swizzle repeats every 1024): each group's two slots of a Q
 // and a K box, each group's V boxes, then P and each group's partial
 // scores (8 float4 a thread).
-template <class T>
 struct WideLayout {
-  static constexpr int kRing = 2 * 2 * 2 * kWideBox;        // [group][slot][Q, K]
-  static constexpr int kV = 2 * kWidePieces<T> * kWideBox;  // [group][box]
+  static constexpr int kRing = 2 * 2 * 2 * kWideBox;     // [group][slot][Q, K]
+  static constexpr int kV = 2 * kWidePieces * kWideBox;  // [group][box]
   static constexpr int kP = kBlockK * (kBlockQ + 4) * 4;
   static constexpr int kX = 2 * 8 * kThreads * 16;
   static constexpr int kBytes = 1024 + kRing + kV + kP + kX;
@@ -213,20 +207,8 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-template <class T>
-__device__ __forceinline__ float2 unpack2(unsigned u);
-
-template <>
-__device__ __forceinline__ float2 unpack2<__half>(unsigned u) {
-  return __half22float2(*reinterpret_cast<const __half2*>(&u));
-}
-
-template <>
-__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(unsigned u) {
-  // a bfloat16 is the top half of the float32 with the same value
-  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-}
-
+// two floats as two 2-byte values, rounded to nearest even (the tensor-core
+// kernels' output)
 template <class T>
 __device__ __forceinline__ unsigned pack2(float a, float b);
 
@@ -242,37 +224,8 @@ __device__ __forceinline__ unsigned pack2<__nv_bfloat16>(float a, float b) {
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
-// 8 half-precision elements at a 16-byte aligned shared address, as floats
-template <class T>
-__device__ __forceinline__ void ld8f(const T* p, float (&f)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const float2 a = unpack2<T>(u.x), b = unpack2<T>(u.y);
-  const float2 c = unpack2<T>(u.z), d = unpack2<T>(u.w);
-  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-  f[4] = c.x; f[5] = c.y; f[6] = d.x; f[7] = d.y;
-}
-
-// 4 elements as floats: one 16-byte load of floats, one 8-byte load of
-// half-precision values
-template <class T>
-__device__ __forceinline__ float4 ld4f(const T* p) {
-  if constexpr (sizeof(T) == 4) {
-    return ld4(p);
-  } else {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 a = unpack2<T>(u.x), b = unpack2<T>(u.y);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-}
-
-// 4 floats stored as T, rounded to nearest even
-template <class T>
-__device__ __forceinline__ void st4(T* p, float a, float b, float c, float d) {
-  if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-  } else {
-    *reinterpret_cast<uint2*>(p) = make_uint2(pack2<T>(a, b), pack2<T>(c, d));
-  }
+__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
 
 // 16-byte global -> shared copy; src_bytes 0 writes 16 zero bytes.
@@ -388,40 +341,22 @@ __device__ __forceinline__ void group_sync(int g) {
 // s[i][j] += the product of Q row 8 ty + i and K row tx + 16 j over DC
 // columns; qr and kr point at this thread's first Q and K rows, in tiles of
 // row strides QS and KS.
-template <class T, int DC, int QS, int KS>
-__device__ __forceinline__ void qk(float (&s)[8][4], const T* qr, const T* kr) {
-  if constexpr (sizeof(T) == 4) {
+template <int DC, int QS, int KS>
+__device__ __forceinline__ void qk(float (&s)[8][4], const float* qr, const float* kr) {
 #pragma unroll 4
-    for (int d = 0; d < DC; d += 4) {
-      float4 kf[4];
+  for (int d = 0; d < DC; d += 4) {
+    float4 kf[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kf[j] = ld4(kr + 16 * j * KS + d);
+    for (int j = 0; j < 4; ++j) kf[j] = ld4(kr + 16 * j * KS + d);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 qf = ld4(qr + i * QS + d);
+    for (int i = 0; i < 8; ++i) {
+      const float4 qf = ld4(qr + i * QS + d);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
-          s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
-          s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
-          s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
-        }
-      }
-    }
-  } else {
-#pragma unroll 2
-    for (int d = 0; d < DC; d += 8) {
-      float kf[4][8];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ld8f(kr + 16 * j * KS + d, kf[j]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float qf[8];
-        ld8f(qr + i * QS + d, qf);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) s[i][j] = fmaf(qf[e], kf[j][e], s[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+        s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+        s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+        s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
       }
     }
   }
@@ -494,9 +429,9 @@ __device__ __forceinline__ void store_p(float* pw, const float (&s)[8][4]) {
 
 // O += P V for this thread's 8 rows x 4 NV columns (column group h only
 // where kFullV or tx + 16 h < kCols4); V rows of stride VS.
-template <class T, int NV, bool kFullV, int kCols4, int VS>
+template <int NV, bool kFullV, int kCols4, int VS>
 __device__ __forceinline__ void accumulate_pv(float (&acc)[8][4 * NV], const float* pr,
-                                              const T* vr, int tx) {
+                                              const float* vr, int tx) {
   constexpr int PS = kBlockQ + 4;
 #pragma unroll 8
   for (int c = 0; c < kBlockK; ++c) {
@@ -506,7 +441,7 @@ __device__ __forceinline__ void accumulate_pv(float (&acc)[8][4 * NV], const flo
 #pragma unroll
     for (int h = 0; h < NV; ++h) {
       if (kFullV || tx + 16 * h < kCols4) {
-        const float4 vf = ld4f(vr + c * VS + 64 * h);
+        const float4 vf = ld4(vr + c * VS + 64 * h);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           acc[i][4 * h + 0] = fmaf(pc[i], vf.x, acc[i][4 * h + 0]);
@@ -527,7 +462,6 @@ __device__ __forceinline__ int swizzled(int r, int u) { return r * 128 + ((u ^ (
 // chunk; both rows' chunk u at byte u ^ (row % 8), that is u ^ ty and
 // u ^ tx % 8, so the 8 rows a quarter-warp reads and a warp's two Q rows
 // fall on distinct banks.
-template <class T>
 __device__ __forceinline__ void qk_wide(float (&s)[8][4], const unsigned char* qt,
                                         const unsigned char* kt, int ty, int tx) {
   const unsigned char* qr = qt + ty * 128;
@@ -535,33 +469,18 @@ __device__ __forceinline__ void qk_wide(float (&s)[8][4], const unsigned char* q
 #pragma unroll
   for (int u = 0; u < 8; ++u) {
     const int qu = (u ^ ty) << 4, ku = (u ^ (tx & 7)) << 4;
-    if constexpr (sizeof(T) == 4) {
-      float4 kf[4];
+    float4 kf[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kf[j] = ld4(reinterpret_cast<const float*>(kr + 2048 * j + ku));
+    for (int j = 0; j < 4; ++j) kf[j] = ld4(reinterpret_cast<const float*>(kr + 2048 * j + ku));
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 qf = ld4(reinterpret_cast<const float*>(qr + 1024 * i + qu));
+    for (int i = 0; i < 8; ++i) {
+      const float4 qf = ld4(reinterpret_cast<const float*>(qr + 1024 * i + qu));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
-          s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
-          s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
-          s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
-        }
-      }
-    } else {
-      float kf[4][8];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ld8f(reinterpret_cast<const T*>(kr + 2048 * j + ku), kf[j]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float qf[8];
-        ld8f(reinterpret_cast<const T*>(qr + 1024 * i + qu), qf);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) s[i][j] = fmaf(qf[e], kf[j][e], s[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+        s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+        s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+        s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
       }
     }
   }
@@ -569,16 +488,15 @@ __device__ __forceinline__ void qk_wide(float (&s)[8][4], const unsigned char* q
 
 // O += P V for the thread's 8 rows x columns 4 tx + 64 h (h < NH) of its
 // group's 128, from the group's V boxes vg (kWideChunkD columns each)
-template <class T, int NH>
+template <int NH>
 __device__ __forceinline__ void pv_wide(float (&acc)[8][8], const float* pr,
                                         const unsigned char* vg, int tx) {
   constexpr int PS = kBlockQ + 4;
-  constexpr int kPerBox = kWideChunkD<T> / 4;  // 4-column groups a box row
+  constexpr int kPerBox = kWideChunkD / 4;  // 4-column groups a box row
   // the thread's 4 columns of group h: box h 64 / kWideChunkD + tx / kPerBox,
-  // bytes (tx % kPerBox) 4 sizeof(T) of the row, in 16-byte chunk cu
-  const int cu = (tx % kPerBox) * 4 * static_cast<int>(sizeof(T)) / 16;
-  const int cb = ((tx % kPerBox) * 4 * static_cast<int>(sizeof(T))) & 15;
-  const unsigned char* vb = vg + (tx / kPerBox) * kWideBox + cb;
+  // the row's 16-byte chunk tx % kPerBox
+  const int cu = tx % kPerBox;
+  const unsigned char* vb = vg + (tx / kPerBox) * kWideBox;
 #pragma unroll 8
   for (int c = 0; c < kBlockK; ++c) {
     const float4 p0 = ld4(pr + c * PS);
@@ -588,7 +506,7 @@ __device__ __forceinline__ void pv_wide(float (&acc)[8][8], const float* pr,
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
       const float4 vf =
-          ld4f(reinterpret_cast<const T*>(vb + h * (64 / kWideChunkD<T>) * kWideBox + off));
+          ld4(reinterpret_cast<const float*>(vb + h * (64 / kWideChunkD) * kWideBox + off));
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         acc[i][4 * h + 0] = fmaf(pc[i], vf.x, acc[i][4 * h + 0]);
@@ -688,7 +606,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    qk<T, D, S, S>(s, qr, kr);
+    qk<D, S, S>(s, qr, kr);
 
     softmax_step(s, m, l, acc, sc, q0, k0, ty, tx, seq, causal);
     store_p(pw, s);
@@ -700,7 +618,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       cp_async_commit();
     }
 
-    accumulate_pv<T, NV, kFullV, D / 4, S>(acc, pr, vr, tx);
+    accumulate_pv<NV, kFullV, D / 4, S>(acc, pr, vr, tx);
 
     cp_async_wait_all();
     __syncthreads();  // K tile kb + 1 is staged; V and P are consumed
@@ -724,8 +642,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Heads wider than the other kernels take (see the header): float32 past
-// kSliceD, bf16 / fp16 past kTcSliceD; any multiple of 8. Block b takes
+// float32 heads wider than kSliceD (see the header), any multiple of 8; only
+// the float32 build instantiates it. Block b takes
 // output slice b % slices (kWideSliceD columns) of head (b / slices) % BH's
 // query tile nq - 1 - b / (slices BH). Group g (threads 128 g ..) owns the
 // slice's columns 128 g .. 128 g + 127 and sums the scores over column
@@ -733,16 +651,16 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // columns in the last slice are the fewer, takes the extra chunk. A
 // thread holds query rows ty + 8 i (not 8 ty + i: with the swizzle a
 // warp's two Q rows then fall on distinct banks) and keys tx + 16 j.
-template <class T, bool kLse>
+template <bool kLse>
 __global__ void __launch_bounds__(kWideThreads, 1)
 flash_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
-                            const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
+                            const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
                             float* __restrict__ lse, int bh, int seq, int d, int slices,
                             float scale, int causal) {
-  using W = WideLayout<T>;
-  constexpr int CD = kWideChunkD<T>;
-  constexpr int NP = kWidePieces<T>;
+  using W = WideLayout;
+  constexpr int CD = kWideChunkD;
+  constexpr int NP = kWidePieces;
   constexpr int PS = kBlockQ + 4;
   constexpr int kHalf = kWideSliceD / 2;  // output columns a group
   extern __shared__ unsigned char wide_smem[];
@@ -837,7 +755,7 @@ flash_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
       }
       mbar_wait(full + (n & 1), (n >> 1) & 1);
       const unsigned char* cs = ring + 2 * (n & 1) * kWideBox;
-      qk_wide<T>(s, cs, cs + kWideBox, ty, tx);
+      qk_wide(s, cs, cs + kWideBox, ty, tx);
     }
 
     // the scores: this group's partial sums plus the other's. A float sum
@@ -867,9 +785,9 @@ flash_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
     if (live > 0) mbar_wait(v_full, kb & 1);  // this group's V boxes of tile kb
     __syncthreads();                          // P is complete
     if (live == 2)
-      pv_wide<T, 2>(acc, pr, vg, tx);
+      pv_wide<2>(acc, pr, vg, tx);
     else if (live == 1)
-      pv_wide<T, 1>(acc, pr, vg, tx);
+      pv_wide<1>(acc, pr, vg, tx);
   }
 
   const size_t head = static_cast<size_t>(hd) * seq;
@@ -879,7 +797,7 @@ flash_attention_wide_kernel(const __grid_constant__ CUtensorMap tq,
     const float li = finish_row<kLse>(l[i], m[i], scale, lse, head + row,
                                       slice == 0 && g == 0 && tx == 0 && row < seq);
     if (row >= seq) continue;
-    T* orow = o + (head + row) * d + vcol + 4 * tx;
+    float* orow = o + (head + row) * d + vcol + 4 * tx;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (vcol + 4 * tx + 64 * h < d) {
@@ -965,18 +883,18 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
   return cudaGetLastError();
 }
 
-template <class T, bool kLse>
-cudaError_t launch_wide(const T* q, const T* k, const T* v, T* o, float* lse, int bh, int seq,
-                        int d, float scale, int causal, cudaStream_t stream) {
+template <bool kLse>
+cudaError_t launch_wide(const float* q, const float* k, const float* v, float* o, float* lse,
+                        int bh, int seq, int d, float scale, int causal, cudaStream_t stream) {
   const TensorMapEncode encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
-  if (!encode_map(&mq, encode, q, bh, seq, d, kWideChunkD<T>, kBlockQ) ||
-      !encode_map(&mk, encode, k, bh, seq, d, kWideChunkD<T>, kBlockK) ||
-      !encode_map(&mv, encode, v, bh, seq, d, kWideChunkD<T>, kBlockK))
+  if (!encode_map(&mq, encode, q, bh, seq, d, kWideChunkD, kBlockQ) ||
+      !encode_map(&mk, encode, k, bh, seq, d, kWideChunkD, kBlockK) ||
+      !encode_map(&mv, encode, v, bh, seq, d, kWideChunkD, kBlockK))
     return cudaErrorInvalidValue;
-  using W = WideLayout<T>;
-  const auto kernel = flash_attention_wide_kernel<T, kLse>;
+  using W = WideLayout;
+  const auto kernel = flash_attention_wide_kernel<kLse>;
   const cudaError_t err = prepare(kernel, W::kBytes);
   if (err != cudaSuccess) return err;
   const int slices = (d + kWideSliceD - 1) / kWideSliceD;
@@ -987,15 +905,14 @@ cudaError_t launch_wide(const T* q, const T* k, const T* v, T* o, float* lse, in
   return cudaGetLastError();
 }
 
-// The tensor-core kernel of bf16 and fp16 at padded head widths up to
-// kTcSliceD, defined in flash_attention_tc.cuh, which only the 2-byte
-// builds include.
+// The tensor-core kernels of bf16 and fp16 at every padded head width,
+// defined in flash_attention_tc.cuh, which only the 2-byte builds include.
 template <class T>
 cudaError_t launch_tc(const T* q, const T* k, const T* v, T* o, float* lse, int bh, int seq,
                       int d8, float scale, int causal, cudaStream_t stream);
 
 // The kernel the last dispatch on this thread launched (tfs_flash_attention_
-// last_route): the float32 one-slice kernel, the wide kernel or the
+// last_route): the float32 one-slice kernel, the float32 wide kernel or a
 // tensor-core kernel.
 enum Route { kRouteNone = -1, kRouteCudaCore = 0, kRouteWide = 1, kRouteTensorCore = 2 };
 thread_local int last_route = kRouteNone;
@@ -1014,16 +931,13 @@ int dispatch(const void* qv, const void* kv, const void* vv, void* ov, float* ls
   const T* v = static_cast<const T*>(vv);
   T* o = static_cast<T*>(ov);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim > (sizeof(T) == 2 ? kTcSliceD : kSliceD)) {
-    last_route = kRouteWide;
-    return lse != nullptr ? launch_wide<T, true>(q, k, v, o, lse, bh, seq, head_dim, scale,
-                                                 causal, s)
-                          : launch_wide<T, false>(q, k, v, o, lse, bh, seq, head_dim, scale,
-                                                  causal, s);
-  }
   if constexpr (sizeof(T) == 2) {
     last_route = kRouteTensorCore;
     return launch_tc<T>(q, k, v, o, lse, bh, seq, head_dim, scale, causal, s);
+  } else if (head_dim > kSliceD) {
+    last_route = kRouteWide;
+    return lse != nullptr ? launch_wide<true>(q, k, v, o, lse, bh, seq, head_dim, scale, causal, s)
+                          : launch_wide<false>(q, k, v, o, lse, bh, seq, head_dim, scale, causal, s);
   } else {
     last_route = kRouteCudaCore;
     switch (head_dim) {

@@ -1,7 +1,8 @@
 // The blockwise attention kernels on bfloat16 inputs: the tensor-core
-// kernel (flash_attention_tc.cuh) at padded head widths up to 128, the wide
-// CUDA-core kernel (flash_attention.cuh) past it; the C entries
-// tfs_flash_attention_bf16 and tfs_flash_attention_lse_bf16.
+// kernels (flash_attention_tc.cuh) at every padded head width, one block
+// for up to 256 columns, slices of output columns past it; the dispatch
+// and the C entries tfs_flash_attention_bf16 and tfs_flash_attention_lse_bf16
+// (flash_attention.cuh).
 #include "flash_attention.cuh"
 #include "flash_attention_tc.cuh"
 

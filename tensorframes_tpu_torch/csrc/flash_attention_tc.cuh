@@ -1,11 +1,11 @@
 // Blockwise (flash) attention on Hopper's tensor cores (sm_90a), forward
-// only: the kernel that the bfloat16 and float16 builds
-// (flash_attention_bf16.cu, flash_attention_f16.cu) launch at padded head
-// widths D8 <= 256, through both C entries. It includes after
-// flash_attention.cuh, whose dispatch<T> sends 2-byte T with head_dim <=
-// kTcSliceD = 256 here; wider half-precision heads take
-// flash_attention_wide_kernel, and the float32 build never includes this
-// header.
+// only: the kernels that the bfloat16 and float16 builds
+// (flash_attention_bf16.cu, flash_attention_f16.cu) launch at every padded
+// head width D8, through both C entries: flash_attention_tc_kernel up to
+// kTcSliceD = 256, one block for the whole row, and past it
+// flash_attention_tc_wide_kernel (below the first), slices of the output
+// columns. It includes after flash_attention.cuh, whose dispatch<T> sends
+// every 2-byte T here; the float32 build never includes this header.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `flash_attention` in
 // tensorframes_tpu/ops/pallas_kernels.py (pallas_call at :122, body
@@ -106,7 +106,7 @@
 //
 // An mbarrier wait that lasts ~9 s traps (a launch failure the wrapper
 // raises) instead of hanging the card. Shared memory: Q and the rings,
-// 81 KB a block up to D8 64, 225 KB up to 128, 193 KB past it. Times,
+// 81 KB a block up to D8 64, 225 KB up to 128, 193 KB up to 256. Times,
 // registers and what was tried and dropped are in PERF.md (H100 80GB HBM3,
 // 700 W).
 
@@ -192,6 +192,7 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
 }
 
+#define TFS_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define TFS_R32                                                                  \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
   "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
@@ -213,6 +214,12 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
 
 // d (64 x N float32) = or += A (64 x 16, shared, K-major) B^T (N x 16,
 // shared, K-major); scale_d 0 overwrites d
+#define TFS_WGMMA_QK32(TY)                                                            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                           \
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" TFS_R16 \
+               "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                     \
+               : TFS_ACC16(d, 0)                                                      \
+               : "l"(da), "l"(db), "r"(scale_d))
 #define TFS_WGMMA_QK64(TY)                                                            \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
                "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" TFS_R32 \
@@ -229,8 +236,14 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
 template <class T, int N>
 __device__ __forceinline__ void wgmma_qk(float (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "key tiles of 64 or 128");
-  if constexpr (N == 64) {
+  static_assert(N == 32 || N == 64 || N == 128, "key tiles of 32, 64 or 128");
+  if constexpr (N == 32) {
+    if constexpr (std::is_same<T, __half>::value) {
+      TFS_WGMMA_QK32("f16");
+    } else {
+      TFS_WGMMA_QK32("bf16");
+    }
+  } else if constexpr (N == 64) {
     if constexpr (std::is_same<T, __half>::value) {
       TFS_WGMMA_QK64("f16");
     } else {
@@ -303,6 +316,7 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t* a, u
   }
 }
 
+#undef TFS_WGMMA_QK32
 #undef TFS_WGMMA_QK64
 #undef TFS_WGMMA_QK128
 #undef TFS_WGMMA_PV64
@@ -316,6 +330,7 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t* a, u
 #undef TFS_R96
 #undef TFS_R64
 #undef TFS_R32
+#undef TFS_R16
 
 // 2^x in one MUFU.EX2, results below float32's normal range flushed to 0
 __device__ __forceinline__ float ex2(float x) {
@@ -336,14 +351,16 @@ __device__ __forceinline__ void pass_turn(int w) {
 
 // S = Q K^T of one key tile, issued (no commit): DK k16 steps, step j
 // reading 32 bytes into the rows of box j / 4 of Q (this warpgroup's 64
-// rows) and of K (the tile's BK keys)
+// rows) and of K (the tile's BK keys). With add, the first step adds to S
+// too (a later window of the same tile's depth).
 template <class T, int DK, int BK>
-__device__ __forceinline__ void qk_tile(float (&s)[BK / 2], uint32_t q_addr, uint32_t k_addr) {
+__device__ __forceinline__ void qk_tile(float (&s)[BK / 2], uint32_t q_addr, uint32_t k_addr,
+                                        int add = 0) {
 #pragma unroll
   for (int j = 0; j < DK; ++j) {
     const uint32_t in_row = (j & 3) * 32;
     wgmma_qk<T, BK>(s, sw128_desc(q_addr + (j >> 2) * kTcBoxBytes + in_row, 16, 1024),
-                    sw128_desc(k_addr + (j >> 2) * BK * 128 + in_row, 16, 1024), j > 0);
+                    sw128_desc(k_addr + (j >> 2) * BK * 128 + in_row, 16, 1024), j > 0 || add);
   }
 }
 
@@ -376,7 +393,7 @@ enum Reduce { kMax, kMin, kSum };
 // stays in registers.
 template <Reduce R, int H, int NS>
 __device__ __forceinline__ float row_reduce(const float (&s)[NS]) {
-  static_assert(NS == 32 || NS == 64, "key tiles of 64 or 128");
+  static_assert(NS == 16 || NS == 32 || NS == 64, "key tiles of 32, 64 or 128");
   auto op = [](float x, float y) {
     return R == kMax ? fmaxf(x, y) : R == kMin ? fminf(x, y) : x + y;
   };
@@ -387,8 +404,10 @@ __device__ __forceinline__ float row_reduce(const float (&s)[NS]) {
 #pragma unroll
     for (int c = 0; c < 8; ++c) r[c] = op(r[c], r[c + 8]);
   }
+  if constexpr (NS >= 32) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) r[c] = op(r[c], r[c + 4]);
+    for (int c = 0; c < 4; ++c) r[c] = op(r[c], r[c + 4]);
+  }
   return op(op(r[0], r[2]), op(r[1], r[3]));
 }
 
@@ -759,14 +778,335 @@ cudaError_t launch_tc_width(TensorMapEncode encode, const T* q, const T* k, cons
   return cudaGetLastError();
 }
 
-// One launch of the tensor-core kernel at a padded head width d8 <= 256
-// (declared in flash_attention.cuh): cudaErrorNotSupported without the
-// driver's tensor-map encoder, cudaErrorInvalidValue for a map it refuses.
+// Past D8 256 (kTcSliceD). A block takes a 128-row query tile, as above,
+// and a slice of NV 64-column boxes of the output (NV 3 or 4; slices =
+// ceil(D8 / 256), NV = ceil(boxes / slices)), and computes Q K^T over the
+// whole padded depth for it: each slice recomputes the scores, which keeps
+// a warpgroup at 96 or 128 output registers. At BH 16, S 2048, D 512,
+// causal that is 137 GFLOP with the P pair, 0.139 ms at 989 TFLOP/s,
+// against 103 GFLOP for the function's own products (0.104 ms); the other
+// split, one 64-row tile whose warpgroups sum halves of the depth and
+// exchange their partial scores, would do only those, but shares each K
+// and V tile between half as many rows (about twice the L2 traffic an
+// operation) and runs both warpgroups' softmax at once, with no turns.
+// Key tiles are 64 keys. Up to nine boxes (D8 576) the 128-row Q tile
+// stays resident (144 KB at nine) and Q K^T runs in NWR windows of W boxes
+// over it, each window a turn of its own with its 64-key K window in one
+// of two stages (8 KB a box), beside one or two stages of V slices (what
+// 227 KB holds: one past six boxes). Past nine boxes the Q tile does not
+// fit: each window's Q is reloaded beside its K every key tile (NWR 0,
+// windows of 4, 32-key tiles). Boxes past D8, whole or in part, are
+// zero-filled by the copy and add 0 to the scores or stay 0 in the output.
+// The epilogue writes only the slice's columns before D8, and slice 0
+// alone the log-sum-exp.
+template <int W, int NWR, int NV, int BK>
+struct TcWideShape {
+  static constexpr bool kStream = NWR == 0;
+  static constexpr unsigned kQRes = NWR * W * kTcBoxBytes;            // resident Q
+  static constexpr unsigned kQStage = kStream ? W * kTcBoxBytes : 0;  // a stage's Q window
+  static constexpr unsigned kStage = kQStage + W * BK * 128;          // and its K window
+  static constexpr unsigned kVTile = NV * BK * 128;
+  // V slices in flight: two where they fit beside the rest, else one
+  static constexpr int kVStages = kQRes + 2 * kStage + 2 * kVTile + 1024 <= 227 * 1024 ? 2 : 1;
+  static constexpr int kSmem = kQRes + 2 * kStage + kVStages * kVTile + 1024;
+};
+
+template <class T, int W, int NWR, int NV, int BK, bool kLse>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_attention_tc_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
+                               float* __restrict__ lse, int bh, int seq, int d8, int slices,
+                               float sc, int causal) {
+  using Shape = TcWideShape<W, NWR, NV, BK>;
+  constexpr bool kStream = Shape::kStream;
+  constexpr int VS = Shape::kVStages;
+  constexpr int NS = BK / 2;
+  constexpr int DN = kTcBox * NV;  // output columns of the slice
+  constexpr int NO = DN / 2;
+  extern __shared__ unsigned char tcw_smem[];
+  __shared__ __align__(8) uint64_t bars[9];
+  unsigned char* base = tcw_smem + ((1024u - (smem_u32(tcw_smem) & 1023u)) & 1023u);
+  unsigned char* qs = base;                      // the resident Q tile
+  unsigned char* ring = qs + Shape::kQRes;       // two stages: Q window, K window
+  unsigned char* vs = ring + 2 * Shape::kStage;  // VS V slices
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;  // a stage each
+  uint64_t* k_empty = bars + 3;
+  uint64_t* v_full = bars + 5;  // VS each
+  uint64_t* v_empty = bars + 7;
+
+  const int tid = threadIdx.x;
+  const int cw = __shfl_sync(0xffffffffu, tid / 128, 0);  // query rows 64 cw .. 64 cw + 63
+  const int nq = (seq + kTcRows - 1) / kTcRows;
+  const int slice = static_cast<int>(blockIdx.x % static_cast<unsigned>(slices));
+  const int rest = static_cast<int>(blockIdx.x / static_cast<unsigned>(slices));
+  const int head = rest % bh;
+  const int q0 = (nq - 1 - rest / bh) * kTcRows;  // heaviest first
+  const int col0 = slice * DN;                    // the slice's first output column
+  const int k_end = causal ? min(seq, q0 + kTcRows) : seq;
+  const int nk = (k_end + BK - 1) / BK;
+  // windows of Q K^T a key tile: NWR over the resident Q tile, else enough
+  // to cover the row
+  const int nw = kStream ? ((d8 + kTcBox - 1) / kTcBox + W - 1) / W : NWR;
+  const int total = nk * nw;  // windows in all, in the order they are used
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, kTcConsumerWarps);
+      mbar_init(v_empty + s, kTcConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Thread 0 of warpgroup 1 issues every copy: window n (key tile n / nw,
+  // depth boxes W (n % nw) ..) into stage n % 2, V slice j into stage
+  // j % VS, each once both warpgroups released what the stage held before.
+  const bool loader = tid == 128;
+  auto load_window = [&](int n) {
+    const int st = n & 1;
+    mbar_wait(k_empty + st, ((n >> 1) & 1) ^ 1);
+    mbar_expect_tx(k_full + st, Shape::kStage);
+    const int kt = n / nw;
+    const int box0 = (n - kt * nw) * W;
+    unsigned char* dst = ring + st * Shape::kStage;
+#pragma unroll
+    for (int b = 0; b < W; ++b) {
+      if constexpr (kStream)
+        tma_load(dst + b * kTcBoxBytes, &tq, k_full + st, (box0 + b) * kTcBox, q0, head);
+      tma_load(dst + Shape::kQStage + b * BK * 128, &tk, k_full + st, (box0 + b) * kTcBox,
+               kt * BK, head);
+    }
+  };
+  auto load_v = [&](int j) {
+    const int st = j % VS;
+    mbar_wait(v_empty + st, ((j / VS) & 1) ^ 1);
+    mbar_expect_tx(v_full + st, Shape::kVTile);
+#pragma unroll
+    for (int b = 0; b < NV; ++b)
+      tma_load(vs + st * Shape::kVTile + b * BK * 128, &tv, v_full + st, col0 + b * kTcBox,
+               j * BK, head);
+  };
+  if (loader) {
+    if constexpr (!kStream) {
+      mbar_expect_tx(q_full, Shape::kQRes);
+#pragma unroll
+      for (int b = 0; b < NWR * W; ++b)
+        tma_load(qs + b * kTcBoxBytes, &tq, q_full, b * kTcBox, q0, head);
+    }
+    for (int n = 0; n < min(total, 2); ++n) load_window(n);
+    for (int j = 0; j < min(nk, VS); ++j) load_v(j);
+  }
+
+  const int t = tid % 128;
+  const int lane = t & 31;
+  const int row0 = q0 + 64 * cw + 16 * (t >> 5) + (lane >> 2);  // and row0 + 8
+  const int c_lo = 2 * (lane & 3);
+  const uint32_t ring_addr = smem_u32(ring);
+  const uint32_t v_addr = smem_u32(vs);
+  // the warpgroup's 64 rows of window n's Q (window w of the tile), and
+  // window n's K. The address goes through an empty asm each turn: left
+  // loop-invariant, the resident tile's 64-bit descriptors of every k16
+  // step would be hoisted into registers (64 at 32 steps).
+  auto q_addr = [&](int n, int w) {
+    uint32_t a = (kStream ? ring_addr + (n & 1) * Shape::kStage
+                          : smem_u32(qs) + w * W * kTcBoxBytes) +
+                 cw * 64 * 128;
+    asm volatile("" : "+r"(a));
+    return a;
+  };
+  auto k_addr = [&](int n) { return ring_addr + (n & 1) * Shape::kStage + Shape::kQStage; };
+
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float s_acc[NS];
+  uint32_t p_hi[NS / 2], p_lo[NS / 2];
+
+  // One turn of Q K^T alone: window n (window w of its tile), added to the
+  // scores of the tile's earlier windows unless it is the first. After the
+  // products, window n + 2 goes into the stage they free.
+  auto qk_turn = [&](int n, int w) {
+    mbar_wait(k_full + (n & 1), (n >> 1) & 1);
+    take_turn(cw);
+    hold(s_acc);
+    wgmma_fence();
+    qk_tile<T, 4 * W, BK>(s_acc, q_addr(n, w), k_addr(n), w > 0);
+    wgmma_commit();
+    pass_turn(1 - cw);
+    wgmma_wait_all();
+    hold(s_acc);
+    if (lane == 0) mbar_arrive(k_empty + (n & 1));
+    if (loader && n + 2 < total) load_window(n + 2);
+  };
+
+  // Turns as in the kernel above: a turn is P V of a tile with the first
+  // window of the next (or one more window of it), and each warpgroup takes
+  // nk nw + 1 of them
+  if (cw == 1) pass_turn(0);
+  if constexpr (!kStream) mbar_wait(q_full, 0);
+  for (int w = 0; w < nw; ++w) qk_turn(w, w);
+
+  for (int kb = 0; kb + 1 < nk; ++kb) {
+    const int sv = kb % VS;
+    const int n = (kb + 1) * nw;
+    softmax_tile<T, NO, NS>(s_acc, acc, m, l, p_hi, p_lo, sc, row0, kb * BK, c_lo,
+                            q0 + 64 * cw, seq, causal);
+    mbar_wait(v_full + sv, (kb / VS) & 1);
+    mbar_wait(k_full + (n & 1), (n >> 1) & 1);
+    take_turn(cw);
+    hold(acc);
+    hold(p_hi);
+    hold(p_lo);
+    wgmma_fence();
+    pv_tile<T, DN, BK>(acc, p_hi, p_lo, v_addr + sv * Shape::kVTile);
+    qk_tile<T, 4 * W, BK>(s_acc, q_addr(n, 0), k_addr(n));
+    wgmma_commit();
+    pass_turn(1 - cw);
+    wgmma_wait_all();
+    hold(acc);
+    hold(p_hi);
+    hold(p_lo);
+    hold(s_acc);
+    if (lane == 0) {
+      mbar_arrive(v_empty + sv);
+      mbar_arrive(k_empty + (n & 1));
+    }
+    if (loader) {
+      if (n + 2 < total) load_window(n + 2);
+      if (kb + VS < nk) load_v(kb + VS);
+    }
+    for (int w = 1; w < nw; ++w) qk_turn(n + w, w);
+  }
+  {
+    const int kb = nk - 1;
+    const int sv = kb % VS;
+    softmax_tile<T, NO, NS>(s_acc, acc, m, l, p_hi, p_lo, sc, row0, kb * BK, c_lo,
+                            q0 + 64 * cw, seq, causal);
+    mbar_wait(v_full + sv, (kb / VS) & 1);
+    take_turn(cw);
+    hold(acc);
+    hold(p_hi);
+    hold(p_lo);
+    wgmma_fence();
+    pv_tile<T, DN, BK>(acc, p_hi, p_lo, v_addr + sv * Shape::kVTile);
+    wgmma_commit();
+    if (cw == 0) pass_turn(1);
+    wgmma_wait_all();
+    hold(acc);
+    hold(p_hi);
+    hold(p_lo);
+  }
+
+  // The epilogue of the kernel above past D8 128: the warpgroup's rows of a
+  // Q tile that no product reads any more (the resident one, or stage 0's
+  // window) take the output in the swizzle's order, then whole rows go out,
+  // 16 bytes a lane, the slice's columns before d8 only.
+  const size_t head_row = static_cast<size_t>(head) * seq;
+  const int w16 = 16 * (t >> 5);
+  unsigned char* stage = (kStream ? ring : qs) + cw * 64 * 128;
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lh = l[h];
+    lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+    lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+    const int row = row0 + 8 * h;
+    if constexpr (kLse) {
+      if (slice == 0 && (lane & 3) == 0 && row < seq)
+        lse[head_row + row] = lh == 0.f ? __int_as_float(0xff800000) : fmaf(m[h], kLn2, logf(lh));
+    }
+    inv[h] = 1.f / (lh == 0.f ? 1.f : lh);
+  }
+#pragma unroll
+  for (int c = 0; c < DN / 8; ++c) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = w16 + (lane >> 2) + 8 * h;
+      *reinterpret_cast<uint32_t*>(stage + (c >> 3) * kTcBoxBytes + r * 128 +
+                                   (((c & 7) ^ (r & 7)) << 4) + 4 * (lane & 3)) =
+          pack2<T>(acc[4 * c + 2 * h] * inv[h], acc[4 * c + 2 * h + 1] * inv[h]);
+    }
+  }
+  __syncwarp();
+  if (8 * lane < DN && col0 + 8 * lane < d8) {
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = w16 + rr;
+      const int row = q0 + 64 * cw + r;
+      if (row < seq)
+        *reinterpret_cast<uint4*>(o + (head_row + row) * d8 + col0 + 8 * lane) =
+            *reinterpret_cast<const uint4*>(stage + (lane >> 3) * kTcBoxBytes + r * 128 +
+                                            (((lane & 7) ^ (r & 7)) << 4));
+    }
+  }
+}
+
+template <class T, int W, int NWR, int NV, int BK, bool kLse>
+cudaError_t launch_tc_wide_shape(TensorMapEncode encode, const T* q, const T* k, const T* v,
+                                 T* o, float* lse, int bh, int seq, int d8, float scale,
+                                 int causal, cudaStream_t stream) {
+  using Shape = TcWideShape<W, NWR, NV, BK>;
+  CUtensorMap mq, mk, mv;
+  if (!encode_map(&mq, encode, q, bh, seq, d8, kTcBox, kTcRows) ||
+      !encode_map(&mk, encode, k, bh, seq, d8, kTcBox, BK) ||
+      !encode_map(&mv, encode, v, bh, seq, d8, kTcBox, BK))
+    return cudaErrorInvalidValue;
+  const auto kernel = flash_attention_tc_wide_kernel<T, W, NWR, NV, BK, kLse>;
+  const cudaError_t err = prepare(kernel, Shape::kSmem);
+  if (err != cudaSuccess) return err;
+  const int slices = (d8 + kTcSliceD - 1) / kTcSliceD;
+  const long long n = static_cast<long long>(slices) * bh * ((seq + kTcRows - 1) / kTcRows);
+  if (n > INT_MAX) return cudaErrorInvalidConfiguration;
+  kernel<<<static_cast<unsigned>(n), kTcThreads, Shape::kSmem, stream>>>(
+      mq, mk, mv, o, lse, bh, seq, d8, slices, scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
+// d8 > kTcSliceD, by boxes a row: 5-9 keep Q resident (5: one window, 6:
+// two of 3, 7-8: two of 4, 9: three of 3; two slices up to 8, three at 9),
+// more reload it in windows of 4 (slices of 4 boxes, 32-key tiles)
+template <class T>
+cudaError_t launch_tc_wide(TensorMapEncode encode, const T* q, const T* k, const T* v, T* o,
+                           float* lse, int bh, int seq, int d8, float scale, int causal,
+                           cudaStream_t stream) {
+  switch ((d8 + kTcBox - 1) / kTcBox) {
+#define TFS_TC_WIDE_CASE(W, NWR, NV, BK)                                                     \
+  return lse != nullptr ? launch_tc_wide_shape<T, W, NWR, NV, BK, true>(                     \
+                              encode, q, k, v, o, lse, bh, seq, d8, scale, causal, stream)   \
+                        : launch_tc_wide_shape<T, W, NWR, NV, BK, false>(                    \
+                              encode, q, k, v, o, lse, bh, seq, d8, scale, causal, stream);
+    case 5:
+      TFS_TC_WIDE_CASE(5, 1, 3, 64)
+    case 6:
+      TFS_TC_WIDE_CASE(3, 2, 3, 64)
+    case 7:
+    case 8:
+      TFS_TC_WIDE_CASE(4, 2, 4, 64)
+    case 9:
+      TFS_TC_WIDE_CASE(3, 3, 3, 64)
+    default:
+      TFS_TC_WIDE_CASE(4, 0, 4, 32)
+#undef TFS_TC_WIDE_CASE
+  }
+}
+
+// One launch of the tensor-core kernels at a padded head width d8 (declared
+// in flash_attention.cuh): cudaErrorNotSupported without the driver's
+// tensor-map encoder, cudaErrorInvalidValue for a map it refuses.
 template <class T>
 cudaError_t launch_tc(const T* q, const T* k, const T* v, T* o, float* lse, int bh, int seq,
                       int d8, float scale, int causal, cudaStream_t stream) {
   const TensorMapEncode encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  if (d8 > kTcSliceD)
+    return launch_tc_wide<T>(encode, q, k, v, o, lse, bh, seq, d8, scale, causal, stream);
   // past D8 128 the k16 steps round up to an even count (D8 160, 192, 224,
   // 256): the box's zero-filled columns add 0 to the scores, and four
   // instantiations a dtype and entry take the place of eight

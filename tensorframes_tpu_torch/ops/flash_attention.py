@@ -19,15 +19,16 @@ the Pallas kernel does to each block); D zero-padded to a multiple of 8
 (zero columns add 0 to every score); a contiguous, 16-byte aligned copy of
 a strided or misaligned input. The result is sliced and reshaped back and
 cast to q's dtype (a float cast to an integer truncates, as JAX's
-``astype`` does). The library's dispatch picks the kernel: float32 heads up
-to 128 wide run on the CUDA cores in one block's registers
-(``flash_attention.cuh``, route ``cuda_core``), bf16 and fp16 heads up to
-256 wide (padded) on the tensor cores (``flash_attention_tc.cuh``, route
-``tensor_core``), wider heads (float32 past 128, bf16 / fp16 past 256) on
-the CUDA cores in slices of 256 output columns whose scores each block
-computes once (``flash_attention.cuh``, route ``wide``). On a CPU tensor it
-runs `flash_attention_reference`. There is no fallback from a kernel to
-another or to the plain version.
+``astype`` does). The library's dispatch picks the kernel: bf16 and fp16
+heads of every width run on the tensor cores (``flash_attention_tc.cuh``,
+route ``tensor_core``), 128-row query tiles, up to 256 wide (padded) in one
+block, wider in slices of at most 256 output columns, each block computing
+the scores over the whole head; float32 heads up to 128 wide run on the
+CUDA cores in one block's registers (``flash_attention.cuh``, route
+``cuda_core``), wider ones in slices of 256 output columns whose scores each
+block computes once (``flash_attention.cuh``, route ``wide``). On a CPU
+tensor it runs `flash_attention_reference`. There is no fallback from a
+kernel to another or to the plain version.
 ``flash_attention.launches`` counts kernel launches, of both entries;
 ``flash_attention.launches_by_route`` counts them by the kernel the library
 reports it launched (``cuda_core``, ``wide``, ``tensor_core``).
@@ -72,8 +73,8 @@ _BUILDS = {
 _BLOCK_Q = 64  # query rows per block of csrc/flash_attention.cuh (kBlockQ)
 _TC_BLOCK_Q = 128  # query rows per block of csrc/flash_attention_tc.cuh (kTcRows)
 _SLICE_D = 128  # widest head of the float32 one-slice kernel (kSliceD)
-_TC_SLICE_D = 256  # widest padded head of the tensor-core kernel (kTcSliceD)
-_WIDE_SLICE_D = 256  # output columns per block of the wide kernel (kWideSliceD)
+_TC_SLICE_D = 256  # widest head one tensor-core block takes whole, past it a slice (kTcSliceD)
+_WIDE_SLICE_D = 256  # output columns per block of the float32 wide kernel (kWideSliceD)
 # the kernels, by the number tfs_flash_attention_last_route reports
 _ROUTES = ("cuda_core", "wide", "tensor_core")
 _MAX_BLOCKS = 2**31 - 1  # CUDA's limit on gridDim.x, which counts the blocks
@@ -149,6 +150,19 @@ def _check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Non
         raise ValueError("flash_attention: q, k and v must share a device")
 
 
+def _kernel_blocks(dtype: torch.dtype, bh: int, seq: int, d8: int) -> int:
+    """The thread blocks of the kernel the library picks for (BH, S, D8):
+    bf16 and fp16 heads take 128-row query tiles in ceil(D8 / _TC_SLICE_D)
+    slices of output columns (the tensor-core kernels); float32 heads up to
+    _SLICE_D 64-row tiles; wider float32 heads 64-row tiles in slices of
+    _WIDE_SLICE_D output columns (the wide kernel)."""
+    if dtype in (torch.float16, torch.bfloat16):
+        return -(-d8 // _TC_SLICE_D) * bh * -(-seq // _TC_BLOCK_Q)
+    if d8 <= _SLICE_D:
+        return bh * -(-seq // _BLOCK_Q)
+    return -(-d8 // _WIDE_SLICE_D) * bh * -(-seq // _BLOCK_Q)
+
+
 def _kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale):
     """The layout step of every CUDA launch, on any device: ``(q3, k3, v3,
     scale, restore)``. q3, k3 and v3 are what the kernel takes, contiguous
@@ -166,16 +180,7 @@ def _kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale):
     same = k.dtype == q.dtype and v.dtype == q.dtype
     dtype = q.dtype if same and q.dtype in _BUILDS else torch.float32
     d8 = -(-d // 8) * 8
-    # the blocks of the kernel the library picks: bf16 and fp16 heads up to
-    # _TC_SLICE_D wide take 128-row query tiles (the tensor-core kernel);
-    # float32 heads up to _SLICE_D 64-row tiles; wider heads 64-row tiles
-    # in slices of _WIDE_SLICE_D output columns (the wide kernel)
-    if dtype in (torch.float16, torch.bfloat16) and d8 <= _TC_SLICE_D:
-        blocks = bh * -(-seq // _TC_BLOCK_Q)
-    elif d8 <= _SLICE_D:
-        blocks = bh * -(-seq // _BLOCK_Q)
-    else:
-        blocks = -(-d8 // _WIDE_SLICE_D) * bh * -(-seq // _BLOCK_Q)
+    blocks = _kernel_blocks(dtype, bh, seq, d8)
     if blocks > _MAX_BLOCKS:
         raise ValueError(
             f"flash_attention: {blocks} thread blocks for (BH {bh}, S {seq}, D {d}), "

@@ -40,7 +40,12 @@ def _patch(src: str, old: str, new: str, count: int = 1) -> str:
     return src.replace(old, new)
 
 
-def _traced_header(src: str) -> str:
+def _traced_header(header: str) -> str:
+    # only flash_attention_tc_kernel (D8 <= 256) is traced: the wide kernel
+    # after it is left as it is
+    src, sep, wide = header.partition("// Past D8 256 (kTcSliceD).")
+    if not sep:
+        raise RuntimeError("the header changed: the wide kernel's comment is not found")
     src = _patch(src, "namespace {\n\nconstexpr int kTcRows",
                  f"__device__ long long tfs_tc_trace[{_MAX_BLOCKS}][2][8];\n\n"
                  "namespace {\n\nconstexpr int kTcRows")
@@ -64,15 +69,15 @@ def _traced_header(src: str) -> str:
     src = _patch(src, "    hold(p_lo);\n  }\n\n  const size_t head_row",
                  "    hold(p_lo);\n    cyc[5] += clock64() - tt;\n  }\n  tt = clock64();\n\n"
                  "  const size_t head_row")
-    src = _patch(src, "  }\n}\n\nusing TensorMapEncode",
+    src = _patch(src, "  }\n}\n\ntemplate <class T, int DK, bool kLse>",
                  "  }\n"
                  "  cyc[6] = clock64() - tt;\n"
                  f"  if (t == 0 && blockIdx.x < {_MAX_BLOCKS}) {{\n"
                  "    long long* r = tfs_tc_trace[blockIdx.x][cw];\n"
                  "    r[0] = clock64() - t_start;\n"
                  "    for (int i = 1; i < 7; ++i) r[i] = cyc[i];\n"
-                 "    r[7] = nk;\n  }\n}\n\nusing TensorMapEncode")
-    return src
+                 "    r[7] = nk;\n  }\n}\n\ntemplate <class T, int DK, bool kLse>")
+    return src + sep + wide
 
 
 def _build(out_dir: str) -> ctypes.CDLL:

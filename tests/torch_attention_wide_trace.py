@@ -56,8 +56,8 @@ def _traced_header(src: str) -> str:
     src = _patch(src, "      mbar_wait(full + (n & 1), (n >> 1) & 1);\n",
                  "      " + tick.format(i=2) + "      mbar_wait(full + (n & 1), (n >> 1) & 1);\n"
                  "      " + tick.format(i=1))
-    src = _patch(src, "      qk_wide<T>(s, cs, cs + kWideBox, ty, tx);\n    }\n",
-                 "      qk_wide<T>(s, cs, cs + kWideBox, ty, tx);\n"
+    src = _patch(src, "      qk_wide(s, cs, cs + kWideBox, ty, tx);\n    }\n",
+                 "      qk_wide(s, cs, cs + kWideBox, ty, tx);\n"
                  "      asm volatile(\"\" ::: \"memory\");\n      " + tick.format(i=3)
                  + "    }\n    tt = clock64();\n")
     src = _patch(src, "    softmax_step<8, true>(",
@@ -67,8 +67,8 @@ def _traced_header(src: str) -> str:
     src = _patch(src, "    __syncthreads();                          // P is complete\n",
                  "    __syncthreads();                          // P is complete\n    "
                  + tick.format(i=6))
-    src = _patch(src, "      pv_wide<T, 1>(acc, pr, vg, tx);\n  }\n",
-                 "      pv_wide<T, 1>(acc, pr, vg, tx);\n"
+    src = _patch(src, "      pv_wide<1>(acc, pr, vg, tx);\n  }\n",
+                 "      pv_wide<1>(acc, pr, vg, tx);\n"
                  "    asm volatile(\"\" ::: \"memory\");\n    " + tick.format(i=7) + "  }\n"
                  f"  if (t == 0 && blockIdx.x < {_MAX_BLOCKS}) {{\n"
                  "    long long* r = tfs_wide_trace[blockIdx.x][g];\n"
