@@ -48,14 +48,16 @@ from .utils import telemetry as _tele
 def _factorized(grouped, device: torch.device):
     """``(key_out, inverse on device, num_groups)``: numeric keys moved to
     ``device`` and factorized there, string keys factorized on the host
-    (`frame.factorize_keys`)."""
+    (`frame.factorize_keys`). Every plan's key stage: an
+    ``aggregate.keys`` span, timed on the card on a CUDA ``device``."""
     frame = grouped.frame
-    keys = []
-    for k in grouped.keys:
-        col = frame.column(k)
-        numeric = col.is_dense and col.dtype is not ScalarType.string
-        keys.append(as_tensor(col.values, device) if numeric else col.host_values())
-    key_out, inverse = factorize_keys(grouped.keys, keys, device)
+    with _tele.span("aggregate.keys", kind="stage", torch_device=device):
+        keys = []
+        for k in grouped.keys:
+            col = frame.column(k)
+            numeric = col.is_dense and col.dtype is not ScalarType.string
+            keys.append(as_tensor(col.values, device) if numeric else col.host_values())
+        key_out, inverse = factorize_keys(grouped.keys, keys, device)
     return key_out, inverse, len(next(iter(key_out.values())))
 
 

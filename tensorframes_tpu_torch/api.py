@@ -16,7 +16,9 @@ DataFrame out.
 `map_blocks`, `map_rows` and `reduce_blocks` take ``timeout_s=``
 (`runtime.deadline.deadline_entry`): the budget is checked before every
 block and before the combine, and a top-level call takes an admission slot.
-`reduce_blocks_stream` (`streaming.py`) folds an iterator of frames.
+`reduce_blocks_stream` (`streaming.py`) folds an iterator of frames. Every
+verb call is one ``verb`` span with its input's rows
+(`utils.profiling.verb_entry`).
 
 Every block dispatch runs inside a ``dispatch`` span labeled with its
 program fingerprint (`utils.telemetry.dispatch_span`) and through a
@@ -84,6 +86,7 @@ from .runtime.faults import maybe_check_numerics
 from .schema import ColumnInfo, ScalarType, Shape
 from .utils import telemetry as _tele
 from .utils.profiling import count as _count
+from .utils.profiling import verb_entry as _verb_entry
 
 __all__ = [
     "map_blocks",
@@ -797,7 +800,8 @@ def _loop(
     shapes). With a fault scope each item dispatches through
     `_dispatch_rows` (span, retries, failover, OOM splits) in one
     `telemetry.dispatch_run`; without one (the function front end) it is
-    called as it is. A mesh dispatches its shards together (`_mesh_loop`;
+    called as it is, in a ``<verb>.block`` dispatch span of one run (no
+    retry, no split). A mesh dispatches its shards together (`_mesh_loop`;
     ``mesh_label`` names the shards in messages, ``mesh_attrs`` adds to
     the dispatch span)."""
     what = what or verb
@@ -808,14 +812,20 @@ def _loop(
         )
     out = []
     if fscope is None:
-        for i, lo, hi in place.items:
-            _dl.check(verb)
-            feeds = feeds_for(lo, hi, place.device(i))
-            if place.sched is not None:
-                feeds = place.sched.put(i, feeds)
-            outs = run(feeds, hi - lo, i)
-            check(outs, f"{what} block {i}")
-            out.append(outs)
+        # no executor launches here: the block's timing starts at the call
+        name = span_name or f"{verb}.block"
+        with _tele.dispatch_run(place.anchor):
+            for i, lo, hi in place.items:
+                _dl.check(verb)
+                dev = place.device(i)
+                with _tele.dispatch_span(name, block=i, rows=hi - lo, torch_device=dev):
+                    feeds = feeds_for(lo, hi, dev)
+                    if place.sched is not None:
+                        feeds = place.sched.put(i, feeds)
+                    _tele.launching()
+                    outs = run(feeds, hi - lo, i)
+                check(outs, f"{what} block {i}")
+                out.append(outs)
         return out
     with _tele.dispatch_run(place.anchor):
         for i, lo, hi in place.items:
@@ -1575,6 +1585,7 @@ def _fold(rows: List[torch.Tensor], monoid, pair) -> Tuple[torch.Tensor, ...]:
 
 @_pandas_in_out
 @_spanning_in_out
+@_verb_entry("reduce_rows")
 @torch.no_grad()
 def reduce_rows(
     fetches,
@@ -1745,6 +1756,7 @@ def _agg_spec_exprs(frame: TensorFrame, specs: Dict[str, Tuple[str, str]]):
     return fetches, feed
 
 
+@_verb_entry("aggregate")
 @torch.no_grad()
 def aggregate(
     fetches,

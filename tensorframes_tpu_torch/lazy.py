@@ -447,7 +447,7 @@ class LazyFrame:
         """Terminal in effect: forces the pending plan, then runs eagerly."""
         return _api.map_rows(fetches, self, **kw)
 
-    @_deadline_entry("reduce_blocks")
+    @_deadline_entry("reduce_blocks", frame_at=0)
     @torch.no_grad()
     def reduce_blocks(
         self,
@@ -591,7 +591,7 @@ class LazyFrame:
         return _api.GroupedFrame(self, keys)
 
     # -- terminal actions ----------------------------------------------
-    @_deadline_entry("lazy.force")
+    @_deadline_entry("lazy.force", frame_at=0)
     @torch.no_grad()
     def force(self, executor=None, device: DeviceLike = None, mesh=None, devices=None) -> TensorFrame:
         """Lower the whole fused plan as ONE callable per item of the

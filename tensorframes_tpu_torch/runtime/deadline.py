@@ -669,31 +669,26 @@ def deadline_scope(
         _SCOPE.reset(tok)
 
 
-def deadline_entry(verb: str):
+def deadline_entry(verb: str, frame_at: int = 1):
     """Decorator threading ``timeout_s=`` into a verb: pops the kwarg,
     enters `verb_scope` around the call. Applied to `api.map_blocks`,
-    `api.map_rows`, `api.reduce_blocks` and
-    `streaming.reduce_blocks_stream`. Each call is one ``verb`` span (which
-    carries the ambient serving request id), and its wall time feeds the
-    ``verb_seconds{verb=}`` histogram (when telemetry is on), which the
-    admission controller's retry-after hint reads."""
+    `api.map_rows`, `api.reduce_blocks`, the lazy terminals and
+    `streaming.reduce_blocks_stream`. Each call is one
+    `utils.profiling.verb_entry` record around the scope (``frame_at``
+    says where the input frame is): a ``verb`` span (which carries the
+    ambient serving request id), the ``<verb>.calls`` / ``.seconds`` /
+    ``.rows`` counters and one ``verb_seconds{verb=}`` observation (when
+    telemetry is on), which the admission controller's retry-after hint
+    reads."""
+    from ..utils.profiling import verb_entry
 
     def deco(fn):
         @functools.wraps(fn)
-        def wrapper(*args, timeout_s: Optional[float] = None, **kwargs):
-            from ..utils import telemetry as _tele
+        def budgeted(*args, timeout_s: Optional[float] = None, **kwargs):
+            with verb_scope(verb, timeout_s=timeout_s):
+                return fn(*args, **kwargs)
 
-            t0 = time.perf_counter()
-            try:
-                with _tele.span(verb, kind="verb"):
-                    with verb_scope(verb, timeout_s=timeout_s):
-                        return fn(*args, **kwargs)
-            finally:
-                if _tele.enabled():
-                    _tele.histogram_observe(
-                        "verb_seconds", time.perf_counter() - t0, verb=verb
-                    )
-
+        wrapper = verb_entry(verb, frame_at)(budgeted)
         wrapper.__tfs_deadline_verb__ = verb
         return wrapper
 

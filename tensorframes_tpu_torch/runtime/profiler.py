@@ -7,9 +7,9 @@ JSON-serializable rollup of the process's live observability state
 (`snapshot()` reads; it never mutates and never raises — a section that
 fails to collect carries an ``error`` string):
 
-- **verbs** — per-verb call/second totals plus the verb latency histogram.
-  The port derives them from the ``verb_seconds{verb=}`` histogram (its
-  verbs keep no ``<verb>.calls`` counters), so ``rows`` reads 0;
+- **verbs** — per-verb call/second/row totals (the ``<verb>.calls`` /
+  ``.seconds`` / ``.rows`` counters `utils.profiling.record` keeps) plus
+  the verb latency histogram;
 - **programs** — the cost ledger per fingerprint: kinds, exec counts, the
   set of dispatched lead row counts (``rungs``) and per-shape modeled
   flops/bytes — the profile's structural identity;
@@ -384,19 +384,24 @@ class WorkloadProfile:
 
 def _capture_verbs(counters, hists) -> Dict:
     verbs: Dict = {}
+    for (name, labels), v in counters.items():
+        if labels or not name.endswith(".calls"):
+            continue
+        verb = name[: -len(".calls")]
+        if not verb or verb.startswith("telemetry."):
+            continue
+        verbs[verb] = {
+            "calls": int(v),
+            "seconds": float(counters.get((f"{verb}.seconds", ()), 0.0)),
+            "rows": float(counters.get((f"{verb}.rows", ()), 0.0)),
+            "latency": None,
+        }
     for (name, labels), entry in hists.items():
         if name != "verb_seconds":
             continue
         verb = _labels(labels).get("verb")
-        if not verb:
-            continue
-        h = _hist_from_snapshot(entry)
-        verbs[verb] = {
-            "calls": int(h["count"]),
-            "seconds": float(h["sum"]),
-            "rows": 0.0,
-            "latency": h,
-        }
+        if verb in verbs:
+            verbs[verb]["latency"] = _hist_from_snapshot(entry)
     return verbs
 
 

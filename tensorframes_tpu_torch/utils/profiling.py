@@ -33,6 +33,10 @@ Meta-device probes (`graph.analysis`) count nothing.
 `record(verb, rows)` times one verb call on one clock, as the JAX
 package's: a ``verb`` span, the telemetry counters ``<verb>.calls`` /
 ``.seconds`` / ``.rows`` and the ``verb_seconds{verb=}`` histogram.
+`verb_entry(verb)` wraps a verb so that each call is one `record` with
+its input frame's rows: every public verb keeps its span there
+(`runtime.deadline.deadline_entry` applies it to the verbs that take a
+budget).
 
 `trace(logdir)` records a `torch.profiler` trace of the enclosed region
 (CPU and, on a card, CUDA activity) into ``logdir`` as Chrome trace JSON;
@@ -43,12 +47,13 @@ package's: a ``verb`` span, the telemetry counters ``<verb>.calls`` /
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import time
 from collections import Counter
 from typing import Dict
 
-__all__ = ["count", "stats", "reset_stats", "record", "trace", "annotate"]
+__all__ = ["count", "stats", "reset_stats", "record", "verb_entry", "trace", "annotate"]
 
 _counts: Counter = Counter()
 _lock = threading.Lock()
@@ -95,6 +100,38 @@ def record(verb: str, rows: int = 0):
             _tele.counter_inc(f"{verb}.rows", float(rows))
         if _tele.enabled():
             _tele.histogram_observe("verb_seconds", dt, verb=verb)
+
+
+def input_rows(frame) -> int:
+    """Rows of a verb's input: a frame's (plain, lazy, global or spanning),
+    a `GroupedFrame`'s frame's; 0 for anything else (a stream's iterator
+    of chunks)."""
+    if hasattr(frame, "keys") and hasattr(frame, "frame"):  # a GroupedFrame
+        frame = frame.frame
+    n = getattr(frame, "nrows", 0)
+    return n if isinstance(n, int) else 0
+
+
+def verb_entry(verb: str, frame_at: int = 1):
+    """Decorator: each call of the verb is one `record(verb, rows)`, with
+    ``rows`` those of its input frame, the positional argument
+    ``frame_at`` (0 for a frame's own method), else ``frame=`` or
+    ``grouped=``. A verb that another verb calls records a span nested in
+    the caller's."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if len(args) > frame_at:
+                frame = args[frame_at]
+            else:
+                frame = kwargs.get("frame", kwargs.get("grouped"))
+            with record(verb, input_rows(frame)):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
 
 
 @contextlib.contextmanager

@@ -27,7 +27,15 @@ The PyTorch counterpart of the registry and span half of
   ``elapsed_time``, resolved lazily (on ``query()``, or after the one
   synchronise of `diagnostics`); the dispatch path itself never
   synchronises, and resolved events are reused. On the CPU the host span
-  is the execute time.
+  is the execute time. A plain span opts into the same lazily resolved
+  pair with ``torch_device=`` (a stage timed on the card: the aggregate's
+  ``aggregate.keys``).
+- **Profiler ranges** — while a `torch.profiler` records, every span,
+  verb span and dispatch span is also a `torch.profiler.record_function`
+  range of its name, so the program's spans appear on the profiler's
+  timeline (its host clock) around the operations they enclose. With no
+  profiler recording, a span pays one check of
+  ``torch._C._autograd._profiler_enabled()``.
 - **Exporters** — `span_aggregates`, `export_chrome_trace` (trace-event
   JSON for Perfetto), `export_prometheus` (text exposition), `diagnostics`
   (the "where did the time go" report: spans joined with the cost ledger's
@@ -52,6 +60,13 @@ from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
 
 from .. import config as _config
+
+try:
+    from torch._C._autograd import _profiler_enabled as _profiling
+except ImportError:  # a torch without the accessor: no ranges
+
+    def _profiling() -> bool:
+        return False
 
 __all__ = [
     "Span",
@@ -322,6 +337,39 @@ class _NullCtx:
 _NULL = _NullCtx()
 
 
+def _open_range(name: str):
+    """A `torch.profiler.record_function` range named ``name``, entered,
+    while a profiler records; else None (the only cost: the check)."""
+    if not _profiling():
+        return None
+    import torch
+
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def _close_range(sp) -> None:
+    """Exit the profiler range ``sp`` opened, if any."""
+    if sp.rf is not None:
+        sp.rf.__exit__(None, None, None)
+        sp.rf = None
+
+
+def _close_timing(sp, et) -> None:
+    """End the event pair that times ``sp`` alone (a span, or a dispatch
+    outside a run), and hand the span the pair to resolve; a span an
+    exception left keeps its host time."""
+    timing = sp.timing
+    if timing is not None:
+        sp.timing = None
+        if et is None:
+            timing.spans.append(sp)
+            sp.events = timing
+            timing.close(sp.stream)
+        sp.stream = None
+
+
 class _SpanCtx(Span):
     """Class-based span context; on exit it is itself the finished `Span`
     that goes into the ring (no second object is built), with
@@ -329,18 +377,22 @@ class _SpanCtx(Span):
     span sets the verb contextvar, stamps the ambient request id, and at
     its exit flushes the `dispatch_run`s that ended inside it (``runs``):
     by then the verb has launched its last kernel, so the flush keeps off
-    the path to the card."""
+    the path to the card. On a CUDA ``device`` the span is also timed on
+    the card, by an event pair on its current stream from entry to exit
+    (`exec_seconds`)."""
 
-    __slots__ = ("tok", "vtok", "runs")
+    __slots__ = ("tok", "vtok", "runs", "rf", "device", "stream", "timing")
 
-    def __init__(self, name, kind, attrs):
+    def __init__(self, name, kind, attrs, device=None):
         self.name = name
         self.kind = kind
         self.attrs = attrs
         self.events = None
         self.vtok = self.runs = None
+        self.device = device
 
     def __enter__(self):
+        self.rf = _open_range(self.name)
         sid = self.span_id = next(_ids)
         self.parent_id = _current_parent()
         self.tok = _CURRENT.set(sid)
@@ -349,6 +401,9 @@ class _SpanCtx(Span):
             rid = _REQUEST.get()
             if rid is not None:
                 self.attrs["request"] = rid
+        self.timing = None
+        if self.device is not None:
+            self.stream, self.timing = _start_timing(self.device)
         self.t0 = _perf_counter()
         return sid
 
@@ -363,20 +418,25 @@ class _SpanCtx(Span):
         if et is not None:
             self.attrs = dict(self.attrs)
             self.attrs["error"] = et.__name__
+        _close_timing(self, et)
         if self.runs is not None:
             runs, self.runs = self.runs, None
             for run in runs:
                 run.flush(self.name)
         _ring.append(self)
+        _close_range(self)
         return False
 
 
-def span(name: str, kind: str = "span", **attrs):
+def span(name: str, kind: str = "span", torch_device=None, **attrs):
     """Record a timed region into the ring (no-op context when telemetry
-    is disabled). Entering yields the span id."""
+    is disabled). Entering yields the span id. On a CUDA ``torch_device``
+    the region is also timed by events on its current stream, resolved
+    lazily as a dispatch span's are (`exec_seconds`)."""
     if not enabled():
         return _NULL
-    return _SpanCtx(name, kind, attrs)
+    cuda = torch_device if getattr(torch_device, "type", None) == "cuda" else None
+    return _SpanCtx(name, kind, attrs, cuda)
 
 
 # raw CUDA stream handle -> its `torch.cuda.Stream`: the current stream of a
@@ -410,7 +470,7 @@ class _DispatchCtx(Span):
     ledger's first-shape capture) stays out of the device time, and ends
     at the span's exit."""
 
-    __slots__ = ("program", "device", "stream", "tok", "dtok", "timing")
+    __slots__ = ("program", "device", "stream", "tok", "dtok", "timing", "rf")
 
     def __init__(self, name, attrs, program, device):
         self.name = name
@@ -422,6 +482,7 @@ class _DispatchCtx(Span):
         self.timing = self.stream = None
 
     def __enter__(self):
+        self.rf = _open_range(self.name)
         sid = self.span_id = next(_ids)
         self.parent_id = _current_parent()
         self.tok = _CURRENT.set(sid)
@@ -438,15 +499,9 @@ class _DispatchCtx(Span):
         if et is not None:
             self.attrs = dict(self.attrs)
             self.attrs["error"] = et.__name__
-        timing = self.timing
-        if timing is not None:
-            self.timing = None
-            if et is None:
-                timing.spans.append(self)
-                self.events = timing
-                timing.close(self.stream)
-            self.stream = None
+        _close_timing(self, et)
         _ring.append(self)
+        _close_range(self)
         return False
 
 
@@ -458,7 +513,7 @@ class _RunDispatch(Span):
     together when the run is flushed. On a CUDA run it shares the run's
     event pair from its first launch on."""
 
-    __slots__ = ("program", "device", "run", "prev", "timing")
+    __slots__ = ("program", "device", "run", "prev", "timing", "rf")
 
     def __init__(self, name, attrs, program, device, run):
         self.name = name
@@ -471,6 +526,7 @@ class _RunDispatch(Span):
         self.timing = None
 
     def __enter__(self):
+        self.rf = _open_range(self.name)
         sid = self.span_id = next(_ids)
         run = self.run
         prev = self.prev = run.open
@@ -498,6 +554,7 @@ class _RunDispatch(Span):
                 timing.spans.append(self)
                 self.events = timing
         run.spans.append(self)
+        _close_range(self)
         return False
 
 
