@@ -320,13 +320,15 @@ def _wall(fn):
     return out, time.perf_counter() - t0
 
 
-def _plan_ran(what: str, key: str) -> None:
+def _plan_ran(what: str, key: str, *also: str) -> None:
     """Raise unless the verb call since the last `reset_stats` took exactly
-    the plan ``key`` (the port's plan counters)."""
+    the plan ``key``, and the steps ``also`` once each (the port's plan
+    counters)."""
     from tensorframes_tpu_torch.utils.profiling import stats
 
-    if stats() != {key: 1.0}:
-        raise AssertionError(f"{what}: expected plan {key}, counters say {stats()}")
+    want = dict.fromkeys((key, *also), 1.0)
+    if stats() != want:
+        raise AssertionError(f"{what}: expected {want}, counters say {stats()}")
 
 
 def _attention_bound(bh: int, s: int, d: int, causal: bool, elem_bytes: int = 4,
@@ -672,9 +674,13 @@ def phase_map_rows_mlp(tft) -> None:
 
 
 def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
-                    exact_rows: int = 1_000_000, exact_keys: int = 1000) -> None:
-    """BASELINE config 4 through the segment plan, then a graph the
-    segment plan refuses (its root is a Div) through the exact plan."""
+                    exact_rows: int = 1_000_000, exact_keys: int = 1000) -> dict:
+    """BASELINE config 4 through the segment plan (one keyed-sums launch a
+    call), the keyed-sums kernel alone against its plain version on the
+    same card tensors, then a graph the segment plan refuses (its root is a
+    Div) through the exact plan. Returns what the kernels line carries of
+    the keyed-sums kernel."""
+    from tensorframes_tpu_torch.ops import keyed_sums as ks
     from tensorframes_tpu_torch.utils.profiling import reset_stats
 
     dsl = tft.dsl
@@ -686,11 +692,17 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
     q = dsl.reduce_mean(dsl.square(dsl.block(df, "v", tf_name="q_input")), axes=[0]).named("q")
     feed = {"m_input": "v", "q_input": "v"}
     grouped = tft.group_by(df, "k")
+    launched = ks.keyed_sums.launches
     first, first_s = _wall(lambda: tft.aggregate([m, q], grouped, feed_dict=feed))
     del first
     reset_stats()
     out, seg_s = _wall(lambda: tft.aggregate([m, q], grouped, feed_dict=feed))
-    _plan_ran("aggregate mean/variance", "aggregate.plan.segment")
+    _plan_ran("aggregate mean/variance", "aggregate.plan.segment", "aggregate.segment.kernel")
+    segment_launches = ks.keyed_sums.launches - launched
+    if segment_launches != 2:
+        raise AssertionError(
+            f"aggregate mean/variance: {segment_launches} keyed-sums launches in two "
+            f"segment-plan calls, expected one a call")
     got_k = out.host_values("k")
     got_m, got_q = out.host_values("m"), out.host_values("q")
     if got_m.dtype != np.float32 or got_m.shape != (nkeys, dim):
@@ -711,6 +723,30 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
 
     one_level_ms = _time_ms(one_level, 5)
     one_level_sq = one_level().cpu().numpy()
+
+    # the keyed-sums kernel and its plain version on the same card tensors:
+    # the same counts, means within 1e-6 of each other
+    (ks_s, ks_q), ks_counts = ks.keyed_sums([v, vsq], keys, nkeys)
+    (pl_s, pl_q), pl_counts = ks.keyed_sums_reference([v, vsq], keys, nkeys)
+    if not torch.equal(ks_counts, pl_counts):
+        raise AssertionError("keyed_sums: the kernel's counts differ from the plain version's")
+    per = ks_counts.double()[:, None]
+    ks_plain_gap = max(float((a.double() / b.double() - 1).abs().max())
+                       for a, b in ((ks_s, pl_s), (ks_q, pl_q)))
+    if ks_plain_gap > 1e-6:
+        raise AssertionError(f"keyed_sums: means {ks_plain_gap:.3e} from the plain version's")
+    ks_means = [(t.double() / per).cpu().numpy() for t in (ks_s, ks_q)]
+    ks_counts = ks_counts.cpu().numpy()
+    del ks_s, ks_q, pl_s, pl_q, pl_counts
+    ks_ms = _time_ms(lambda: ks.keyed_sums([v, vsq], keys, nkeys), 20)
+    ks_plain_ms = _time_ms(lambda: ks.keyed_sums_reference([v, vsq], keys, nkeys), 3)
+
+    def library():  # the segment plan's step before the kernel
+        segment_reduce(v, keys, nkeys, "sum")
+        segment_reduce(vsq, keys, nkeys, "sum")
+        torch.bincount(keys, minlength=nkeys)
+
+    ks_library_ms = _time_ms(library, 3)
     del vsq
 
     kh = keys.cpu().numpy()
@@ -724,6 +760,12 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
         want_m[:, j] = np.bincount(kh, weights=col, minlength=nkeys) / counts
         want_q[:, j] = np.bincount(kh, weights=col * col, minlength=nkeys) / counts
     del kh, vh, col
+    if not np.array_equal(ks_counts, counts):
+        raise AssertionError("keyed_sums: the kernel's counts differ from numpy's")
+    ks_err = max(float(np.abs(got / want - 1).max())
+                 for got, want in zip(ks_means, (want_m, want_q)))
+    if ks_err > 1e-6:
+        raise AssertionError(f"keyed_sums: means {ks_err:.3e} from float64")
     mean_err = _check_close(
         "aggregate mean", torch.from_numpy(got_m.astype(np.float64)),
         torch.from_numpy(want_m), _SUM_RTOL, 0.0,
@@ -781,6 +823,14 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
     )
     del eout, edf, egrouped, ek, ev, u
     _chunk_and_exact(tft)
+    # ids and both outputs read once at the HBM peak
+    bound_ms = rows * (8 + 2 * dim * 4) / _PEAK_HBM_BYTES * 1e3
+    return {
+        "segment_plan_launches": segment_launches, "ms": ks_ms, "plain_ms": ks_plain_ms,
+        "library_ms": ks_library_ms, "bound_ms": bound_ms, "share_of_bound": bound_ms / ks_ms,
+        "mean_max_rel_err": ks_err, "plain_max_rel_gap": ks_plain_gap,
+        "shape": [rows, dim, nkeys, 2],
+    }
 
 
 def _dispatches(name: str) -> int:
@@ -1486,7 +1536,8 @@ def phase_frame_breadth(tft, ragged_rows: int = 1_000_000, max_len: int = 64,
     tft.aggregate([m, q], grouped, feed_dict=feed)  # lowers once
     reset_stats()
     out, agg_s = _wall(lambda: tft.aggregate([m, q], grouped, feed_dict=feed))
-    _plan_ran("string-keyed aggregate", "aggregate.plan.segment")
+    # 1,000 ids x (8 + 8 + 1) accumulators: past the keyed-sums kernel's table
+    _plan_ran("string-keyed aggregate", "aggregate.plan.segment", "aggregate.segment.torch")
     got_k = out.host_values("k")
     if out.column("k").device is not None or got_k.tolist() != sorted(ids.tolist()):
         raise AssertionError("string-keyed aggregate: the key column is not the sorted ids")
@@ -4967,6 +5018,7 @@ def main(argv) -> int:
         return 1
     import tensorframes_tpu_torch as tft
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention
+    from tensorframes_tpu_torch.ops.keyed_sums import keyed_sums
 
     # widths of benchmarks/train_bench.py, max_seq of examples/long_context.py
     cfg = dict(vocab=256, d_model=256, n_heads=4, n_layers=4, max_seq=2048)
@@ -4989,9 +5041,10 @@ def main(argv) -> int:
     # the main path: every launch counter starts at 0 here
     flash_attention.launches = 0
     flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
+    keyed_sums.launches = 0
     verbs_df = phase_graph_verbs(tft)
     phase_map_rows_mlp(tft)
-    phase_aggregate(tft)
+    sums = phase_aggregate(tft)
     phase_kmeans(tft)
     phase_inception(tft)
     phase_control_flow(tft)
@@ -5014,6 +5067,8 @@ def main(argv) -> int:
             f"mesh, scheduler and multihost phases launched flash_attention {launched} "
             f"times; none of their graphs holds attention"
         )
+    # every segment plan of these phases that sums on the card
+    sums["launches"] = keyed_sums.launches
     scoring_s = phase_transformer(tft, cfg, n_seqs, block_seqs)
     launches = flash_attention.launches
     main_routes = {r: n for r, n in flash_attention.launches_by_route.items() if n}
@@ -5074,6 +5129,13 @@ def main(argv) -> int:
                                             "bound_peak")
                          if n in t}
                      for k, t in widths["times"].items()},
+    }, {
+        "name": "keyed_sums",
+        "route": "cuda",
+        "source": "tensorframes_tpu_torch/csrc/keyed_sums.cu",
+        # the segment plan's sums and counts; the JAX package leaves them to XLA
+        "replaces": None,
+        **sums,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -4,8 +4,11 @@
 The PyTorch counterpart of `tensorframes_tpu/aggregate.py`:
 
 - `_aggregate_segment`: the row-wise transform of every fetch runs over
-  all rows in one call, then one segment sum / min / max / prod per fetch
-  (a mean is the segment sum over the group counts). Taken by graphs
+  all rows in one call, then the sums of every sum and mean fetch and the
+  group counts in one launch of the keyed-sums kernel (`ops.keyed_sums`)
+  where it takes the table, else a segment sum a fetch and a `bincount`,
+  and one segment min / max / prod per other fetch (a mean is the segment
+  sum over the group counts). Taken by graphs
   `_chunk_combiners` classifies while ``config.aggregate_segment_fast`` is
   on (the default).
 - `_aggregate_exact`: rows sorted by group id once; for each distinct
@@ -37,12 +40,14 @@ from .frame import Column, TensorFrame, as_tensor, factorize_keys
 from .graph import vectorize as _vec
 from .graph.analysis import GraphSummary
 from .graph.ir import Graph, base_name as _base
+from .ops import keyed_sums as _ks
 from .ops.lowering import build_callable
 from .ops.standard import segment_reduce
 from .runtime import faults as _flt
 from .runtime import scheduler as _rs
 from .schema import ScalarType
 from .utils import telemetry as _tele
+from .utils.profiling import count as _count
 
 
 def _factorized(grouped, device: torch.device):
@@ -206,7 +211,44 @@ def _chunk_combiners(
     return out
 
 
-_SEGMENT_OF = {"sum": "sum", "min": "amin", "max": "amax", "prod": "prod"}
+_SEGMENT_OF = {"sum": "sum", "mean": "sum", "min": "amin", "max": "amax", "prod": "prod"}
+
+
+def _segment_tables(bases: List[str], outs, combiners: Dict[str, str], gid: torch.Tensor,
+                    num_groups: int, counted: bool):
+    """Each fetch's ``(num_groups, *cell)`` table over the group ids ``gid``
+    (both segment plans' per-device step). Where `ops.keyed_sums.takes_kernel`
+    takes the ``sum`` and ``mean`` fetches, their sums and the int64 group
+    counts come from one launch of the keyed-sums kernel (counted
+    ``aggregate.segment.kernel``); else each is a segment sum (counted
+    ``aggregate.segment.torch``), and the counts a `bincount` where
+    ``counted``. A segment min / max / prod a fetch for the others. Returns
+    ``(tables, counts)``, counts None where neither gave them."""
+    summed = [i for i, b in enumerate(bases) if combiners[b] in ("sum", "mean")]
+    tables: List[Optional[torch.Tensor]] = [None] * len(bases)
+    counts = None
+    if summed:
+        values = [outs[i] for i in summed]
+        kernel = _ks.takes_kernel(
+            gid.device, [v.dtype for v in values], num_groups, [_ks.row_width(v) for v in values]
+        )
+        _count(f"aggregate.segment.{'kernel' if kernel else 'torch'}")
+        if kernel:
+            sums, counts = _ks.keyed_sums(values, gid, num_groups)
+            for i, t in zip(summed, sums):
+                tables[i] = t
+    if counts is None and counted:
+        # factorized ids: every one in [0, num_groups)
+        counts = torch.bincount(gid, minlength=num_groups)
+    for i, b in enumerate(bases):
+        if tables[i] is None:
+            tables[i] = segment_reduce(outs[i], gid, num_groups, _SEGMENT_OF[combiners[b]])
+    return tables, counts
+
+
+def _per_count(t: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """A mean's table: its sums over the group counts."""
+    return t / counts.to(t.dtype).reshape((-1,) + (1,) * (t.dim() - 1))
 
 
 def _aggregate_segment(
@@ -220,9 +262,9 @@ def _aggregate_segment(
     device: torch.device,
 ) -> TensorFrame:
     """Sort-free keyed aggregation for classified monoid graphs: the
-    row-wise transforms over all rows in one call, then one device segment
-    reduce per fetch over int64 group ids. Float sums differ from the
-    exact plan's by summation order only."""
+    row-wise transforms over all rows in one call, then the tables over
+    int64 group ids (`_segment_tables`). Float sums differ from the exact
+    plan's by summation order only."""
     frame = grouped.frame
     key_out, gid, num_groups = _factorized(grouped, device)
     bases = [_base(f) for f in fetch_list]
@@ -232,21 +274,12 @@ def _aggregate_segment(
     feeds = [as_tensor(frame.column(mapping[n]).values, device) for n in feed_names]
 
     def segment():
-        outs = transform(*feeds)
-        counts = (
-            torch.bincount(gid, minlength=num_groups)
-            if "mean" in combiners.values()
-            else None
-        )
-        results: Dict[str, torch.Tensor] = {}
-        for b, o in zip(bases, outs):
-            comb = combiners[b]
-            if comb == "mean":
-                s = segment_reduce(o, gid, num_groups, "sum")
-                results[b] = s / counts.to(o.dtype).reshape((-1,) + (1,) * (s.dim() - 1))
-            else:
-                results[b] = segment_reduce(o, gid, num_groups, _SEGMENT_OF[comb])
-        return results
+        tables, counts = _segment_tables(bases, transform(*feeds), combiners, gid, num_groups,
+                                         "mean" in combiners.values())
+        return {
+            b: _per_count(t, counts) if combiners[b] == "mean" else t
+            for b, t in zip(bases, tables)
+        }
 
     def thunk():
         with _tele.dispatch_span(
@@ -464,7 +497,6 @@ def _aggregate_sorted(
     Counted as ``aggregate.plan.exact`` / ``aggregate.plan.chunk``."""
     from . import config as _config
     from .api import _empty_output
-    from .utils.profiling import count as _count
 
     key_out, num_groups, counts, starts, col_data = _group_plan(
         grouped, mapping, feed_names, device

@@ -43,11 +43,16 @@ import numpy as np
 import torch
 
 from .. import api as _api
-from ..aggregate import _SEGMENT_OF, _chunk_combiners, _factorized, _keyed_output
+from ..aggregate import (
+    _chunk_combiners,
+    _factorized,
+    _keyed_output,
+    _per_count,
+    _segment_tables,
+)
 from ..frame import Column, TensorFrame, as_tensor
 from ..graph.ir import base_name
 from ..ops.lowering import build_callable
-from ..ops.standard import segment_reduce
 from ..runtime import faults as _flt
 from ..runtime.executor import Executor, default_executor
 from ..runtime.faults import maybe_check_numerics
@@ -200,10 +205,14 @@ def aggregate(
     row-local transform of its placeholder) runs the local segment plan
     (`aggregate._aggregate_segment`) once a shard on its device, and once
     more over the remainder on the first device: the row-wise transform,
-    then one segment reduce a fetch over the global group ids. The tables
+    then the tables over the global group ids (`aggregate._segment_tables`:
+    one keyed-sums launch for the sum and mean fetches, with the group
+    counts, where the kernel takes them, else a segment sum each, and a
+    segment reduce for each other fetch). The tables
     combine on the first device in shard order by each fetch's monoid (an
     empty group's entry is the monoid's identity); a mean is the summed
-    tables over the group counts. No sort, and exact for every graph the
+    tables over the group counts (the kernel's, summed over the parts, else
+    one `bincount` of all the ids). No sort, and exact for every graph the
     chunk plan would take. Any other graph takes the exact plan on the
     mesh's first device (counted ``aggregate.plan.exact``). The mesh has
     this one plan for classified graphs, whatever
@@ -243,7 +252,6 @@ def aggregate(
         for d in devs
     ]
     cols = [mapping[n] for n in feed_names]
-    ops = [_SEGMENT_OF.get(combiners[b], "sum") for b in bases]
     _, ranges, tail = _api._shards(frame.nrows, len(devs))
     parts = [(lo, hi, d) for d, (lo, hi) in enumerate(ranges) if hi > lo]
     if tail[1] > tail[0]:
@@ -253,22 +261,23 @@ def aggregate(
         g = gid[lo:hi].to(devs[d])
         # a column fed to several placeholders crosses to the device once
         moved = {c: as_tensor(frame.column(c).values[lo:hi], devs[d]) for c in set(cols)}
-        outs = transforms[d](*[moved[c] for c in cols])
-        return [segment_reduce(o, g, num_groups, op) for o, op in zip(outs, ops)]
+        return _segment_tables(bases, transforms[d](*[moved[c] for c in cols]), combiners, g,
+                               num_groups, False)
 
     def combined():
         per_part = [tables(*p) for p in parts]  # every part issued before any combine
-        acc = [t.to(dev0) for t in per_part[0]]
-        for tabs in per_part[1:]:
+        acc = [t.to(dev0) for t in per_part[0][0]]
+        for tabs, _ in per_part[1:]:
             acc = [_COMBINE[combiners[b]](a, t.to(dev0)) for b, a, t in zip(bases, acc, tabs)]
-        if "mean" in combiners.values():
+        if "mean" not in combiners.values():
+            return acc
+        # the kernel's counts a part where it ran, else one bincount of all ids
+        part_counts = [c for _, c in per_part]
+        if all(c is not None for c in part_counts):
+            counts = sum(c.to(dev0) for c in part_counts)
+        else:
             counts = torch.bincount(gid, minlength=num_groups)
-            acc = [
-                a / counts.to(a.dtype).reshape((-1,) + (1,) * (a.dim() - 1))
-                if combiners[b] == "mean" else a
-                for b, a in zip(bases, acc)
-            ]
-        return acc
+        return [_per_count(a, counts) if combiners[b] == "mean" else a for b, a in zip(bases, acc)]
 
     acc = _mesh_call(
         "mesh.aggregate.segment", graph.fingerprint(), frame.nrows, len(devs), combined, dev0
