@@ -15,6 +15,10 @@ outputs (`parallel.collectives`).
 
 `from_jax_params` loads the JAX ``params`` dict (``gate`` (d, E), ``w1``
 (E, d, h), ``w2`` (E, h, d), as numpy).
+
+`RoutedExperts` is the sparse layer of the large open models (DeepSeek-V2's
+routed experts): a softmax over the gate logits, the greedy top k, and each
+expert's SwiGLU computed only on the rows routed to it (see its docstring).
 """
 
 from __future__ import annotations
@@ -31,8 +35,10 @@ from ..device import DeviceLike, resolve_device
 from ..parallel import collectives
 from ..parallel.mesh import Mesh
 from ..parallel.sharding import P, as_sharded
+from ..utils import telemetry as _tele
+from ..utils.profiling import count as _count
 
-__all__ = ["MoEFFN"]
+__all__ = ["MoEFFN", "RoutedExperts", "route"]
 
 
 class MoEFFN(nn.Module):
@@ -129,3 +135,86 @@ class MoEFFN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(self.params, x)
+
+
+def route(
+    logits: torch.Tensor, top_k: int, norm_topk_prob: bool = False, scaling: float = 1.0
+):
+    """DeepSeek-V2's greedy router on (N, E) float32 gate logits: a softmax
+    over all E, the top k of it (``(weights, experts)``, each (N, k),
+    largest first); with ``norm_topk_prob`` the k weights are renormalised
+    to sum to 1, then multiplied by ``scaling`` (``routed_scaling_factor``)."""
+    weights, experts = torch.softmax(logits, dim=-1).topk(top_k, dim=-1)
+    if norm_topk_prob:
+        weights = weights / weights.sum(dim=-1, keepdim=True)
+    return weights * scaling if scaling != 1.0 else weights, experts
+
+
+class RoutedExperts:
+    """Routed SwiGLU experts, computed sparsely: x -> sum over a token's
+    top-k experts e of ``w_e * down_e(silu(x @ gate_e) * (x @ up_e))``.
+
+    The weights come as a dict: ``router`` (d, E), ``gate_up`` (E, d, 2h),
+    each expert's gate and up side by side (gate first, as checkpoint
+    loaders that fuse them lay them out), and ``down`` (E, h, d). Dispatch,
+    for N tokens:
+
+    - ``moe.route`` (a span timed on the card): the gate logits in float32,
+      `route`, then the N * k (token, expert) pairs sorted by expert (a
+      stable sort, so an expert's rows keep token order), their rows
+      gathered into one (N * k, d) tensor, and the per-expert counts read on
+      the host: one synchronisation a layer, counted ``moe.host_syncs``.
+    - ``moe.experts``: for each expert with rows, its gate and up as one
+      product of width 2h on its own contiguous slice of the gathered rows
+      (an expert's ~200 rows leave most of the card idle in a product of
+      width h), the SwiGLU once over all the rows, then each expert's down
+      product on its slice, written in place into one (N * k, d) output.
+      No capacity limit: every pair is computed once, no token is dropped
+      and no expert sees a row not routed to it.
+    - ``moe.combine``: the outputs put back in pair order and summed over
+      each token's k pairs with their routing weights (a fixed order, no
+      atomics).
+
+    Returns the (N, d) output and the (N, k) experts each token was routed
+    to. Counters (`utils.profiling`): ``moe.layers`` one a call,
+    ``moe.routed_pairs`` the rows the experts computed (N * k),
+    ``moe.max_expert_rows`` the largest expert's rows, ``moe.host_syncs``."""
+
+    def __init__(self, top_k: int, norm_topk_prob: bool = False, scaling: float = 1.0):
+        self.top_k, self.norm_topk_prob, self.scaling = top_k, norm_topk_prob, scaling
+
+    def __call__(self, w: Dict[str, torch.Tensor], x: torch.Tensor):
+        """(N, d) float32 tokens -> ((N, d) output, (N, k) experts)."""
+        n, d = x.shape
+        k, dev = self.top_k, x.device
+        with _tele.span("moe.route", kind="stage", torch_device=dev, tokens=n):
+            weights, experts = route(x @ w["router"], k, self.norm_topk_prob, self.scaling)
+            pairs = experts.reshape(-1)
+            order = torch.argsort(pairs, stable=True)
+            counts = torch.bincount(pairs, minlength=w["router"].shape[1])
+            rows = x.index_select(0, order // k)
+            counts = counts.tolist()
+            _count("moe.host_syncs")
+        with _tele.span("moe.experts", kind="stage", torch_device=dev):
+            h = w["down"].shape[1]
+            # per-expert views made at once: the loops index no stacked tensor
+            gate_up, down = w["gate_up"].unbind(0), w["down"].unbind(0)
+            slices, computed = [], 0  # (expert, first row, end) of each expert with rows
+            for e, m in enumerate(counts):
+                if m:
+                    slices.append((e, computed, computed + m))
+                    computed += m
+            t = rows.new_empty(len(rows), 2 * h)
+            for e, lo, hi in slices:
+                torch.mm(rows[lo:hi], gate_up[e], out=t[lo:hi])
+            a = F.silu(t[:, :h]).mul_(t[:, h:])
+            out = torch.empty_like(rows)
+            for e, lo, hi in slices:
+                torch.mm(a[lo:hi], down[e], out=out[lo:hi])
+        with _tele.span("moe.combine", kind="stage", torch_device=dev):
+            y = torch.empty_like(out).index_copy_(0, order, out).view(n, k, d)
+            y = torch.bmm(weights.unsqueeze(1), y).squeeze(1)
+        _count("moe.layers")
+        _count("moe.routed_pairs", computed)
+        _count("moe.max_expert_rows", max(counts))
+        return y, experts
