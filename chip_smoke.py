@@ -679,7 +679,7 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
     call), the keyed-sums kernel alone against its plain version on the
     same card tensors, then a graph the segment plan refuses (its root is a
     Div) through the exact plan. Returns what the kernels line carries of
-    the keyed-sums kernel."""
+    the keyed-sums kernel and of the key factorization kernel."""
     from tensorframes_tpu_torch.ops import keyed_sums as ks
     from tensorframes_tpu_torch.utils.profiling import reset_stats
 
@@ -697,7 +697,8 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
     del first
     reset_stats()
     out, seg_s = _wall(lambda: tft.aggregate([m, q], grouped, feed_dict=feed))
-    _plan_ran("aggregate mean/variance", "aggregate.plan.segment", "aggregate.segment.kernel")
+    _plan_ran("aggregate mean/variance", "aggregate.plan.segment", "aggregate.segment.kernel",
+              "factorize.kernel")
     segment_launches = ks.keyed_sums.launches - launched
     if segment_launches != 2:
         raise AssertionError(
@@ -748,6 +749,7 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
 
     ks_library_ms = _time_ms(library, 3)
     del vsq
+    factorize = _factorize_at_the_cell_shape(rows, nkeys)
 
     kh = keys.cpu().numpy()
     vh = v.cpu().numpy()
@@ -796,7 +798,7 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
     tft.aggregate(ratio, egrouped)  # lowers once
     reset_stats()
     eout, exact_s = _wall(lambda: tft.aggregate(ratio, egrouped))
-    _plan_ran("aggregate Sum/Max", "aggregate.plan.exact")
+    _plan_ran("aggregate Sum/Max", "aggregate.plan.exact", "factorize.kernel")
     ekh, exh = ek.cpu().numpy(), ev.cpu().numpy().astype(np.float64)
     sizes = np.bincount(ekh, minlength=exact_keys)
     present = np.nonzero(sizes)[0]
@@ -830,7 +832,42 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
         "library_ms": ks_library_ms, "bound_ms": bound_ms, "share_of_bound": bound_ms / ks_ms,
         "mean_max_rel_err": ks_err, "plain_max_rel_gap": ks_plain_gap,
         "shape": [rows, dim, nkeys, 2],
-    }
+    }, factorize
+
+
+def _factorize_at_the_cell_shape(rows: int, nkeys: int) -> dict:
+    """The key factorization kernel on ``rows`` int64 keys drawn uniformly
+    from ``nkeys`` (``meanvar.k16``'s keys) against ``torch.unique``, the
+    route it replaces: equal bit for bit, and each call's time between CUDA
+    events (the one host read of the distinct count included). Returns what
+    the kernels line carries of it."""
+    from tensorframes_tpu_torch.ops import _cuda_build
+    from tensorframes_tpu_torch.ops import factorize_keys as fk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    keys = torch.randint(0, nkeys, (rows,), device="cuda", generator=gen)
+    (uniq, inverse), (want_uniq, want_inverse) = fk.factorize(keys), fk.factorize_reference(keys)
+    equal = (uniq.dtype == want_uniq.dtype and torch.equal(uniq, want_uniq)
+             and torch.equal(inverse, want_inverse))
+    if not equal:
+        raise AssertionError("factorize_keys: the kernel's keys or inverse differ from torch.unique's")
+    del uniq, inverse, want_uniq, want_inverse
+    ms = _time_ms(lambda: fk.factorize(keys), 20)
+    plain_ms = _time_ms(lambda: fk.factorize_reference(keys), 3)
+    # each key read twice, each group id written once, at the HBM peak
+    bound_ms = rows * 8 * 3 / _PEAK_HBM_BYTES * 1e3
+    ptxas = {}  # kernel<key type> -> [registers, spill store bytes, spill load bytes]
+    for m in re.finditer(
+        r"Compiling entry function '\w*?\d([a-z_]+_kernel)(I[ix]E)?\w*'.*?(\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads.*?Used (\d+) registers",
+        _cuda_build.build_logs.get("factorize_keys", ""), re.S,
+    ):
+        key = m.group(1) + {"IiE": "<int32>", "IxE": "<int64>"}.get(m.group(2), "")
+        ptxas[key] = [int(m.group(5)), int(m.group(3)), int(m.group(4))]
+    if any(r[1] or r[2] for r in ptxas.values()):
+        raise AssertionError(f"factorize_keys: ptxas spilled ([registers, stores, loads]): {ptxas}")
+    return {"ms": ms, "bound_ms": bound_ms, "share_of_bound": bound_ms / ms, "plain_ms": plain_ms,
+            "equal_to_plain": equal, "ptxas_registers_spills": ptxas, "shape": [rows, nkeys]}
 
 
 def _dispatches(name: str) -> int:
@@ -883,7 +920,7 @@ def _chunk_and_exact(tft, rows: int = 1_000_000, dim: int = 8, nkeys: int = 1000
             reset_stats()
             telemetry.reset()
             res, secs = _wall(lambda: tft.aggregate([s2, mx], grouped, feed_dict=feed))
-        _plan_ran(f"aggregate {plan} plan", f"aggregate.plan.{plan}")
+        _plan_ran(f"aggregate {plan} plan", f"aggregate.plan.{plan}", "factorize.kernel")
         calls = _dispatches(span)
         want_calls = int(sizes.max()).bit_length() if plan == "chunk" else len(np.unique(sizes))
         if calls != want_calls:
@@ -5018,6 +5055,7 @@ def main(argv) -> int:
         return 1
     import tensorframes_tpu_torch as tft
     from tensorframes_tpu_torch.ops.flash_attention import flash_attention
+    from tensorframes_tpu_torch.ops.factorize_keys import factorize as factorize_keys
     from tensorframes_tpu_torch.ops.keyed_sums import keyed_sums
 
     # widths of benchmarks/train_bench.py, max_seq of examples/long_context.py
@@ -5042,9 +5080,10 @@ def main(argv) -> int:
     flash_attention.launches = 0
     flash_attention.launches_by_route = dict.fromkeys(flash_attention.launches_by_route, 0)
     keyed_sums.launches = 0
+    factorize_keys.launches = dict.fromkeys(factorize_keys.launches, 0)
     verbs_df = phase_graph_verbs(tft)
     phase_map_rows_mlp(tft)
-    sums = phase_aggregate(tft)
+    sums, factorize = phase_aggregate(tft)
     phase_kmeans(tft)
     phase_inception(tft)
     phase_control_flow(tft)
@@ -5136,6 +5175,14 @@ def main(argv) -> int:
         # the segment plan's sums and counts; the JAX package leaves them to XLA
         "replaces": None,
         **sums,
+    }, {
+        "name": "factorize_keys",
+        "route": "cuda",
+        "source": "tensorframes_tpu_torch/csrc/factorize_keys.cu",
+        # the aggregate's key stage; the JAX package leaves it to XLA's sort
+        "replaces": None,
+        "launches": dict(factorize_keys.launches),
+        **factorize,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -567,6 +567,24 @@ class TensorFrame:
 # ---------------------------------------------------------------------------
 
 
+def _unique(keys: torch.Tensor):
+    """``torch.unique(keys, sorted=True, return_inverse=True)``: the
+    factorization kernel for int32 and int64 keys on a card while they hold
+    at most its capacity of distinct keys (`ops.factorize_keys`), else
+    ``torch.unique``. On a card the route is counted, ``factorize.kernel``
+    or ``factorize.torch``."""
+    from .ops import factorize_keys as _fk  # at the top it would cycle through ops.lowering
+
+    if _fk.takes_kernel(keys.device, keys.dtype):
+        got = _fk.factorize(keys)
+        if got is not None:
+            _count("factorize.kernel")
+            return got
+    if keys.device.type == "cuda":
+        _count("factorize.torch")
+    return _fk.factorize_reference(keys)
+
+
 def _factorize_one(keys: torch.Tensor):
     """(sorted distinct keys, row -> index into them) of one key tensor.
     NaN is one key, sorted last, as in `np.unique` (`torch.unique` keeps
@@ -574,11 +592,11 @@ def _factorize_one(keys: torch.Tensor):
     if keys.dtype.is_floating_point:
         nan = torch.isnan(keys)
         if bool(nan.any()):
-            uniq, inv = torch.unique(keys[~nan], sorted=True, return_inverse=True)
+            uniq, inv = _unique(keys[~nan])
             inverse = torch.full(keys.shape, len(uniq), dtype=torch.int64, device=keys.device)
             inverse[~nan] = inv
             return torch.cat([uniq, keys[nan][:1]]), inverse
-    return torch.unique(keys, sorted=True, return_inverse=True)
+    return _unique(keys)
 
 
 def _is_na(x) -> bool:
@@ -636,7 +654,8 @@ def factorize_keys(
     sorted key order as in the reference (`DebugRowOps.scala:554-599`).
 
     Numeric keys are factorized where they lie (a device tensor stays on
-    its device; host numpy runs on the CPU). String and object keys
+    its device; host numpy runs on the CPU), integer keys on a card by the
+    factorization kernel where it takes them (`_unique`). String and object keys
     factorize on the host (`_factorize_objects`); their codes go to
     ``device`` (default: the first tensor key's device, else the CPU) once,
     and their distinct values stay a host array. Several keys combine their
@@ -664,7 +683,7 @@ def factorize_keys(
         if len(combo) and int(combo.max()) > (2**62) // radix:
             raise ValueError("aggregate: combined group-key cardinality overflows")
         combo = combo * radix + inv.to(combo.device)
-    _, inverse = torch.unique(combo, sorted=True, return_inverse=True)
+    _, inverse = _unique(combo)
     num_groups = int(inverse.max()) + 1 if len(inverse) else 0
     # each group's first row carries its key values
     rows = torch.arange(len(inverse), device=inverse.device)

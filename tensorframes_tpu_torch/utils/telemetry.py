@@ -4,7 +4,7 @@ The PyTorch counterpart of the registry and span half of
 `tensorframes_tpu/utils/telemetry.py`:
 
 - **Spans** — hierarchical timed regions recorded into a bounded
-  thread-safe ring (8,192 spans) with parent ids and monotonic timestamps.
+  thread-safe ring (65,536 spans) with parent ids and monotonic timestamps.
   Nesting rides a contextvar; threads where it does not flow (ingest
   pipeline stages) record already-timed regions with an explicit parent
   (`allocate_span_id` / `add_event`).

@@ -62,17 +62,26 @@ _KNOBS = [
 ]
 
 
+# the port's own defaults: the span ring keeps 8x the reference's spans, for
+# the port's verb calls on the card are that much shorter
+_PORT_DEFAULTS = {"telemetry_ring_entries": 8 * 8192}
+
+
 @pytest.mark.parametrize("knob", [k[0] for k in _KNOBS])
 def test_knob_defaults_equal_the_reference(knob):
-    assert tconfig.default_value(knob) == jconfig.default_value(knob)
-    assert getattr(tconfig.get(), knob) == getattr(jconfig.get(), knob)
+    want = _PORT_DEFAULTS.get(knob, jconfig.default_value(knob))
+    assert tconfig.default_value(knob) == want
+    assert getattr(tconfig.get(), knob) == want
 
 
 @pytest.mark.parametrize("knob,var,good,low", _KNOBS, ids=[k[0] for k in _KNOBS])
 def test_knob_env_parsing_equals_the_reference(knob, var, good, low, monkeypatch):
     for raw in [good, "not-a-number", low] if low is not None else [good, "off", "true"]:
         monkeypatch.setenv(var, raw)
-        assert getattr(tconfig.Config(), knob) == getattr(jconfig.Config(), knob), raw
+        want = getattr(jconfig.Config(), knob)
+        if raw == "not-a-number":  # malformed: the default
+            want = _PORT_DEFAULTS.get(knob, want)
+        assert getattr(tconfig.Config(), knob) == want, raw
     monkeypatch.setenv(var, good)
     want = {"0": False}.get(good, int(good) if good.lstrip("-").isdigit() else good)
     assert getattr(tconfig.Config(), knob) == want
@@ -135,7 +144,7 @@ def test_span_ring_takes_its_size_at_a_reset_and_gauges_the_executor():
         tft.map_blocks((tdsl.block(df, "x") * 2.0).named("z"), df, device=CPU)
         assert len(telemetry.spans()) == 4 and telemetry.spans_dropped() > 0
     telemetry.reset()
-    assert telemetry._ring._ring.maxlen == 8192
+    assert telemetry._ring._ring.maxlen == 65536
     from tensorframes_tpu_torch.runtime.executor import default_executor
 
     gauges = telemetry.metrics_snapshot()[1]

@@ -406,7 +406,8 @@ def test_segment_plan_takes_the_kernel_once_a_call(card):
     for call in range(1, 4):
         out = tft.aggregate(fetches, grouped, feed_dict=feed, device=card)
         assert stats() == {"aggregate.plan.segment": float(call),
-                           "aggregate.segment.kernel": float(call)}
+                           "aggregate.segment.kernel": float(call),
+                           "factorize.kernel": float(call)}
         assert ks.keyed_sums.launches == before + call
     want = _want(data)
     np.testing.assert_array_equal(out.host_values("k"), want["k"])
@@ -438,6 +439,8 @@ def test_a_table_past_the_limit_takes_the_plain_version(card):
     m = dsl.reduce_mean(dsl.block(df, "v", tf_name="m_input"), axes=[0]).named("m")
     before = ks.keyed_sums.launches
     out = tft.aggregate([m], tft.group_by(df, "k"), feed_dict={"m_input": "v"}, device=card)
-    assert stats() == {"aggregate.plan.segment": 1.0, "aggregate.segment.torch": 1.0}
+    # 4097 keys: past the factorization kernel's capacity too
+    assert stats() == {"aggregate.plan.segment": 1.0, "aggregate.segment.torch": 1.0,
+                       "factorize.torch": 1.0}
     assert ks.keyed_sums.launches == before
     np.testing.assert_allclose(out.host_values("m"), _want(data)["m"], rtol=1e-6, atol=0)
