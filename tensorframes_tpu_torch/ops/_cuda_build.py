@@ -5,7 +5,11 @@ compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``tensorframes_tpu_torch/_build/`` (named by a hash of the source, the
 ``csrc/*.cuh`` headers and the flags, so an edited source or header
 rebuilds) and loaded with `ctypes`. A failed build raises; there is no
-fallback.
+fallback. `load_library` declares a library's C entries from one table as
+it loads it, and `check` turns an entry's nonzero return code into a
+`RuntimeError` carrying the library's own error string. `_build` and
+`_BUILD` are the tests' seam: the ``card`` tests build afresh into a
+directory of their own to read ptxas' report.
 """
 
 from __future__ import annotations
@@ -17,9 +21,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Any, Dict, Optional, Sequence, Tuple
 
-__all__ = ["load_library", "build_logs", "build_all"]
+__all__ = ["load_library", "check", "build_logs", "build_all"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -74,20 +78,39 @@ def _build(name: str) -> Path:
     return out
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def load_library(name: str,
+                 entries: Optional[Dict[str, Tuple[Sequence[Any], Any]]] = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use, with
+    each C entry of ``entries`` (entry name -> (argtypes, restype))
+    declared as it is loaded, once a process."""
+    lib = _libs.get(name)  # set only once its entries are declared
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(_build(name)))
+            lib = ctypes.CDLL(str(_build(name)))
+            for entry, (argtypes, restype) in (entries or {}).items():
+                fn = getattr(lib, entry)
+                fn.argtypes, fn.restype = list(argtypes), restype
+            _libs[name] = lib
         return lib
 
 
-def build_all() -> Dict[str, ctypes.CDLL]:
-    """Build every ``csrc/*.cu`` at once, one ``nvcc`` process each."""
+def check(rc: int, what: str, error_string) -> None:
+    """Raise `RuntimeError` for an entry's nonzero return code ``rc`` (a
+    ``cudaError_t``), with the text of the library's entry
+    ``error_string``."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: {error_string(rc).decode()} (cudaError {rc})")
+
+
+def build_all() -> Dict[str, Path]:
+    """Build every ``csrc/*.cu`` at once, one ``nvcc`` process each: name
+    -> the library's path. Each is loaded, its entries declared, at its
+    wrapper's first call."""
     from concurrent.futures import ThreadPoolExecutor
 
     names = sorted(p.stem for p in _CSRC.glob("*.cu"))
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        paths = dict(zip(names, pool.map(_build, names)))
-    return {n: load_library(n) for n in paths}
+        return dict(zip(names, pool.map(_build, names)))

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ._cuda_build import check, load_library
+
 __all__ = ["factorize", "factorize_reference", "takes_kernel", "CAPACITY", "EMPTY_KEY"]
 
 # element bytes of the key dtypes the kernel takes
@@ -47,41 +49,30 @@ def factorize_reference(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     return torch.unique(keys, sorted=True, return_inverse=True)
 
 
-_lib = None
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# csrc/factorize_keys.cu's C entries: name -> (argtypes, restype)
+_ENTRIES = {
+    "tfs_factorize_constants": ([_PTR], _I32),
+    "tfs_factorize_distinct": ([_I32, _PTR, _I64, _PTR, _PTR], _I32),
+    "tfs_factorize_lookup": ([_I32, _PTR, _I64, _PTR, _I32, _PTR, _PTR, _PTR], _I32),
+    "tfs_factorize_error_string": ([_I32], ctypes.c_char_p),
+}
 _words = {}  # the kernel's constants, read once from the library
 
 
 def _library():
-    global _lib
-    if _lib is None:
-        from ._cuda_build import load_library
-
-        lib = load_library("factorize_keys")
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.tfs_factorize_constants.argtypes = [ptr]
-        lib.tfs_factorize_constants.restype = i32
-        lib.tfs_factorize_distinct.argtypes = [i32, ptr, i64, ptr, ptr]
-        lib.tfs_factorize_distinct.restype = i32
-        lib.tfs_factorize_lookup.argtypes = [i32, ptr, i64, ptr, i32, ptr, ptr, ptr]
-        lib.tfs_factorize_lookup.restype = i32
-        lib.tfs_factorize_error_string.argtypes = [i32]
-        lib.tfs_factorize_error_string.restype = ctypes.c_char_p
+    """The library, its constants read and checked against the wrapper's
+    on first use."""
+    lib = load_library("factorize_keys", _ENTRIES)
+    if not _words:
         out = (ctypes.c_longlong * 5)()
         lib.tfs_factorize_constants(out)
-        _words.update(zip(("capacity", "slots", "work", "empty", "count"), out))
-        if (_words["capacity"], _words["empty"]) != (CAPACITY, EMPTY_KEY):
-            raise RuntimeError(f"factorize_keys: the library's constants {_words} differ "
+        words = dict(zip(("capacity", "slots", "work", "empty", "count"), out))
+        if (words["capacity"], words["empty"]) != (CAPACITY, EMPTY_KEY):
+            raise RuntimeError(f"factorize_keys: the library's constants {words} differ "
                                f"from the wrapper's ({CAPACITY}, {EMPTY_KEY})")
-        _lib = lib
-    return _lib
-
-
-def _check(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(
-            f"factorize_keys {what} failed: {lib.tfs_factorize_error_string(rc).decode()} "
-            f"(cudaError {rc})"
-        )
+        _words.update(words)
+    return lib
 
 
 def factorize(keys: torch.Tensor) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
@@ -102,8 +93,8 @@ def factorize(keys: torch.Tensor) -> Optional[Tuple[torch.Tensor, torch.Tensor]]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         work = torch.empty(_words["work"], dtype=torch.int64, device=dev)
-        _check(lib, lib.tfs_factorize_distinct(elem, flat.data_ptr(), n, work.data_ptr(), stream),
-               "distinct pass")
+        check(lib.tfs_factorize_distinct(elem, flat.data_ptr(), n, work.data_ptr(), stream),
+              "factorize_keys distinct pass", lib.tfs_factorize_error_string)
         factorize.launches["distinct"] += 1
         at = _words["count"]
         count, overflow, marker = work[at:at + 3].tolist()  # the one host read
@@ -112,9 +103,9 @@ def factorize(keys: torch.Tensor) -> Optional[Tuple[torch.Tensor, torch.Tensor]]
             return None
         uniq = torch.empty(d, dtype=keys.dtype, device=dev)
         inverse = torch.empty(n, dtype=torch.int64, device=dev)
-        _check(lib, lib.tfs_factorize_lookup(elem, flat.data_ptr(), n, work.data_ptr(), d,
-                                             uniq.data_ptr(), inverse.data_ptr(), stream),
-               "lookup pass")
+        check(lib.tfs_factorize_lookup(elem, flat.data_ptr(), n, work.data_ptr(), d,
+                                       uniq.data_ptr(), inverse.data_ptr(), stream),
+              "factorize_keys lookup pass", lib.tfs_factorize_error_string)
     factorize.launches["lookup"] += 1
     return uniq, inverse.view(keys.shape)
 

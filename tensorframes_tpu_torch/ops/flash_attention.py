@@ -55,6 +55,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ._cuda_build import check, load_library
+
 __all__ = [
     "AttentionGradientError",
     "flash_attention",
@@ -204,30 +206,20 @@ def _kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale):
     return prep(q), prep(k), prep(v), float(scale), restore
 
 
-_libs = {}
-
-
-def _kernel_entry(dtype: torch.dtype, with_lse: bool):
-    """(the C entry for ``dtype``'s build, its library), built and loaded
-    on first use."""
-    sfx, name = _BUILDS[dtype]
-    lib = _libs.get(sfx)
-    if lib is None:
-        from ._cuda_build import load_library
-
-        lib = load_library(name)
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for entry, lse_arg in ((f"tfs_flash_attention_{sfx}", []),
-                               (f"tfs_flash_attention_lse_{sfx}", [ptr])):
-            fn = getattr(lib, entry)
-            fn.argtypes = [ptr, ptr, ptr, ptr, *lse_arg, i32, i32, i32, f32, i32, ptr]
-            fn.restype = i32
-        lib.tfs_cuda_error_string.argtypes = [i32]
-        lib.tfs_cuda_error_string.restype = ctypes.c_char_p
-        lib.tfs_flash_attention_last_route.argtypes = []
-        lib.tfs_flash_attention_last_route.restype = i32
-        _libs[sfx] = lib
-    return getattr(lib, f"tfs_flash_attention{'_lse' if with_lse else ''}_{sfx}"), lib
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# the entries' arguments after q, k, v, out (and lse): bh, seq, d8, scale,
+# causal, stream
+_TAIL = [_I32, _I32, _I32, ctypes.c_float, _I32, _PTR]
+# each build's C entries: suffix -> {entry name: (argtypes, restype)}
+_ENTRIES = {
+    sfx: {
+        f"tfs_flash_attention_{sfx}": ([_PTR] * 4 + _TAIL, _I32),
+        f"tfs_flash_attention_lse_{sfx}": ([_PTR] * 5 + _TAIL, _I32),
+        "tfs_cuda_error_string": ([_I32], ctypes.c_char_p),
+        "tfs_flash_attention_last_route": ([], _I32),
+    }
+    for sfx, _ in _BUILDS.values()
+}
 
 
 def _refuse_grad(q, k, v, what: str) -> None:
@@ -252,7 +244,9 @@ def _launch(q, k, v, causal, scale, with_lse: bool):
     lse = torch.empty(bh, seq, dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
         return restore(out, lse)
-    entry, lib = _kernel_entry(q3.dtype, with_lse)
+    sfx, name = _BUILDS[q3.dtype]
+    lib = load_library(name, _ENTRIES[sfx])
+    entry = getattr(lib, f"tfs_flash_attention{'_lse' if with_lse else ''}_{sfx}")
     lse_arg = (lse.data_ptr(),) if with_lse else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -260,11 +254,7 @@ def _launch(q, k, v, causal, scale, with_lse: bool):
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), *lse_arg,
             bh, seq, d8, scale, int(bool(causal)), stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            "flash_attention kernel launch failed: "
-            f"{lib.tfs_cuda_error_string(rc).decode()} (cudaError {rc})"
-        )
+    check(rc, "flash_attention kernel launch", lib.tfs_cuda_error_string)
     route = lib.tfs_flash_attention_last_route()
     if not 0 <= route < len(_ROUTES):
         raise RuntimeError(f"flash_attention: the library reports no kernel launched ({route})")

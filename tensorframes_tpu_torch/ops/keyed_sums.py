@@ -25,6 +25,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from ._cuda_build import check, load_library
 from .standard import segment_reduce
 
 __all__ = ["keyed_sums", "keyed_sums_reference", "takes_kernel", "row_width"]
@@ -78,34 +79,14 @@ def keyed_sums_reference(
     return tables, counts
 
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from ._cuda_build import load_library
-
-        lib = load_library("keyed_sums")
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.tfs_keyed_sums_plan.argtypes = [i32, i64, i32, i32, ptr, ptr, i32, ptr]
-        lib.tfs_keyed_sums_plan.restype = i32
-        lib.tfs_keyed_sums.argtypes = [
-            i32, ptr, i64, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, ptr,
-        ]
-        lib.tfs_keyed_sums.restype = i32
-        lib.tfs_keyed_sums_error_string.argtypes = [i32]
-        lib.tfs_keyed_sums_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _check(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(
-            f"keyed_sums {what} failed: {lib.tfs_keyed_sums_error_string(rc).decode()} "
-            f"(cudaError {rc})"
-        )
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# csrc/keyed_sums.cu's C entries: name -> (argtypes, restype)
+_ENTRIES = {
+    "tfs_keyed_sums_plan": ([_I32, _I64, _I32, _I32, _PTR, _PTR, _I32, _PTR], _I32),
+    "tfs_keyed_sums": (
+        [_I32, _PTR, _I64, _I32, _I32, _PTR, _PTR, _PTR, _PTR, _PTR, _I32, _I32, _PTR], _I32),
+    "tfs_keyed_sums_error_string": ([_I32], ctypes.c_char_p),
+}
 
 
 _PLAN = ("stride", "positions", "warps", "pitch", "spread", "lanes", "shifted", "smem", "blocks")
@@ -119,14 +100,14 @@ def _plan(values: Sequence[torch.Tensor], n: int, groups: int,
     ``tables_bytes``), its dynamic shared memory and its thread blocks."""
     k = len(values)
     out = (ctypes.c_int * len(_PLAN))()
-    lib = _library()
+    lib = load_library("keyed_sums", _ENTRIES)
     with torch.cuda.device(values[0].device):
         rc = lib.tfs_keyed_sums_plan(
             _ELEM_BYTES[values[0].dtype], n, groups, k,
             (ctypes.c_void_p * k)(*[v.data_ptr() for v in values]),
             (ctypes.c_int * k)(*[row_width(v) for v in values]), tables_bytes, out,
         )
-    _check(lib, rc, "plan")
+    check(rc, "keyed_sums plan", lib.tfs_keyed_sums_error_string)
     return dict(zip(_PLAN, out))
 
 
@@ -147,7 +128,7 @@ def _launch(values: Sequence[torch.Tensor], ids: torch.Tensor, groups: int,
             t.zero_()
         return tables, counts.zero_()
     k, blocks = len(values), _plan(values, n, groups, tables_bytes)["blocks"]
-    lib = _library()
+    lib = load_library("keyed_sums", _ENTRIES)
     with torch.cuda.device(dev):
         partials = torch.empty(blocks * groups * (sum(widths) + 1), dtype=torch.float64,
                                device=dev)
@@ -159,7 +140,7 @@ def _launch(values: Sequence[torch.Tensor], ids: torch.Tensor, groups: int,
             counts.data_ptr(), partials.data_ptr(), blocks, tables_bytes,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _check(lib, rc, "launch")
+    check(rc, "keyed_sums launch", lib.tfs_keyed_sums_error_string)
     keyed_sums.launches += 1
     return tables, counts
 

@@ -21,6 +21,8 @@ repository's conftest:
     python3 -m pytest tests/test_torch_factorize_keys.py --noconftest -p no:cacheprovider -q
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +33,9 @@ from tensorframes_tpu_torch.frame import factorize_keys
 from tensorframes_tpu_torch.ops import factorize_keys as fk
 from tensorframes_tpu_torch.utils import telemetry
 from tensorframes_tpu_torch.utils.profiling import reset_stats, stats
+
+from _torch_card import build_logs_afresh
+from _torch_card import card  # noqa: F401 - the fixture
 
 I32, I64 = torch.int32, torch.int64
 MIN64, MAX64 = np.iinfo(np.int64).min, np.iinfo(np.int64).max
@@ -43,15 +48,6 @@ def _isolated():
     yield
     reset_stats()
     telemetry.reset()
-
-
-@pytest.fixture
-def card():
-    """The first CUDA card; skips the test where there is none."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: run on the card with python3 -m pytest "
-                    "tests/test_torch_factorize_keys.py --noconftest")
-    return torch.device("cuda", 0)
 
 
 _ROUTES = [
@@ -317,3 +313,20 @@ def test_segment_plan_launches_each_pass_once_a_call(card):
     counts = torch.bincount(keys, minlength=16).double()[:, None]
     want = torch.zeros(16, 8, dtype=torch.float64, device=card).index_add_(0, keys, v.double())
     np.testing.assert_allclose(out.host_values("m"), (want / counts).cpu().numpy(), rtol=1e-6)
+
+
+@pytest.mark.card
+def test_ptxas_spills_nothing(card, tmp_path):
+    """What ptxas said of the library built afresh: every kernel (each key
+    type's instantiation) compiled without a register spill."""
+    log = build_logs_afresh(["factorize_keys"], tmp_path)["factorize_keys"]
+    ptxas = {}  # kernel<key type> -> [registers, spill store bytes, spill load bytes]
+    for m in re.finditer(
+        r"Compiling entry function '\w*?\d([a-z_]+_kernel)(I[ix]E)?\w*'.*?(\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads.*?Used (\d+) registers", log, re.S,
+    ):
+        key = m.group(1) + {"IiE": "<int32>", "IxE": "<int64>"}.get(m.group(2), "")
+        ptxas[key] = [int(m.group(5)), int(m.group(3)), int(m.group(4))]
+    assert ptxas, "no kernel in the build log"
+    spilled = {k: r for k, r in ptxas.items() if r[1] or r[2]}
+    assert not spilled, f"ptxas spilled in {spilled} ([registers, stores, loads])"

@@ -4,7 +4,8 @@
 interpret mode on the CPU (as `tests/test_pallas.py` runs it) and
 `tensorframes_tpu_torch.ops.flash_attention` runs its plain version, which
 is what the wrapper takes for a CPU tensor. The CUDA kernel itself needs the
-card: `chip_smoke.py` holds it against the same plain version there.
+card: `tests/test_torch_flash_attention_card.py` holds it against the same
+plain version there.
 
 Tolerance: rtol 1e-4, atol 1e-5. Both sides are float32; the Pallas kernel
 sums scores tile by tile with an online softmax while the plain version
@@ -31,8 +32,8 @@ def _qkv(shape, seed):
 
 
 # (seq, d, causal, block, seed): the cases of tests/test_pallas.py, then the
-# CUDA kernel's edge shapes (chip_smoke.py holds the kernel to this plain
-# version at the same (seq, d, causal)): ragged ends against its 64-row query
+# CUDA kernel's edge shapes (tests/test_torch_flash_attention_card.py holds
+# the kernel to this plain version at the same (seq, d, causal)): ragged ends against its 64-row query
 # and key tiles (and against 128-row query tiles), a single row, the widest
 # head, an odd width, and the non-causal path at the LM's length
 _CASES = [
@@ -102,7 +103,7 @@ class TestPlainVersionMatchesPallas:
     @pytest.mark.parametrize("scale", [-0.125, 0.0])
     def test_negative_and_zero_scale(self, scale):
         """The CUDA kernel takes a negative scale's sign into its staged Q
-        tile; chip_smoke.py holds it to this plain version at these scales."""
+        tile; the card tests hold it to this plain version at these scales."""
         q, k, v = _qkv((200, 64), seed=13)
         ref = pallas_flash(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,

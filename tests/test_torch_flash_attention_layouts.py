@@ -11,8 +11,8 @@ time. Against it run two routes of `tensorframes_tpu_torch`:
   dimensions, cast, zero-pad D to a multiple of 8, copy strided or
   misaligned inputs), the plain version on what it hands the kernel, and
   its restore. That runs the pad, cast and reshape logic that only CUDA
-  tensors take; `chip_smoke.py` (phase 21) holds the kernel itself to the
-  plain version on the card.
+  tensors take; `tests/test_torch_flash_attention_card.py` holds the
+  kernel itself to the plain version on the card.
 
 Tolerances. float32, and float64 (which both kernels compute in float32):
 rtol 1e-4, atol 1e-5, as `tests/test_torch_flash_attention.py`. bf16 and

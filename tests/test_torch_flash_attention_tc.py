@@ -23,8 +23,8 @@ reciprocal of the guarded denominator, rounded once; the log-sum-exp
 package's plain version is `flash_attention_reference`, which keeps P in
 float32.
 
-What the tests show. The pair meets the bar that phase 21 of
-`chip_smoke.py` holds the kernel to on the card, one unit in the last
+What the tests show. The pair meets the bar that
+`tests/test_torch_flash_attention_card.py` holds the kernel to on the card, one unit in the last
 place of the output (rtol 2^-7 for bf16, 2^-10 for fp16, atol 1e-5; the
 log-sum-exp rtol 1e-4, atol 1e-5), against the Pallas kernel in interpret
 mode on the same bf16 / fp16 inputs and against the plain version, causal

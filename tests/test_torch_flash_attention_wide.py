@@ -22,8 +22,8 @@ log-sum-exp ``m |scale| + ln(l)``. Within a chunk the kernel sums its FFMAs in
 column order; the emulation's float32 products (`torch.matmul`) sum in
 theirs, which moves a score by a few float32 units.
 
-What the tests show: the emulation meets the bars phase 21 of
-`chip_smoke.py` holds the kernel to on the card (rtol 1e-4, atol 1e-5;
+What the tests show: the emulation meets the bars
+`tests/test_torch_flash_attention_card.py` holds the kernel to on the card (rtol 1e-4, atol 1e-5;
 the log-sum-exp too) against the Pallas kernel in interpret mode and
 against the plain version `flash_attention_reference`, at head widths 136,
 200, 256 and 512 (one or two slices; widths the chunk does not divide),

@@ -242,7 +242,6 @@ def test_import_guard_no_jax():
         import tensorframes_tpu_torch.ops.control
         import tensorframes_tpu_torch.ops.flash_attention
         import tensorframes_tpu_torch.ops.standard
-        import tensorframes_tpu_torch.tools.profile_imported
         import tensorframes_tpu_torch.utils.profiling
         import tensorframes_tpu_torch.config
         import tensorframes_tpu_torch.ingest.dataset

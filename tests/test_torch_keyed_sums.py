@@ -32,6 +32,8 @@ from tensorframes_tpu_torch.parallel import data_mesh
 from tensorframes_tpu_torch.utils import telemetry
 from tensorframes_tpu_torch.utils.profiling import reset_stats, stats
 
+from _torch_card import card  # noqa: F401 - the fixture
+
 F32, F64 = torch.float32, torch.float64
 
 
@@ -42,15 +44,6 @@ def _isolated():
     yield
     reset_stats()
     telemetry.reset()
-
-
-@pytest.fixture
-def card():
-    """The first CUDA card; skips the test where there is none."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: run on the card with python3 -m pytest "
-                    "tests/test_torch_keyed_sums.py --noconftest")
-    return torch.device("cuda", 0)
 
 
 # (groups, cell shape, outputs, dtype): group counts 1 to 300, rows of 1, 3, 8

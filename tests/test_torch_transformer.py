@@ -56,8 +56,8 @@ class TestForward:
 
     def test_attention_is_pluggable(self, models):
         """The CPU wrapper and the plain version give the same logits
-        (chip_smoke.py holds the CUDA kernel against the plain version the
-        same way)."""
+        (chip_smoke.py scores with the CUDA kernel against the plain version
+        the same way)."""
         _, tm = models
         tokens = torch.from_numpy(_tokens(2, 9, seed=1))
         torch.testing.assert_close(
