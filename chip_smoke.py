@@ -441,7 +441,8 @@ def phase_map_rows_mlp(tft) -> None:
 def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
                     exact_rows: int = 1_000_000, exact_keys: int = 1000) -> dict:
     """BASELINE config 4 through the segment plan (one keyed-sums launch a
-    call), the keyed-sums kernel alone against its plain version and the
+    call, on the column itself: the squares are taken as it loads), the
+    keyed-sums kernel alone against its plain version and the
     key factorization kernel against ``torch.unique`` on the same card
     tensors, then a graph the segment plan refuses (its root is a Div)
     through the exact plan. Returns what the kernels line carries of the
@@ -463,7 +464,7 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
     tft.aggregate([m, q], grouped, feed_dict=feed)  # lowers once
     reset_stats()
     out = tft.aggregate([m, q], grouped, feed_dict=feed)
-    _plan_ran("aggregate mean/variance", "aggregate.plan.segment", "aggregate.segment.kernel",
+    _plan_ran("aggregate mean/variance", "aggregate.plan.segment", "aggregate.segment.fused",
               "factorize.kernel")
     segment_launches = ks.keyed_sums.launches - launched
     if segment_launches != 2:
@@ -478,11 +479,12 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
         raise AssertionError(f"aggregate keys {got_k}")
     del out
 
-    # the keyed-sums kernel and its plain version on the same card tensors:
-    # the same counts, means within 1e-6 of each other
-    vsq = v * v
-    (ks_s, ks_q), ks_counts = ks.keyed_sums([v, vsq], keys, nkeys)
-    (pl_s, pl_q), pl_counts = ks.keyed_sums_reference([v, vsq], keys, nkeys)
+    # the keyed-sums kernel and its plain version on the same card tensors,
+    # in the launch the segment plan makes (one source, its identity and its
+    # square): the same counts, means within 1e-6 of each other
+    loads = [(0, "identity"), (0, "square")]
+    (ks_s, ks_q), ks_counts = ks.keyed_sums([v], keys, nkeys, loads)
+    (pl_s, pl_q), pl_counts = ks.keyed_sums_reference([v], keys, nkeys, loads)
     if not torch.equal(ks_counts, pl_counts):
         raise AssertionError("keyed_sums: the kernel's counts differ from the plain version's")
     per = ks_counts.double()[:, None]
@@ -492,7 +494,7 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
         raise AssertionError(f"keyed_sums: means {ks_plain_gap:.3e} from the plain version's")
     ks_means = [(t.double() / per).cpu().numpy() for t in (ks_s, ks_q)]
     ks_counts = ks_counts.cpu().numpy()
-    del ks_s, ks_q, pl_s, pl_q, pl_counts, vsq
+    del ks_s, ks_q, pl_s, pl_q, pl_counts
 
     # the key factorization kernel on the same keys against torch.unique,
     # the route it replaces: equal bit for bit
@@ -572,7 +574,8 @@ def phase_aggregate(tft, rows: int = 100_000_000, dim: int = 8, nkeys: int = 16,
     _chunk_and_exact(tft)
     return {
         "segment_plan_launches": segment_launches, "mean_max_rel_err": ks_err,
-        "plain_max_rel_gap": ks_plain_gap, "shape": [rows, dim, nkeys, 2],
+        "plain_max_rel_gap": ks_plain_gap, "shape": [rows, dim, nkeys],
+        "sources": 1, "outputs": [op for _, op in loads],
     }, {"equal_to_plain": True, "shape": [rows, nkeys]}
 
 

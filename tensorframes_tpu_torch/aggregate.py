@@ -8,7 +8,10 @@ The PyTorch counterpart of `tensorframes_tpu/aggregate.py`:
   group counts in one launch of the keyed-sums kernel (`ops.keyed_sums`)
   where it takes the table, else a segment sum a fetch and a `bincount`,
   and one segment min / max / prod per other fetch (a mean is the segment
-  sum over the group counts). Taken by graphs
+  sum over the group counts). Where every fetch is a sum or mean of a fed
+  column or of its square (`_column_loads`) and the kernel takes them, the
+  transform does not run: the kernel reads each column once and squares
+  it as it loads. Taken by graphs
   `_chunk_combiners` classifies while ``config.aggregate_segment_fast`` is
   on (the default).
 - `_aggregate_exact`: rows sorted by group id once; for each distinct
@@ -43,6 +46,7 @@ from .graph.ir import Graph, base_name as _base
 from .ops import keyed_sums as _ks
 from .ops.lowering import build_callable
 from .ops.standard import segment_reduce
+from .runtime import costmodel as _cm
 from .runtime import faults as _flt
 from .runtime import scheduler as _rs
 from .schema import ScalarType
@@ -212,31 +216,93 @@ def _chunk_combiners(
 
 
 _SEGMENT_OF = {"sum": "sum", "mean": "sum", "min": "amin", "max": "amax", "prod": "prod"}
+_PLACEHOLDER_OPS = ("Placeholder", "PlaceholderV2")
 
 
-def _segment_tables(bases: List[str], outs, combiners: Dict[str, str], gid: torch.Tensor,
-                    num_groups: int, counted: bool):
+def _through_identity(graph: Graph, name: str):
+    """The node ``name`` names, past any chain of ``Identity`` nodes."""
+    node = graph[name]
+    while node.op == "Identity":
+        node = graph[node.data_inputs()[0][0]]
+    return node
+
+
+def _load_of(graph: Graph, name: str, mapping: Dict[str, str]):
+    """``(column, op)`` where the transform output ``name`` is a fed
+    column as it is (``"identity"``) or its square (``"square"``: a
+    ``Square`` of it, or a ``Mul`` of it by itself), through ``Identity``
+    chains: what the keyed-sums kernel applies as it loads
+    (`ops.keyed_sums.LOAD_OPS`). None for any other transform. ``mapping``:
+    placeholder -> column."""
+    node = _through_identity(graph, name)
+    if node.op in _PLACEHOLDER_OPS:
+        return (mapping[node.name], "identity") if node.name in mapping else None
+    ins = [src for src, _ in node.data_inputs()]
+    if not ((node.op == "Square" and len(ins) == 1) or (node.op == "Mul" and len(ins) == 2)):
+        return None
+    fed = [_through_identity(graph, src) for src in ins]
+    cols = {mapping.get(n.name) if n.op in _PLACEHOLDER_OPS else None for n in fed}
+    return (cols.pop(), "square") if len(cols) == 1 and None not in cols else None
+
+
+def _column_loads(graph: Graph, bases: List[str], combiners: Dict[str, str],
+                  mapping: Dict[str, str], columns: Dict[str, object]):
+    """The keyed-sums launch on the fed columns themselves, or None:
+    ``(sources, outputs)``, the distinct columns the fetches read (names of
+    ``columns``) and each fetch's ``(source index, op)``. Where every fetch
+    is a sum or mean of `_load_of`'s (a column, or its square): a function
+    of the graph and the feeds alone. Placeholders fed from one column read
+    it once."""
+    if any(combiners[b] not in ("sum", "mean") for b in bases):
+        return None
+    loads = [_load_of(graph, graph[b].data_inputs()[0][0], mapping) for b in bases]
+    if None in loads or any(c not in columns for c, _ in loads):
+        return None
+    sources = list(dict.fromkeys(c for c, _ in loads))
+    return sources, [(sources.index(c), op) for c, op in loads]
+
+
+def _segment_tables(graph: Graph, bases: List[str], combiners: Dict[str, str],
+                    mapping: Dict[str, str], columns: Dict[str, torch.Tensor], transform,
+                    gid: torch.Tensor, num_groups: int, counted: bool):
     """Each fetch's ``(num_groups, *cell)`` table over the group ids ``gid``
-    (both segment plans' per-device step). Where `ops.keyed_sums.takes_kernel`
-    takes the ``sum`` and ``mean`` fetches, their sums and the int64 group
-    counts come from one launch of the keyed-sums kernel (counted
-    ``aggregate.segment.kernel``); else each is a segment sum (counted
-    ``aggregate.segment.torch``), and the counts a `bincount` where
-    ``counted``. A segment min / max / prod a fetch for the others. Returns
-    ``(tables, counts)``, counts None where neither gave them."""
+    (both segment plans' per-device step), from the fed ``columns`` (column
+    -> tensor) and ``transform()``, the row-wise transform's outputs over
+    them. The ``sum`` and ``mean`` fetches are one keyed-sums launch where
+    `ops.keyed_sums.takes_launch` takes it, which also gives the int64 group
+    counts: on the columns themselves, squared as they load, where
+    `_column_loads` reads the fetches off them (the transform does not run;
+    counted ``aggregate.segment.fused``), else on the transform's outputs
+    (counted ``aggregate.segment.kernel``). The launch is counted in the
+    cost ledger as its own program kind, ``keyed_sums``. Else each is a
+    segment sum (counted ``aggregate.segment.torch``), and the counts a
+    `bincount` where ``counted``. A segment min / max / prod a fetch for the
+    others. Returns ``(tables, counts)``, counts None where neither gave
+    them."""
     summed = [i for i, b in enumerate(bases) if combiners[b] in ("sum", "mean")]
+    loads = _column_loads(graph, bases, combiners, mapping, columns)
+    outs = None
+    if loads is None:
+        outs = transform()
+        sources, outputs = [outs[i] for i in summed], [(j, "identity") for j in range(len(summed))]
+    else:
+        sources, outputs = [columns[c] for c in loads[0]], loads[1]
     tables: List[Optional[torch.Tensor]] = [None] * len(bases)
     counts = None
+    kernel = bool(summed) and _ks.takes_launch(sources, num_groups, outputs)
     if summed:
-        values = [outs[i] for i in summed]
-        kernel = _ks.takes_kernel(
-            gid.device, [v.dtype for v in values], num_groups, [_ks.row_width(v) for v in values]
-        )
-        _count(f"aggregate.segment.{'kernel' if kernel else 'torch'}")
-        if kernel:
-            sums, counts = _ks.keyed_sums(values, gid, num_groups)
-            for i, t in zip(summed, sums):
-                tables[i] = t
+        _count(f"aggregate.segment.{'fused' if loads else 'kernel'}" if kernel
+               else "aggregate.segment.torch")
+    if kernel:
+        if outs is None:
+            _tele.launching()  # the dispatch's first launch: its device timing starts here
+        sums, counts = _ks.keyed_sums(sources, gid, num_groups, outputs)
+        _cm.note_exec(("keyed_sums", graph.fingerprint()), [gid, *sources], [*sums, counts],
+                      flops=_ks.launch_flops(sources, outputs))
+        for i, t in zip(summed, sums):
+            tables[i] = t
+    elif outs is None:
+        outs = transform()
     if counts is None and counted:
         # factorized ids: every one in [0, num_groups)
         counts = torch.bincount(gid, minlength=num_groups)
@@ -263,19 +329,24 @@ def _aggregate_segment(
 ) -> TensorFrame:
     """Sort-free keyed aggregation for classified monoid graphs: the
     row-wise transforms over all rows in one call, then the tables over
-    int64 group ids (`_segment_tables`). Float sums differ from the exact
-    plan's by summation order only."""
+    int64 group ids (`_segment_tables`; on the card the sums of a column
+    and of its square skip the transform). Float sums differ from the
+    exact plan's by summation order only."""
     frame = grouped.frame
     key_out, gid, num_groups = _factorized(grouped, device)
     bases = [_base(f) for f in fetch_list]
     # the data operand of each root reduce = the row-wise transform output
     roots = [graph[b].data_inputs()[0][0] for b in bases]
     transform = ex.callable_for(graph, roots, feed_names, device)
-    feeds = [as_tensor(frame.column(mapping[n]).values, device) for n in feed_names]
+    # a column fed to several placeholders is made a tensor once
+    columns = {c: as_tensor(frame.column(c).values, device)
+               for c in dict.fromkeys(mapping[n] for n in feed_names)}
 
     def segment():
-        tables, counts = _segment_tables(bases, transform(*feeds), combiners, gid, num_groups,
-                                         "mean" in combiners.values())
+        tables, counts = _segment_tables(
+            graph, bases, combiners, mapping, columns,
+            lambda: transform(*[columns[mapping[n]] for n in feed_names]), gid, num_groups,
+            "mean" in combiners.values())
         return {
             b: _per_count(t, counts) if combiners[b] == "mean" else t
             for b, t in zip(bases, tables)

@@ -208,7 +208,9 @@ def aggregate(
     then the tables over the global group ids (`aggregate._segment_tables`:
     one keyed-sums launch for the sum and mean fetches, with the group
     counts, where the kernel takes them, else a segment sum each, and a
-    segment reduce for each other fetch). The tables
+    segment reduce for each other fetch; one launch on the shard's columns,
+    and no transform, where `aggregate._column_loads` reads them off the
+    fed columns). The tables
     combine on the first device in shard order by each fetch's monoid (an
     empty group's entry is the monoid's identity); a mean is the summed
     tables over the group counts (the kernel's, summed over the parts, else
@@ -261,8 +263,9 @@ def aggregate(
         g = gid[lo:hi].to(devs[d])
         # a column fed to several placeholders crosses to the device once
         moved = {c: as_tensor(frame.column(c).values[lo:hi], devs[d]) for c in set(cols)}
-        return _segment_tables(bases, transforms[d](*[moved[c] for c in cols]), combiners, g,
-                               num_groups, False)
+        return _segment_tables(graph, bases, combiners, mapping, moved,
+                               lambda: transforms[d](*[moved[c] for c in cols]), g, num_groups,
+                               False)
 
     def combined():
         per_part = [tables(*p) for p in parts]  # every part issued before any combine

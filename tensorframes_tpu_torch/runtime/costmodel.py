@@ -463,10 +463,13 @@ _tele.on_run_end(_count_run)
 
 
 def note_exec(key: Tuple, args, out, verb: Optional[str] = None,
-              sig: Optional[Tuple] = None) -> None:
+              sig: Optional[Tuple] = None, flops: Optional[float] = None) -> None:
     """Count one execution of a cached program against its (kind, shape)
     cell and update the per-verb footprint high-water mark: one locked
     dict update (the byte counts are read at a cell's first execution).
+    ``flops``: the cost of a launch no meta replay counts (a hand-written
+    kernel's), set on a cell that has none at its first execution: these
+    flops, no transcendentals, and its operands' and results' bytes.
     Never raises."""
     if not enabled():
         return
@@ -487,6 +490,10 @@ def note_exec(key: Tuple, args, out, verb: Optional[str] = None,
                     ent["out_bytes"] = _nbytes(_tensors(out))
                 if ent["rows"] is None:
                     ent["rows"] = _lead_rows(ins)
+            if flops is not None and ent["flops"] is None:
+                ent["flops"], ent["transcendentals"] = float(flops), 0.0
+                ent["bytes_accessed"] = float(ent["arg_bytes"] + ent["out_bytes"])
+                ent["phase"] = ent["phase"] or "modeled"
             if verb:
                 footprint = ent["arg_bytes"] + ent["out_bytes"] + (ent["temp_bytes"] or 0)
                 peak = _verb_peaks.get(verb)

@@ -306,7 +306,7 @@ def test_segment_plan_launches_each_pass_once_a_call(card):
     reset_stats()
     before = dict(fk.factorize.launches)
     out = tft.aggregate([m, q], grouped, feed_dict=feed, device=card)
-    assert stats() == {"aggregate.plan.segment": 1.0, "aggregate.segment.kernel": 1.0,
+    assert stats() == {"aggregate.plan.segment": 1.0, "aggregate.segment.fused": 1.0,
                        "factorize.kernel": 1.0}
     assert fk.factorize.launches == {k: v + 1 for k, v in before.items()}
     np.testing.assert_array_equal(out.host_values("k"), np.arange(16))
