@@ -177,10 +177,16 @@ version by the ``card`` tests (README, "On the card").
     heads (head_dim 128, 256 and 15; d_model 240 for the last) and phase
     19's ``mesh=`` ring at head_dim 15 and 256, each against the plain
     attention, their launches counted apart from the main path's;
-22. one JSON line listing every kernel with its source, its launches on
+22. the KDA recurrence (`ops.kda`, one launch of ``csrc/kda.cu``) at the
+    ``kimilinear.score.s4096`` cell's shape (1 sequence of 4,096 tokens,
+    32 heads of 128), its inputs drawn as `KimiLinearLM` makes them (q and
+    k L2-normalised per head, the decay from the A_log and dt_bias laws,
+    beta a sigmoid), against `kda_reference` on the same tensors;
+23. one JSON line listing every kernel with its source, its launches on
     the main path (phases 3-18 and 20) and their routes, the errors of
-    phase 19's checks and the ring's launches, and phase 21's launches;
-23. as the last line, ``{"ok": true, "device": {...}}``.
+    phase 19's checks and the ring's launches, phase 21's launches, and
+    phase 22's;
+24. as the last line, ``{"ok": true, "device": {...}}``.
 
 Phases 3-17 run with ``block_scheduler="off"``: they run on one card.
 Phases 8-18 and 20 run after phase 6 and before phase 7. Phases 3-6, 8-18
@@ -3941,6 +3947,70 @@ def phase_attention_widths(tft, cfg, n_seqs: int, block_seqs: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the KDA recurrence at the Kimi-Linear cell's shape
+# ---------------------------------------------------------------------------
+
+# the recurrence's tolerance against its plain version (tests/test_torch_kda_card.py):
+# both float32, a step's 128 products summed in other orders
+_KDA_RTOL, _KDA_ATOL = 1e-4, 2e-5
+# operations a state element a token-head (the decay, S'^T k, S^T q, the
+# update's multiply-add), and the card's float32 and HBM peaks
+_KDA_OPS, _F32_FLOPS, _HBM_BYTES_S = 7, 67e12, 3.35e12
+
+
+def phase_kda(batch: int = 1, seq: int = 4096, heads: int = 32, dim: int = 128,
+              hidden: int = 2304) -> dict:
+    """Phase 22: one `kda` launch at Kimi-Linear-48B-A3B's KDA shape, its
+    inputs drawn at the model's scales: the projections of unit-RMS rows
+    through std-0.02 weights of width ``hidden`` (the decay's through a
+    low rank of ``dim``), q, k and v through the 4-tap filters' spread and
+    SiLU, q and k L2-normalised as `KimiLinearLM` does, g = -exp(A_log) ·
+    softplus(. + dt_bias) with A_log = log U(1, 16) and dt_bias =
+    softplus^-1(exp U(log 1e-3, log 1e-1)), beta a sigmoid. Held against
+    `kda_reference` on the same tensors. Returns the kernels line's
+    entry."""
+    import torch.nn.functional as F
+    from tensorframes_tpu_torch.models.kimi_linear import _L2_EPS
+    from tensorframes_tpu_torch.ops.kda import kda, kda_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (batch, seq, heads, dim)
+    proj = 0.02 * hidden ** 0.5  # a product's spread: unit rows, std-0.02 weights
+
+    def draw(*size, std=1.0):
+        return torch.randn(*size, generator=gen, device=dev) * std
+
+    # 4 taps of U(-1/2, 1/2): the convolution's spread sqrt(4/12)
+    q, k, v = (F.silu(draw(*shape, std=proj * (4 / 12) ** 0.5)) for _ in range(3))
+    q, k = (t * torch.rsqrt(t.pow(2).sum(-1, keepdim=True) + _L2_EPS) for t in (q, k))
+    a_log = torch.rand(heads, generator=gen, device=dev).mul_(15.0).add_(1.0).log_()
+    dt_bias = torch.rand(heads * dim, generator=gen, device=dev)
+    dt_bias = dt_bias.mul_(math.log(1e-1) - math.log(1e-3)).add_(math.log(1e-3)).exp_()
+    dt_bias = dt_bias + torch.log(-torch.expm1(-dt_bias))
+    dt = draw(batch, seq, heads * dim, std=proj * 0.02 * dim ** 0.5)
+    g = F.softplus(dt + dt_bias).view(shape) * -a_log.exp()[:, None]
+    beta = torch.sigmoid(draw(batch, seq, heads, std=proj))
+    args = (q, k, g, beta, v)
+    kda.launches = 0
+    got = kda(*args)
+    torch.cuda.synchronize()
+    launches = kda.launches
+    if launches != 1:
+        raise AssertionError(f"kda: {launches} kernel launches for one call, expected 1")
+    err = _check_close("kda vs kda_reference", got, kda_reference(*args), _KDA_RTOL, _KDA_ATOL)
+    rows = batch * seq * heads
+    t_ops = _KDA_OPS * dim * dim * rows / _F32_FLOPS
+    t_bytes = (5 * dim + 1) * rows * 4 / _HBM_BYTES_S
+    out = dict(shape=list(shape), launches=launches, max_abs_err=err,
+               tolerance={"rtol": _KDA_RTOL, "atol": _KDA_ATOL},
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    _emit("kda", **out)
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
@@ -4014,6 +4084,8 @@ def main(argv) -> int:
         phase_parallel_models(cfg, lm_shape, cards=torch.cuda.device_count())
     # phase 21 counts its launches apart, from 0 before each LM
     widths = phase_attention_widths(tft, cfg, n_seqs, block_seqs)
+    torch.cuda.empty_cache()
+    recurrence = phase_kda()
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -4054,6 +4126,13 @@ def main(argv) -> int:
         "replaces": None,
         "launches": dict(factorize_keys.launches),
         **factorized,
+    }, {
+        "name": "kda",
+        "route": "cuda",
+        "source": "tensorframes_tpu_torch/csrc/kda.cu",
+        # Kimi-Linear's recurrence; the JAX package has no such layer
+        "replaces": None,
+        **recurrence,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,6 +2,7 @@
 
 from .deepseek_v2 import DeepSeekV2LM
 from .inception import InceptionLite
+from .kimi_linear import KimiLinearLM
 from .kmeans import kmeans
 from .mlp import MLP
 from .moe import MoEFFN, RoutedExperts
@@ -9,6 +10,6 @@ from .training import init_opt_state, make_train_step
 from .transformer import TransformerLM
 
 __all__ = [
-    "DeepSeekV2LM", "InceptionLite", "MLP", "MoEFFN", "RoutedExperts", "TransformerLM",
-    "init_opt_state", "kmeans", "make_train_step",
+    "DeepSeekV2LM", "InceptionLite", "KimiLinearLM", "MLP", "MoEFFN", "RoutedExperts",
+    "TransformerLM", "init_opt_state", "kmeans", "make_train_step",
 ]

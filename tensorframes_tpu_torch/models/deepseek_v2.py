@@ -45,7 +45,7 @@ as it is (no copy): a 15.7B-parameter model is drawn on the card once.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,7 +54,7 @@ from torch import nn
 from ..ops.flash_attention import flash_attention
 from .moe import RoutedExperts
 
-__all__ = ["DeepSeekV2LM", "softmax_scale", "weight_shapes", "yarn_inv_freq"]
+__all__ = ["DeepSeekV2LM", "mla_attention", "softmax_scale", "weight_shapes", "yarn_inv_freq"]
 
 
 def _yarn_mscale(scale: float, mscale: float) -> float:
@@ -171,6 +171,35 @@ def _rotate_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torc
     return torch.stack([x0 * cos - x1 * sin, x1 * cos + x0 * sin], dim=-1).flatten(-2)
 
 
+def mla_attention(p, i: int, x: torch.Tensor, w: Dict[str, int], eps: float, scale: float,
+                  rope: Optional[Tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
+    """Layer i's multi-head latent attention on normed (B, S, d) input ->
+    (B, S, d), with the weights ``p`` and widths ``w`` of the module
+    docstring: one causal `flash_attention` launch over (B · H, S, nope +
+    pe), V zero-padded to that width. ``rope`` is the (cos, sin) of
+    `_rotate_pairs` that rotates the ``pe`` columns of q and k_pe, or None
+    to leave them as they are (Kimi-Linear's ``mla_use_nope``)."""
+    B, S, _ = x.shape
+    H, nope, pe, vd = w["heads"], w["nope"], w["pe"], w["vd"]
+    dq = nope + pe
+    q = (x @ p[f"l{i}_q"]).view(B, S, H, dq).transpose(1, 2)  # (B, H, S, dq)
+    c_kv, k_pe = (x @ p[f"l{i}_kv_a"]).split([w["lora"], pe], dim=-1)
+    kv = (_rms_norm(c_kv, p[f"l{i}_kv_norm"], eps) @ p[f"l{i}_kv_b"])
+    kv = kv.view(B, S, H, nope + vd).transpose(1, 2)  # (B, H, S, nope + vd)
+    qs = torch.empty(B, H, S, dq, device=x.device)
+    qs[..., :nope] = q[..., :nope]
+    qs[..., nope:] = q[..., nope:] if rope is None else _rotate_pairs(q[..., nope:], *rope)
+    ks = torch.empty_like(qs)
+    ks[..., :nope] = kv[..., :nope]
+    ks[..., nope:] = (k_pe if rope is None else _rotate_pairs(k_pe, *rope)).unsqueeze(1)
+    vs = torch.zeros_like(qs)
+    vs[..., :vd] = kv[..., nope:]
+    out = flash_attention(qs.view(B * H, S, dq), ks.view(B * H, S, dq),
+                          vs.view(B * H, S, dq), causal=True, scale=scale)
+    out = out.view(B, H, S, dq)[..., :vd].transpose(1, 2).reshape(B, S, H * vd)
+    return out @ p[f"l{i}_o"]
+
+
 class DeepSeekV2LM(nn.Module):
     """(B, S) int tokens -> (B, S, vocab) float32 logits of a DeepSeek-V2
     model. ``config`` is the published ``config.json`` as a dict;
@@ -180,22 +209,31 @@ class DeepSeekV2LM(nn.Module):
     def __init__(self, config: Dict, params: Dict[str, torch.Tensor]):
         super().__init__()
         self.config = dict(config)
-        self.w = _widths(config)
-        shapes = weight_shapes(config)
+        self.w = self.widths(config)
+        shapes = self.weight_shapes(config)
         missing = sorted(set(shapes) - set(params))
         wrong = {k: tuple(params[k].shape) for k in shapes
                  if k in params and tuple(params[k].shape) != shapes[k]}
         if missing or wrong:
-            raise ValueError(f"DeepSeekV2LM: weights missing {missing}, misshapen {wrong}")
+            raise ValueError(f"{type(self).__name__}: weights missing {missing}, "
+                             f"misshapen {wrong}")
         self.params = nn.ParameterDict(
             {k: nn.Parameter(params[k], requires_grad=False) for k in shapes})
         self.eps = config["rms_norm_eps"]
         self.scale = softmax_scale(config)
-        self.experts = RoutedExperts(config["num_experts_per_tok"],
-                                     bool(config.get("norm_topk_prob")),
-                                     float(config.get("routed_scaling_factor", 1.0)))
+        self.experts = self.routed_experts(config)
         self.inv_freq, _ = yarn_inv_freq(config)
         self._rope: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    # what a model of this family reads from its configuration (a subclass of
+    # another family overrides them): its widths, its weights, its expert layer
+    widths = staticmethod(_widths)
+    weight_shapes = staticmethod(weight_shapes)
+
+    @staticmethod
+    def routed_experts(config: Dict) -> RoutedExperts:
+        return RoutedExperts(config["num_experts_per_tok"], bool(config.get("norm_topk_prob")),
+                             float(config.get("routed_scaling_factor", 1.0)))
 
     def _cos_sin(self, seq: int, device: torch.device):
         """float32 cos and sin (S, pe/2) of position × inv_freq, times
@@ -208,30 +246,16 @@ class DeepSeekV2LM(nn.Module):
         return self._rope[key]
 
     def attention(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        """Layer i's MLA on normed (B, S, d) input -> (B, S, d): one causal
-        `flash_attention` launch over (B · H, S, nope + pe), V zero-padded
-        to that width."""
-        p, w = self.params, self.w
-        B, S, _ = x.shape
-        H, nope, pe, vd = w["heads"], w["nope"], w["pe"], w["vd"]
-        dq = nope + pe
-        cos, sin = self._cos_sin(S, x.device)
-        q = (x @ p[f"l{i}_q"]).view(B, S, H, dq).transpose(1, 2)  # (B, H, S, dq)
-        c_kv, k_pe = (x @ p[f"l{i}_kv_a"]).split([w["lora"], pe], dim=-1)
-        kv = (_rms_norm(c_kv, p[f"l{i}_kv_norm"], self.eps) @ p[f"l{i}_kv_b"])
-        kv = kv.view(B, S, H, nope + vd).transpose(1, 2)  # (B, H, S, nope + vd)
-        qs = torch.empty(B, H, S, dq, device=x.device)
-        qs[..., :nope] = q[..., :nope]
-        qs[..., nope:] = _rotate_pairs(q[..., nope:], cos, sin)
-        ks = torch.empty_like(qs)
-        ks[..., :nope] = kv[..., :nope]
-        ks[..., nope:] = _rotate_pairs(k_pe, cos, sin).unsqueeze(1)
-        vs = torch.zeros_like(qs)
-        vs[..., :vd] = kv[..., nope:]
-        out = flash_attention(qs.view(B * H, S, dq), ks.view(B * H, S, dq),
-                              vs.view(B * H, S, dq), causal=True, scale=self.scale)
-        out = out.view(B, H, S, dq)[..., :vd].transpose(1, 2).reshape(B, S, H * vd)
-        return out @ p[f"l{i}_o"]
+        """Layer i's MLA on normed (B, S, d) input -> (B, S, d)
+        (`mla_attention`, the ``pe`` columns rotated)."""
+        return mla_attention(self.params, i, x, self.w, self.eps, self.scale,
+                             self._cos_sin(x.shape[1], x.device))
+
+    def expert_weights(self, i: int) -> Dict[str, torch.Tensor]:
+        """Layer i's weights as `RoutedExperts` takes them."""
+        p = self.params
+        return {"router": p[f"l{i}_router"], "gate_up": p[f"l{i}_experts_gate_up"],
+                "down": p[f"l{i}_experts_down"]}
 
     def shared_experts(self, i: int, x: torch.Tensor) -> torch.Tensor:
         """Layer i's shared experts on (N, d) normed rows (zero without any)."""
@@ -248,9 +272,7 @@ class DeepSeekV2LM(nn.Module):
         if i < self.w["dense"]:
             return _swiglu(x, p[f"l{i}_gate"], p[f"l{i}_up"], p[f"l{i}_down"]), None
         flat = x.reshape(-1, x.shape[-1])
-        routed, experts = self.experts(
-            {"router": p[f"l{i}_router"], "gate_up": p[f"l{i}_experts_gate_up"],
-             "down": p[f"l{i}_experts_down"]}, flat)
+        routed, experts = self.experts(self.expert_weights(i), flat)
         return (routed + self.shared_experts(i, flat)).view_as(x), experts
 
     def forward(self, tokens: torch.Tensor, routing: bool = False):

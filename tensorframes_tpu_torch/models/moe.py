@@ -24,7 +24,7 @@ expert's SwiGLU computed only on the rows routed to it (see its docstring).
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -138,13 +138,25 @@ class MoEFFN(nn.Module):
 
 
 def route(
-    logits: torch.Tensor, top_k: int, norm_topk_prob: bool = False, scaling: float = 1.0
+    logits: torch.Tensor, top_k: int, norm_topk_prob: bool = False, scaling: float = 1.0,
+    scoring: str = "softmax", bias: Optional[torch.Tensor] = None,
 ):
-    """DeepSeek-V2's greedy router on (N, E) float32 gate logits: a softmax
-    over all E, the top k of it (``(weights, experts)``, each (N, k),
-    largest first); with ``norm_topk_prob`` the k weights are renormalised
-    to sum to 1, then multiplied by ``scaling`` (``routed_scaling_factor``)."""
-    weights, experts = torch.softmax(logits, dim=-1).topk(top_k, dim=-1)
+    """The greedy router on (N, E) float32 gate logits: ``(weights,
+    experts)``, each (N, k), largest choice first. ``scoring`` "softmax"
+    (DeepSeek-V2): a softmax over all E, and its top k. "sigmoid"
+    (DeepSeek-V3's ``noaux_tc`` with one group, Kimi-Linear): each logit's
+    sigmoid s, the experts chosen by the top k of s + ``bias`` (E,), the
+    per-expert selection bias, and weighted by s alone. With
+    ``norm_topk_prob`` the k weights are renormalised to sum to 1, then
+    multiplied by ``scaling`` (``routed_scaling_factor``)."""
+    if scoring == "softmax":
+        weights, experts = torch.softmax(logits, dim=-1).topk(top_k, dim=-1)
+    elif scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+        experts = (scores + bias).topk(top_k, dim=-1).indices
+        weights = scores.gather(1, experts)
+    else:
+        raise ValueError(f"route: scoring {scoring!r} (softmax or sigmoid)")
     if norm_topk_prob:
         weights = weights / weights.sum(dim=-1, keepdim=True)
     return weights * scaling if scaling != 1.0 else weights, experts
@@ -154,67 +166,90 @@ class RoutedExperts:
     """Routed SwiGLU experts, computed sparsely: x -> sum over a token's
     top-k experts e of ``w_e * down_e(silu(x @ gate_e) * (x @ up_e))``.
 
-    The weights come as a dict: ``router`` (d, E), ``gate_up`` (E, d, 2h),
-    each expert's gate and up side by side (gate first, as checkpoint
-    loaders that fuse them lay them out), and ``down`` (E, h, d). Dispatch,
-    for N tokens:
+    The weights come as a dict: ``router`` (d, E), ``gate_up`` (H, d, 2h),
+    each held expert's gate and up side by side (gate first, as checkpoint
+    loaders that fuse them lay them out), ``down`` (H, h, d), and with the
+    ``sigmoid`` scoring ``bias`` (E,), the selection bias (`route`). The
+    layer routes over all E experts and holds those of ``held`` = (lo, hi),
+    H = hi - lo of them (by default all E): a chip's share of a layer whose
+    experts are divided over chips. It computes the pairs routed to the
+    experts it holds and leaves out the others' part of the result; without
+    the exchange of expert parallelism, what the other chips would add is
+    absent. Dispatch, for N tokens:
 
     - ``moe.route`` (a span timed on the card): the gate logits in float32,
       `route`, then the N * k (token, expert) pairs sorted by expert (a
-      stable sort, so an expert's rows keep token order), their rows
-      gathered into one (N * k, d) tensor, and the per-expert counts read on
-      the host: one synchronisation a layer, counted ``moe.host_syncs``.
-    - ``moe.experts``: for each expert with rows, its gate and up as one
-      product of width 2h on its own contiguous slice of the gathered rows
-      (an expert's ~200 rows leave most of the card idle in a product of
-      width h), the SwiGLU once over all the rows, then each expert's down
-      product on its slice, written in place into one (N * k, d) output.
-      No capacity limit: every pair is computed once, no token is dropped
+      stable sort, so an expert's rows keep token order), the per-expert
+      counts read on the host (one synchronisation a layer, counted
+      ``moe.host_syncs``), and the rows of the held experts' pairs, one
+      slice of the sorted pairs, gathered into one tensor.
+    - ``moe.experts``: for each held expert with rows, its gate and up as
+      one product of width 2h on its own contiguous slice of the gathered
+      rows (an expert's ~200 rows leave most of the card idle in a product
+      of width h), the SwiGLU once over all the rows, then each expert's
+      down product on its slice, written in place into one output. No
+      capacity limit: every held pair is computed once, no token is dropped
       and no expert sees a row not routed to it.
-    - ``moe.combine``: the outputs put back in pair order and summed over
-      each token's k pairs with their routing weights (a fixed order, no
-      atomics).
+    - ``moe.combine``: the outputs put back in pair order (zero at the pairs
+      of experts not held) and summed over each token's k pairs with their
+      routing weights (a fixed order, no atomics).
 
     Returns the (N, d) output and the (N, k) experts each token was routed
-    to. Counters (`utils.profiling`): ``moe.layers`` one a call,
-    ``moe.routed_pairs`` the rows the experts computed (N * k),
-    ``moe.max_expert_rows`` the largest expert's rows, ``moe.host_syncs``."""
+    to, numbered 0..E-1. Counters (`utils.profiling`): ``moe.layers`` one a
+    call, ``moe.routed_pairs`` the rows the experts computed (N * k where
+    every expert is held), ``moe.foreign_pairs`` the pairs routed to experts
+    not held (the two add up to N * k), ``moe.max_expert_rows`` the largest
+    held expert's rows, ``moe.host_syncs``."""
 
-    def __init__(self, top_k: int, norm_topk_prob: bool = False, scaling: float = 1.0):
+    def __init__(self, top_k: int, norm_topk_prob: bool = False, scaling: float = 1.0,
+                 scoring: str = "softmax", held: Optional[Tuple[int, int]] = None):
         self.top_k, self.norm_topk_prob, self.scaling = top_k, norm_topk_prob, scaling
+        self.scoring, self.held = scoring, held
 
     def __call__(self, w: Dict[str, torch.Tensor], x: torch.Tensor):
         """(N, d) float32 tokens -> ((N, d) output, (N, k) experts)."""
         n, d = x.shape
         k, dev = self.top_k, x.device
+        lo, hi = self.held or (0, w["router"].shape[1])
+        if w["gate_up"].shape[0] != hi - lo or w["down"].shape[0] != hi - lo:
+            raise ValueError(f"RoutedExperts: weights of {w['gate_up'].shape[0]} experts for "
+                             f"the held range {lo}..{hi}")
+        # the softmax rule takes the four arguments it always took
+        scoring = () if self.scoring == "softmax" else (self.scoring, w["bias"])
         with _tele.span("moe.route", kind="stage", torch_device=dev, tokens=n):
-            weights, experts = route(x @ w["router"], k, self.norm_topk_prob, self.scaling)
+            weights, experts = route(x @ w["router"], k, self.norm_topk_prob, self.scaling,
+                                     *scoring)
             pairs = experts.reshape(-1)
             order = torch.argsort(pairs, stable=True)
-            counts = torch.bincount(pairs, minlength=w["router"].shape[1])
-            rows = x.index_select(0, order // k)
-            counts = counts.tolist()
+            counts = torch.bincount(pairs, minlength=w["router"].shape[1]).tolist()
             _count("moe.host_syncs")
+            first, held = sum(counts[:lo]), counts[lo:hi]
+            computed = sum(held)
+            order = order[first:first + computed]  # the held experts' pairs
+            rows = x.index_select(0, order // k)
         with _tele.span("moe.experts", kind="stage", torch_device=dev):
             h = w["down"].shape[1]
             # per-expert views made at once: the loops index no stacked tensor
             gate_up, down = w["gate_up"].unbind(0), w["down"].unbind(0)
-            slices, computed = [], 0  # (expert, first row, end) of each expert with rows
-            for e, m in enumerate(counts):
+            slices, at = [], 0  # (held expert, first row, end) of each with rows
+            for e, m in enumerate(held):
                 if m:
-                    slices.append((e, computed, computed + m))
-                    computed += m
+                    slices.append((e, at, at + m))
+                    at += m
             t = rows.new_empty(len(rows), 2 * h)
-            for e, lo, hi in slices:
-                torch.mm(rows[lo:hi], gate_up[e], out=t[lo:hi])
+            for e, r0, r1 in slices:
+                torch.mm(rows[r0:r1], gate_up[e], out=t[r0:r1])
             a = F.silu(t[:, :h]).mul_(t[:, h:])
             out = torch.empty_like(rows)
-            for e, lo, hi in slices:
-                torch.mm(a[lo:hi], down[e], out=out[lo:hi])
+            for e, r0, r1 in slices:
+                torch.mm(a[r0:r1], down[e], out=out[r0:r1])
         with _tele.span("moe.combine", kind="stage", torch_device=dev):
-            y = torch.empty_like(out).index_copy_(0, order, out).view(n, k, d)
+            # every pair's row written where every pair is held, else zeros
+            fill = torch.empty if computed == n * k else torch.zeros
+            y = fill(n * k, d, dtype=out.dtype, device=dev).index_copy_(0, order, out).view(n, k, d)
             y = torch.bmm(weights.unsqueeze(1), y).squeeze(1)
         _count("moe.layers")
         _count("moe.routed_pairs", computed)
-        _count("moe.max_expert_rows", max(counts))
+        _count("moe.foreign_pairs", n * k - computed)
+        _count("moe.max_expert_rows", max(held, default=0))
         return y, experts

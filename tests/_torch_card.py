@@ -4,7 +4,8 @@ A test file that uses it imports no JAX, so the card's machine, which has
 none, runs it without the repository's conftest (which imports JAX):
 
     python3 -m pytest tests/test_torch_keyed_sums.py tests/test_torch_factorize_keys.py \\
-        tests/test_torch_flash_attention_card.py -m card --noconftest -p no:cacheprovider
+        tests/test_torch_flash_attention_card.py tests/test_torch_kda_card.py -m card \\
+        --noconftest -p no:cacheprovider
 
 Import the fixture into the test module (``from _torch_card import
 card``); pytest finds it there.
@@ -24,7 +25,8 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: run on the card with python3 -m pytest "
                     "tests/test_torch_keyed_sums.py tests/test_torch_factorize_keys.py "
-                    "tests/test_torch_flash_attention_card.py -m card --noconftest")
+                    "tests/test_torch_flash_attention_card.py tests/test_torch_kda_card.py -m card "
+                    "--noconftest")
     return torch.device("cuda", 0)
 
 

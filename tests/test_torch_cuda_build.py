@@ -15,7 +15,7 @@ from pathlib import Path
 import pytest
 
 from tensorframes_tpu_torch.ops import _cuda_build
-from tensorframes_tpu_torch.ops import factorize_keys, flash_attention, keyed_sums
+from tensorframes_tpu_torch.ops import factorize_keys, flash_attention, kda, keyed_sums
 
 _CSRC = Path(_cuda_build.__file__).resolve().parent.parent / "csrc"
 
@@ -40,6 +40,7 @@ def _c_entries(*files):
 _TABLES = [
     ("keyed_sums", keyed_sums._ENTRIES, _c_entries("keyed_sums.cu")),
     ("factorize_keys", factorize_keys._ENTRIES, _c_entries("factorize_keys.cu")),
+    ("kda", kda._ENTRIES, _c_entries("kda.cu")),
 ] + [
     (f"flash_attention_{sfx}", flash_attention._ENTRIES[sfx],
      {name.replace("##SUFFIX", sfx): decl
